@@ -10,13 +10,19 @@
    plain version and (where one PyTorch call computes the same function) the
    library call with CUDA events. A disagreement beyond the stated
    tolerance fails the run.
-3. Drives the main path: `greedy_generate` of VQAModel(default_config()) in
-   bf16 with seeded random weights on bench.py's inputs (6 views at 1024²,
-   BEV [1, 128, 180, 180], 24 prompt tokens, 32 new tokens). Launch counts
-   are reset just before a run and read just after it, and must equal the
-   counts derived from the model (every kernel of the path launched). The
-   tokens of repeated runs must agree, and the prefill logits must be finite
-   and agree with the same weights run through the plain PyTorch path.
+3. Drives the float main path: `greedy_generate` of
+   VQAModel(default_config()) in bf16 with seeded random weights on
+   bench.py's inputs (6 views at 1024², BEV [1, 128, 180, 180], 24 prompt
+   tokens, 32 new tokens). Launch counts are reset just before a run and
+   read just after it, and must equal the counts derived from the model
+   (every kernel of the path launched). The tokens of repeated runs must
+   agree, and the prefill logits must be finite and agree with the same
+   weights run through the plain PyTorch path.
+4. Drives bench.py's serving path the same way: quant8 on SAM and CLIP
+   (the W8A8 MLP kernel under LVV_Q8_SCOPE "mlp"), the same seeded weights,
+   and the packed int8 decode (prepare_serving_params_fused). Its prefill
+   logits and first decode step's logits must agree with the same path with
+   every kernel swapped for its plain version.
 
 Prints the per-kernel JSON line, then the card line, then as its last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no result
@@ -35,6 +41,7 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+INT8_OPS = 1979e12                 # dense int8 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 # Kernel vs plain version, both bf16 out of fp32 math. Elementwise
 # |err| <= BF16_TOL * (|plain| + rms(plain)): 4 bf16 ulps of the value, or
@@ -47,6 +54,16 @@ FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 # elements that are near 0.
 BF16_TOL = 1.0 / 32
 REL_L2_TOL = 1.0 / 128
+# The W8A8 MLP (K-f) against its plain version: the same elementwise rule,
+# which admits an int8 rounding flip (kernel and plain version compute LN
+# and the activation in another order, so a value on a rounding boundary of
+# y8 or h8 may land one step apart; one flip moves an output by at most one
+# or two bf16 ulps), and a relative L2 of 1/512 over the output. Flips are
+# rare and leave the relative L2 near 3e-4; a wrong scale moves every
+# output: a single whole-row scale of h for CLIP's two 2048-wide chunks
+# gives ~7e-3, which the elementwise rule alone would pass
+# (tests/test_torch_gpu.py::test_q8_tolerance_sees_a_wrong_h_scale).
+Q8_REL_L2_TOL = 1.0 / 512
 NEW_TOKENS, PROMPT_LEN, EOS_ID = 32, 24, 2
 
 
@@ -84,6 +101,7 @@ def kernel_cases(torch):
     import torch.nn.functional as F
     from lvv_tpu_torch.ops import attention as A
     from lvv_tpu_torch.ops import fused_mlp as M
+    from lvv_tpu_torch.ops import quant as Q
     dev, bf = "cuda", torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -115,6 +133,54 @@ def kernel_cases(torch):
                                                       act=act),
                 library=None, flops=4 * n * c * h, peak=BF16_FLOPS,
                 bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h))
+        return setup
+
+    def q8_case(n, c, h, act):
+        # the function as the model calls it: float weights in, quantized
+        # per call by the wrapper, then the kernel
+        def setup():
+            x = rnd(n, c)
+            p = (1 + rnd(c, std=0.1), rnd(c, std=0.1),
+                 rnd(c, h, std=c ** -0.5), rnd(h, std=0.1),
+                 rnd(h, c, std=h ** -0.5), rnd(c, std=0.1))
+            case = dict(
+                kernel=lambda: M.ln_mlp_residual_q8(x, *p, eps=1e-6, act=act),
+                plain=lambda: M.ln_mlp_residual_q8_plain(x, *p, eps=1e-6,
+                                                         act=act),
+                library=None, flops=4 * n * c * h, peak=INT8_OPS,
+                bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h),
+                rel_l2_tol=Q8_REL_L2_TOL)
+            if M.q8_block_h(c, h, 2) < h:      # h has per-chunk row scales
+                case["trap"] = lambda: M.ln_mlp_residual_q8_plain(
+                    x, *p, eps=1e-6, act=act, block_h=h)
+            return case
+        return setup
+
+    def int8_case(m, k, n, nk=False):
+        # The decode streams ~0.5 GB of int8 weights a step, so each product
+        # finds its weight outside the 50 MB L2: the timed calls rotate
+        # through enough copies of the weight to exceed it.
+        def setup():
+            x = rnd(m, k)
+            weights = []
+            for _ in range(max(1, -(-128 * 2 ** 20 // (k * n)))):
+                if nk:      # the tied table [n, k], per-row scales
+                    t = Q.quantize_rows_table(rnd(n, k, std=0.02))
+                    weights.append((t["q"], t["s"]))
+                else:
+                    weights.append(Q.quantize_weight(rnd(k, n, std=k ** -0.5)))
+            fn, plain = ((Q.quantized_matmul_nk, Q.quantized_matmul_nk_plain)
+                         if nk else
+                         (Q.quantized_matmul, Q.quantized_matmul_plain))
+            turn = iter(range(10 ** 9))
+
+            def rotating(f):
+                return lambda: f(x, *weights[next(turn) % len(weights)])
+            return dict(kernel=lambda: fn(x, *weights[0]),
+                        plain=lambda: plain(x, *weights[0]),
+                        timed_kernel=rotating(fn), timed_plain=rotating(plain),
+                        library=None, flops=2 * m * k * n, peak=FP32_FLOPS,
+                        bytes=k * n + 4 * n + 2 * (m * k + m * n))
         return setup
 
     def flash_case(sq, sk, hq, hkv, d, causal):
@@ -158,6 +224,7 @@ def kernel_cases(torch):
         return setup
 
     decode = NEW_TOKENS * 49
+    layer_steps = 24 * NEW_TOKENS
     return [
         ("norm", "LN SAM [24576,768]", 12, norm_case(24576, 768, False)),
         ("norm", "LN SAM neck [24576,256]", 2, norm_case(24576, 256, False)),
@@ -183,6 +250,20 @@ def kernel_cases(torch):
          relpos_case(150, 14, 12, 64)),
         ("relpos_attention[64x64]", "global [6,4096,2304] 12h d64", 4,
          relpos_case(6, 64, 12, 64)),
+        ("ln_mlp_residual_q8", "SAM [24576,768]x[768,3072] gelu", 12,
+         q8_case(24576, 768, 3072, "gelu")),
+        ("ln_mlp_residual_q8", "CLIP [1542,1024]x[1024,4096] quick_gelu", 24,
+         q8_case(1542, 1024, 4096, "quick_gelu")),
+        ("int8_matmul", "decode qkv [1,896]x[896,1152]", layer_steps,
+         int8_case(1, 896, 1152)),
+        ("int8_matmul", "decode o [1,896]x[896,896]", layer_steps,
+         int8_case(1, 896, 896)),
+        ("int8_matmul", "decode gate|up [1,896]x[896,9728]", layer_steps,
+         int8_case(1, 896, 9728)),
+        ("int8_matmul", "decode down [1,4864]x[4864,896]", layer_steps,
+         int8_case(1, 4864, 896)),
+        ("int8_matmul_nk", "decode unembed [1,896]x[151940,896]^T",
+         NEW_TOKENS, int8_case(1, 896, 151940, nk=True)),
     ]
 
 
@@ -199,7 +280,28 @@ ROWS = {
     "relpos_attention[64x64]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/relpos_attention.cu",
         "lvv_tpu/ops/attention.py:682"),
+    "ln_mlp_residual_q8": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/ln_mlp_residual_q8.cu",
+        "lvv_tpu/ops/fused_mlp.py:124"),
+    "int8_matmul": ("cuda", "lvv_tpu_torch/kernels/csrc/int8_matmul.cu",
+                    "lvv_tpu/ops/quant.py:283"),
+    "int8_matmul_nk": ("cuda", "lvv_tpu_torch/kernels/csrc/int8_matmul_nk.cu",
+                       "lvv_tpu/ops/quant.py:78"),
 }
+
+
+def agreement(got, want, rel_l2_tol: float = REL_L2_TOL):
+    """(ok, max abs error, relative L2) of a kernel's output against its
+    plain version: finite, elementwise within BF16_TOL of (|plain| +
+    rms(plain)), and within rel_l2_tol relative L2 overall."""
+    import torch
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = err > BF16_TOL * (want.abs() + want.square().mean().sqrt())
+    rel_l2 = float((got - want).norm() / want.norm())
+    ok = (bool(torch.isfinite(got).all()) and not bool(bad.any())
+          and rel_l2 <= rel_l2_tol)
+    return ok, float(err.max()), rel_l2
 
 
 def check_kernels(torch) -> dict:
@@ -210,24 +312,29 @@ def check_kernels(torch) -> dict:
                        ops_ms=0.0) for name in ROWS}
     for row, label, count, setup in kernel_cases(torch):
         case = setup()
-        got = case["kernel"]().float()
+        got = case["kernel"]()
         torch.cuda.synchronize()
-        want = case["plain"]().float()
-        err = (got - want).abs()
-        bad = err > BF16_TOL * (want.abs() + want.square().mean().sqrt())
-        max_err = float(err.max())
-        rel_l2 = float((got - want).norm() / want.norm())
-        ok = (bool(torch.isfinite(got).all()) and not bool(bad.any())
-              and rel_l2 <= REL_L2_TOL)
+        want = case["plain"]()
+        rel_tol = case.get("rel_l2_tol", REL_L2_TOL)
+        ok, max_err, rel_l2 = agreement(got, want, rel_tol)
         bytes_ms = case["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = case["flops"] / case["peak"] * 1e3
         line = dict(kernel=row, shape=label, launches_per_call=count,
                     max_abs_err=max_err, rel_l2=rel_l2,
-                    tol="4 bf16 ulps of (|plain| + rms(plain)); rel L2 1/128",
+                    tol="4 bf16 ulps of (|plain| + rms(plain)); rel L2 "
+                        f"1/{round(1 / rel_tol)}",
                     bound_ms=max(bytes_ms, ops_ms))
-        del got, want, err, bad
-        line["ms"] = timed_ms(case["kernel"], 20)
-        line["plain_ms"] = timed_ms(case["plain"], 3)
+        if "trap" in case:
+            # the tolerance has to see a wrong scale: one whole-row scale of
+            # h in place of the per-chunk ones must fail it
+            trap_ok, _, trap_l2 = agreement(got, case["trap"](), rel_tol)
+            line["whole_row_h_scale_rel_l2"] = trap_l2
+            if trap_ok:
+                raise AssertionError(f"{row} {label}: the tolerance passes "
+                                     "a whole-row scale of h")
+        del got, want
+        line["ms"] = timed_ms(case.get("timed_kernel", case["kernel"]), 20)
+        line["plain_ms"] = timed_ms(case.get("timed_plain", case["plain"]), 3)
         line["library_ms"] = (timed_ms(case["library"], 10)
                               if case["library"] else None)
         print("kernel-check", json.dumps(line), flush=True)
@@ -266,9 +373,11 @@ def bench_inputs(cfg):
     return bev, images, np.ones((b, 6), bool), prompt, np.full((b,), t)
 
 
-def expected_launches(cfg) -> dict:
+def expected_launches(cfg, serving: bool = False) -> dict:
     """Kernel launches of one greedy_generate at batch 1, from the model's
-    structure (every norm width there is a multiple of 128)."""
+    structure (every norm width there is a multiple of 128). The serving
+    path runs the W8A8 MLP in place of the bf16 one and the packed int8
+    decode: 4 int8 products a layer and one int8 unembed a step."""
     s, c, vv, vl, llm = (cfg.sam, cfg.clip, cfg.vat_vision, cfg.vat_lidar,
                          cfg.llm)
     grid = s.img_size // s.patch_size
@@ -279,14 +388,20 @@ def expected_launches(cfg) -> dict:
               + 3 * vv.n_blocks + 4             # VATVision
               + 1 + 3 * vl.n_blocks + 2)        # VATLiDAR
     per_llm_pass = 2 * llm.num_layers + 1
-    return {
+    want = {
         "norm": encode + per_llm_pass * (1 + NEW_TOKENS),
-        "ln_mlp_residual": s.depth + c.num_layers,
         "flash_attention": vv.n_blocks + vl.n_blocks + llm.num_layers,
         f"relpos_attention[{s.window_size}x{s.window_size}]":
             s.depth - n_global,
         f"relpos_attention[{grid}x{grid}]": n_global,
     }
+    if not serving:
+        want["ln_mlp_residual"] = s.depth + c.num_layers
+    else:
+        want["ln_mlp_residual_q8"] = s.depth + c.num_layers
+        want["int8_matmul"] = 4 * llm.num_layers * NEW_TOKENS
+        want["int8_matmul_nk"] = NEW_TOKENS
+    return want
 
 
 @contextlib.contextmanager
@@ -309,17 +424,42 @@ def plain_path():
          layers.attention, sam.attention, qwen.attention) = saved
 
 
-def run_main_path(torch) -> dict:
-    from lvv_tpu_torch import VQAModel, default_config, greedy_generate
-    from lvv_tpu_torch import kernels
-    from lvv_tpu_torch.models.qwen import init_cache
-    cfg = default_config().model
-    model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
-    args = [torch.as_tensor(a, device="cuda") for a in bench_inputs(cfg)]
+@contextlib.contextmanager
+def plain_kernels():
+    """Keep every dispatch of the model and swap each kernel wrapper of the
+    serving path for its plain version (on the card: quant8 stays on, the
+    plain W8A8 MLP runs where the kernel would)."""
+    from lvv_tpu_torch.models import sam
+    from lvv_tpu_torch.ops import attention as A
+    from lvv_tpu_torch.ops import fused_mlp as M
+    from lvv_tpu_torch.ops import quant as Q
+    swaps = [(M, "norm", M.norm_plain),
+             (M, "ln_mlp_residual_q8", M.ln_mlp_residual_q8_plain),
+             (A, "flash_attention", A.flash_attention_plain),
+             (sam, "relpos_attention", A.relpos_attention_plain),
+             (Q, "quantized_matmul", Q.quantized_matmul_plain),
+             (Q, "quantized_matmul_nk", Q.quantized_matmul_nk_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def drive(torch, model, args, params_decode, want) -> dict:
+    """Warm-up, then three timed greedy_generate runs; the launch counts of
+    the first (reset just before it) must equal `want`, and every run must
+    give the same tokens. Adds the stage split, the device's busy time and
+    idle share, and the peak memory."""
+    from lvv_tpu_torch import greedy_generate, kernels
 
     def generate():
         toks, lens = greedy_generate(model, *args, max_new_tokens=NEW_TOKENS,
-                                     eos_id=EOS_ID)
+                                     eos_id=EOS_ID,
+                                     params_decode=params_decode)
         torch.cuda.synchronize()
         return toks, lens
 
@@ -329,7 +469,7 @@ def run_main_path(torch) -> dict:
     t0 = time.perf_counter()
     toks, lens = generate()
     times = [time.perf_counter() - t0]
-    counts = dict(kernels.launches)
+    counts = {k: v for k, v in kernels.launches.items() if v}
     for _ in range(2):
         t0 = time.perf_counter()
         again, _ = generate()
@@ -337,33 +477,19 @@ def run_main_path(torch) -> dict:
         if not torch.equal(again, toks):
             raise AssertionError("greedy tokens differ between runs")
     peak = torch.cuda.max_memory_allocated()
-    want = expected_launches(cfg)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-
-    # prefill logits: finite, and close to the plain path on the same weights
-    def last_logits():
-        with torch.inference_mode():
-            cache = init_cache(cfg.llm, 1, 1600, dtype=model.dtype,
-                               device="cuda")
-            return model.prefill(args[0], args[1], args[2], args[3],
-                                 args[4].int(), cache).float()
-    fast = last_logits()
-    with plain_path():
-        slow = last_logits()
     stage_s = dict(encode=[], prefill=[])
     for _ in range(3):                  # encode alone, then encode + prefill
         for stage, fn in (("encode", lambda: model.encode_prefix(
-                *args[:3]).float().sum().item()), ("prefill", last_logits)):
+                *args[:3]).float().sum().item()),
+                ("prefill", lambda: prefill_logits(torch, model, args))):
             t0 = time.perf_counter()
             with torch.inference_mode():
                 fn()
             torch.cuda.synchronize()
             stage_s[stage].append(time.perf_counter() - t0)
     device = device_busy(torch, generate)
-    if not (torch.isfinite(fast).all() and torch.isfinite(slow).all()):
-        raise AssertionError("non-finite prefill logits")
-    rel = float((fast - slow).norm() / slow.norm())
     times.sort()
     encode_s = sorted(stage_s["encode"])[1]
     prefill_s = sorted(stage_s["prefill"])[1]
@@ -372,9 +498,91 @@ def run_main_path(torch) -> dict:
                 encode_p50_s=encode_s, llm_prefill_s=prefill_s - encode_s,
                 decode_s=times[1] - prefill_s, **device,
                 device_idle_share=1 - device["device_busy_s"] / times[1],
-                peak_mem_gib=peak / 2 ** 30, launches=counts,
-                logits_shape=list(fast.shape), logits_rel_l2_vs_plain=rel,
-                logits_max_abs_vs_plain=float((fast - slow).abs().max()))
+                peak_mem_gib=peak / 2 ** 30, launches=counts)
+
+
+def prefill_logits(torch, model, args, cache=None):
+    """Last prefill logits [1, V] in fp32 (fills `cache` when given)."""
+    from lvv_tpu_torch.models.qwen import init_cache
+    with torch.inference_mode():
+        if cache is None:
+            cache = init_cache(model.cfg.llm, 1, 1600, dtype=model.dtype,
+                               device="cuda")
+        return model.prefill(args[0], args[1], args[2], args[3],
+                             args[4].int(), cache).float()
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def run_float_path(torch) -> tuple:
+    """The float main path: default_config(), float decode. Returns its report
+    and its prefill logits (for the q8-versus-float comparison)."""
+    from lvv_tpu_torch import VQAModel, default_config
+    cfg = default_config().model
+    model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    args = [torch.as_tensor(a, device="cuda") for a in bench_inputs(cfg)]
+    report = drive(torch, model, args, None, expected_launches(cfg))
+    fast = prefill_logits(torch, model, args)
+    with plain_path():
+        slow = prefill_logits(torch, model, args)
+    if not (torch.isfinite(fast).all() and torch.isfinite(slow).all()):
+        raise AssertionError("non-finite prefill logits")
+    report.update(logits_shape=list(fast.shape),
+                  logits_rel_l2_vs_plain=rel_l2(fast, slow),
+                  logits_max_abs_vs_plain=float((fast - slow).abs().max()))
+    return report, fast
+
+
+def run_serving_path(torch, float_logits) -> dict:
+    """bench.py's serving path: quant8 SAM/CLIP MLPs ("mlp" scope) and the
+    packed int8 decode, on the float path's seeded weights and inputs."""
+    import dataclasses
+    from lvv_tpu_torch import (VQAModel, default_config, kernels,
+                               prepare_serving_params_fused)
+    from lvv_tpu_torch.config import q8_scope
+    from lvv_tpu_torch.models.decode_fused import fused_decode_step
+    from lvv_tpu_torch.models.qwen import init_cache
+    cfg = default_config().model
+    cfg = dataclasses.replace(
+        cfg, sam=dataclasses.replace(cfg.sam, quant8=True),
+        clip=dataclasses.replace(cfg.clip, quant8=True))
+    if q8_scope() != {"mlp"}:
+        raise AssertionError("the serving path runs the \"mlp\" scope")
+    model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    args = [torch.as_tensor(a, device="cuda") for a in bench_inputs(cfg)]
+    packed = prepare_serving_params_fused(model)
+    report = drive(torch, model, args, packed,
+                   expected_launches(cfg, serving=True))
+
+    def first_logits(token=None):
+        """Prefill logits, then the first packed decode step's logits (fed
+        `token`, or the prefill's argmax)."""
+        cache = init_cache(cfg.llm, 1, 1600, dtype=model.dtype, device="cuda")
+        pre = prefill_logits(torch, model, args, cache)
+        nxt = pre.argmax(-1) if token is None else token
+        with torch.inference_mode():
+            step = fused_decode_step(cfg.llm, model.dtype,
+                                     packed["_fused_decode"], nxt, cache)
+        return pre, step.float(), nxt
+
+    pre, step, nxt = first_logits()
+    before = dict(kernels.launches)
+    with plain_kernels():
+        pre_plain, step_plain, _ = first_logits(nxt)
+    if dict(kernels.launches) != before:
+        raise AssertionError("a kernel launched under plain_kernels()")
+    for t in (pre, step, pre_plain, step_plain):
+        if not torch.isfinite(t).all():
+            raise AssertionError("non-finite serving-path logits")
+    report.update(
+        logits_rel_l2_vs_plain=rel_l2(pre, pre_plain),
+        logits_max_abs_vs_plain=float((pre - pre_plain).abs().max()),
+        step_logits_rel_l2_vs_plain=rel_l2(step, step_plain),
+        step_logits_max_abs_vs_plain=float((step - step_plain).abs().max()),
+        prefill_logits_rel_l2_q8_vs_float=rel_l2(pre, float_logits))
+    return report
 
 
 def device_busy(torch, generate) -> dict:
@@ -435,18 +643,25 @@ def main() -> int:
     sys.stdout.flush()
 
     rows = check_kernels(torch)
-    e2e = run_main_path(torch)
-    print("main-path", json.dumps(e2e), flush=True)
-    if e2e["logits_rel_l2_vs_plain"] > LOGITS_REL_TOL:
-        raise AssertionError("prefill logits differ from the plain path by "
-                             f"{e2e['logits_rel_l2_vs_plain']:.4f} (rel L2)")
+    paths = {}
+    paths["float"], float_logits = run_float_path(torch)
+    print("main-path", json.dumps(paths["float"]), flush=True)
+    torch.cuda.empty_cache()
+    paths["serving"] = run_serving_path(torch, float_logits)
+    print("serving-path", json.dumps(paths["serving"]), flush=True)
+    for name, e2e in paths.items():
+        for key in ("logits_rel_l2_vs_plain", "step_logits_rel_l2_vs_plain"):
+            if e2e.get(key, 0.0) > LOGITS_REL_TOL:
+                raise AssertionError(f"{name} path: {key} = {e2e[key]:.4f}")
 
     out = []
     for name, (route, source, replaces) in ROWS.items():
         r = rows[name]
+        by_path = {p: e["launches"].get(name, 0) for p, e in paths.items()}
         out.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=e2e["launches"].get(name, 0),
+            launches=by_path["serving"] or by_path["float"],
+            launches_by_path=by_path,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
             bound_by="bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",

@@ -1,15 +1,18 @@
 """lvv_tpu_torch: the PyTorch / CUDA port of lvv_tpu for NVIDIA Hopper.
 
 The serving path of the VQA model (SAM-B -> CLIP-L -> projector -> adapter
--> VATVision, VATLiDAR, Qwen2.5-0.5B prefill and KV-cached greedy decode)
-in plain PyTorch, with the JAX package's Pallas kernels replaced by kernels
-written by hand for sm_90a (`kernels/`). Entry points run on the card
+-> VATVision, VATLiDAR, Qwen2.5-0.5B prefill and KV-cached greedy decode,
+with bench.py's serving levers: W8A8 SAM/CLIP MLPs under `quant8` and the
+int8 decode trees) in plain PyTorch, with the JAX package's Pallas kernels
+replaced by kernels written by hand for sm_90a (`kernels/`). Entry points run on the card
 unless given `device="cpu"`, where every kernel wrapper computes its plain
 PyTorch version.
 """
 from .config import VQAConfig, ModelConfig, default_config, tiny_config
 from .convert import from_jax_params
-from .models.vqa import VQAModel, greedy_generate
+from .models.vqa import (VQAModel, greedy_generate, prepare_serving_params,
+                         prepare_serving_params_fused)
 
 __all__ = ["VQAConfig", "ModelConfig", "default_config", "tiny_config",
-           "from_jax_params", "VQAModel", "greedy_generate"]
+           "from_jax_params", "VQAModel", "greedy_generate",
+           "prepare_serving_params", "prepare_serving_params_fused"]

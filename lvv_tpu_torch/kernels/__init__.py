@@ -24,7 +24,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lvv_tpu_torch"
-SOURCES = ("ln_mlp_residual", "flash_attention", "relpos_attention")
+SOURCES = ("ln_mlp_residual", "flash_attention", "relpos_attention",
+           "ln_mlp_residual_q8", "int8_matmul", "int8_matmul_nk")
 
 launches: collections.Counter = collections.Counter()
 
@@ -33,6 +34,9 @@ _ARGTYPES = {
     "lvv_ln_mlp_residual": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     "lvv_flash_attention": [_P] * 5 + [_I] * 7 + [_F, _P, _P],
     "lvv_relpos_attention": [_P] * 4 + [_I] * 6 + [_F, _P],
+    "lvv_ln_mlp_residual_q8": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+    "lvv_int8_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 4 + [_P],
 }
 _libs: dict = {}
 _lock = threading.Lock()

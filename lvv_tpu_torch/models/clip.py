@@ -6,15 +6,16 @@ and the (bicubically resampled) position table added, then 24 pre-LN layers
 (hidden 1024, 16 heads, FFN 4096, QuickGELU) give [B, 257, 1024]. The
 attention over 257 tokens stays on the plain path, as in the JAX package
 (`attention` sends kv < 1024 there); the MLP half runs the fused kernel
-(K-b) with QuickGELU on the card. LoRA adapters sit on the attention
-projections (Dense). Only the SAM bypass is ported: CLIP's own patch conv is
-not on the path.
+with QuickGELU on the card: K-b, or K-f with `quant8`. LoRA adapters sit
+on the attention projections (Dense). Only the SAM bypass is ported: CLIP's
+own patch conv is not on the path.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..config import q8_scope
 from ..ops import fused_mlp
 from .layers import (Dense, LayerNorm, MultiHeadAttention, new_param,
                      quick_gelu, resize_1d)
@@ -36,11 +37,12 @@ class CLIPEncoderLayer(nn.Module):
     """Pre-LN CLIP layer."""
 
     def __init__(self, dim: int, num_heads: int, intermediate_size: int,
-                 eps: float, lora_rank: int, lora_alpha: float, *, dtype,
-                 device):
+                 eps: float, lora_rank: int, lora_alpha: float,
+                 quant8: bool = False, *, dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.eps = eps
+        self.quant8 = quant8
         self.ln1 = LayerNorm(dim, eps, **kw)
         self.attn = MultiHeadAttention(dim, num_heads, lora_rank, lora_alpha,
                                        **kw)
@@ -49,12 +51,13 @@ class CLIPEncoderLayer(nn.Module):
         self.fc2 = Dense(intermediate_size, dim, **kw)
 
     def forward(self, x):
+        q8 = self.quant8 and "mlp" in q8_scope()   # raises on other scopes
         x = x + self.attn(self.ln1(x))
         if fused_mlp.kernel_ok(x, x.shape[-1], self.fc1.kernel.shape[1]):
             return fused_mlp.ln_mlp_residual(
                 x, self.ln2.scale, self.ln2.bias, self.fc1.kernel,
                 self.fc1.bias, self.fc2.kernel, self.fc2.bias, eps=self.eps,
-                act="quick_gelu")
+                act="quick_gelu", quant8=q8)
         return x + self.fc2(quick_gelu(self.fc1(self.ln2(x))))
 
 
@@ -65,7 +68,8 @@ class CLIPVisionTower(nn.Module):
                  hidden_size: int = 1024, num_layers: int = 24,
                  num_heads: int = 16, intermediate_size: int = 4096,
                  layer_norm_eps: float = 1e-5, lora_rank: int = 0,
-                 lora_alpha: float = 1.0, *, dtype, device):
+                 lora_alpha: float = 1.0, quant8: bool = False, *, dtype,
+                 device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.hidden_size = hidden_size
@@ -78,7 +82,7 @@ class CLIPVisionTower(nn.Module):
         for i in range(num_layers):
             setattr(self, f"layer_{i}", CLIPEncoderLayer(
                 hidden_size, num_heads, intermediate_size, layer_norm_eps,
-                lora_rank, lora_alpha, **kw))
+                lora_rank, lora_alpha, quant8, **kw))
 
     def forward(self, patch_embeds):
         """patch_embeds [B, hidden, Gh, Gw] -> [B, 1 + Gh·Gw, hidden]."""

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..config import q8_scope
 from .clip import CLIPVisionTower
 from .projector import MlpProjector
 from .sam import SAMImageEncoder
@@ -58,7 +59,7 @@ def build_deepencoder(cfg, *, dtype, device, clip_lora_rank: int = 0,
                       clip_lora_alpha: float = 1.0) -> DeepEncoder:
     """Construct from a `config.ModelConfig`."""
     if cfg.sam.quant8 or cfg.clip.quant8:
-        raise NotImplementedError("quant8 (W8A8 SAM/CLIP) is not ported yet")
+        q8_scope()                      # an unported scope raises here
     kw = dict(dtype=dtype, device=device)
     s = cfg.sam
     sam = SAMImageEncoder(
@@ -67,14 +68,14 @@ def build_deepencoder(cfg, *, dtype, device, clip_lora_rank: int = 0,
         out_chans=s.out_chans, window_size=s.window_size,
         global_attn_indexes=tuple(s.global_attn_indexes),
         use_rel_pos=s.use_rel_pos, vary_dims=tuple(s.vary_dims),
-        frozen_trunk=s.frozen_trunk, **kw)
+        frozen_trunk=s.frozen_trunk, quant8=s.quant8, **kw)
     c = cfg.clip
     clip = CLIPVisionTower(
         image_size=c.image_size, patch_size=c.patch_size,
         hidden_size=c.hidden_size, num_layers=c.num_layers,
         num_heads=c.num_heads, intermediate_size=c.intermediate_size,
         layer_norm_eps=c.layer_norm_eps, lora_rank=clip_lora_rank,
-        lora_alpha=clip_lora_alpha, **kw)
+        lora_alpha=clip_lora_alpha, quant8=c.quant8, **kw)
     projector = MlpProjector(c.hidden_size + s.vary_dims[-1],
                              cfg.projector.kind, cfg.projector.n_embed, **kw)
     chunk = cfg.views_chunk or (1 if cfg.sequential_views else 0)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
 from ..ops.attention import attention
 from ..ops.fused_mlp import norm_fast
 
@@ -138,7 +139,13 @@ class RMSNorm(nn.Module):
 
 class Dense(nn.Module):
     """Linear layer y = x @ kernel + bias, with an optional additive LoRA
-    branch (alpha / r) * (x @ lora_a) @ lora_b."""
+    branch (alpha / r) * (x @ lora_a) @ lora_b.
+
+    `forward(x, kernel)` may be given a weight-only int8 kernel {"q": int8
+    [K, N], "s": f32 [N]} (from `ops.quant.quantize_llm_params`) in place of
+    the float one: y = (x @ q) * s through kernel K-j, the scale on the
+    output side, then the bias, then LoRA as its own branch over the float
+    adapter (not folded in), as the JAX package's Dense does."""
 
     def __init__(self, in_dim: int, features: int, use_bias: bool = True,
                  lora_rank: int = 0, lora_alpha: float = 1.0, *, dtype,
@@ -155,8 +162,12 @@ class Dense(nn.Module):
                                     ("normal", 1.0 / lora_rank), **kw)
             self.lora_b = new_param((lora_rank, features), "zeros", **kw)
 
-    def forward(self, x):
-        y = x @ self.kernel
+    def forward(self, x, kernel=None):
+        if kernel is None:
+            y = x @ self.kernel
+        else:
+            y = quant.quantized_matmul(x.to(self.kernel.dtype), kernel["q"],
+                                       kernel["s"])
         if self.bias is not None:
             y = y + self.bias
         if self.lora_rank:

@@ -8,6 +8,11 @@ RMSNorm, SwiGLU, RoPE (theta 1e6, neox half split), q/k/v biases, GQA
 flash kernel (K-e, causal with kv_len) on the card; single-token decode
 attends over the cache on the plain path, as in the JAX package.
 
+`forward(..., params=tree)` runs the stack over a weight-only int8 tree
+from `ops.quant.quantize_llm_params` (the unfused serving decode): every
+projection through kernel K-j and the tied unembed through kernel K-k,
+while norms, biases, LoRA and the embedding gather stay the module's.
+
 The KV cache is updated in place (prefill writes rows [0, S), each decode
 step writes row `length` of every sequence); the JAX package returns a new
 cache instead.
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import LLMConfig
+from ..ops import quant
 from ..ops.attention import attention, decode_attention
 from .layers import Dense, RMSNorm, new_param
 
@@ -72,18 +78,19 @@ class QwenAttention(nn.Module):
                             **kw)
 
     def forward(self, x, positions, seq_len=None, cache=None,
-                layer_idx: int = 0):
+                layer_idx: int = 0, p=None):
         c = self.cfg
         b, s, _ = x.shape
+        p = p or {}
 
         def split(y, heads):
             return y.view(b, s, heads, c.head_dim).transpose(1, 2)
 
-        q = apply_rope(split(self.q_proj(x), c.num_heads), positions,
-                       c.rope_theta)
-        k = apply_rope(split(self.k_proj(x), c.num_kv_heads), positions,
-                       c.rope_theta)
-        v = split(self.v_proj(x), c.num_kv_heads)
+        q = apply_rope(split(self.q_proj(x, p.get("q_proj")), c.num_heads),
+                       positions, c.rope_theta)
+        k = apply_rope(split(self.k_proj(x, p.get("k_proj")), c.num_kv_heads),
+                       positions, c.rope_theta)
+        v = split(self.v_proj(x, p.get("v_proj")), c.num_kv_heads)
         if cache is None or s > 1:
             if cache is not None:
                 # prefill: write the (right-padded) block at offset 0; padded
@@ -98,7 +105,8 @@ class QwenAttention(nn.Module):
             kc[rows, :, idx] = k[:, :, 0]
             vc[rows, :, idx] = v[:, :, 0]
             o = decode_attention(q, kc, vc, cache.length + 1)
-        return self.o_proj(o.transpose(1, 2).reshape(b, s, -1))
+        return self.o_proj(o.transpose(1, 2).reshape(b, s, -1),
+                           p.get("o_proj"))
 
 
 class QwenMLP(nn.Module):
@@ -109,8 +117,11 @@ class QwenMLP(nn.Module):
         self.up_proj = Dense(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, **kw)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, p=None):
+        p = p or {}
+        return self.down_proj(F.silu(self.gate_proj(x, p.get("gate_proj")))
+                              * self.up_proj(x, p.get("up_proj")),
+                              p.get("down_proj"))
 
 
 class QwenLayer(nn.Module):
@@ -124,10 +135,11 @@ class QwenLayer(nn.Module):
         self.mlp = QwenMLP(cfg, **kw)
 
     def forward(self, x, positions, seq_len=None, cache=None,
-                layer_idx: int = 0):
+                layer_idx: int = 0, p=None):
+        p = p or {}
         x = x + self.attn(self.input_ln(x), positions, seq_len, cache,
-                          layer_idx)
-        return x + self.mlp(self.post_attn_ln(x))
+                          layer_idx, p.get("attn"))
+        return x + self.mlp(self.post_attn_ln(x), p.get("mlp"))
 
 
 class QwenModel(nn.Module):
@@ -153,27 +165,36 @@ class QwenModel(nn.Module):
     def embed(self, input_ids):
         return self.embed_tokens.embedding[input_ids]
 
-    def unembed(self, hidden):
+    def unembed(self, hidden, table_q=None):
+        """Tied unembedding; with `table_q` ({"q": int8 [V, H], "s": f32
+        [V]}) through kernel K-k, the table read as stored."""
+        if table_q is not None:
+            return quant.quantized_matmul_nk(hidden, table_q["q"],
+                                             table_q["s"])
         return hidden @ self.embed_tokens.embedding.t()
 
     def forward(self, inputs_embeds, positions=None, seq_len=None,
-                cache: Optional[KVCache] = None, last_pos=None):
+                cache: Optional[KVCache] = None, last_pos=None,
+                params: Optional[dict] = None):
         """-> logits [B, S, V] (or [B, 1, V] at `last_pos`); with a cache
-        also updates it (prefill when S > 1, one decode step when S == 1)."""
+        also updates it (prefill when S > 1, one decode step when S == 1).
+        `params`: an int8 tree from `quantize_llm_params` to run over."""
+        params = params or {}
         b, s, _ = inputs_embeds.shape
         if positions is None:
             positions = torch.arange(s, device=inputs_embeds.device)[
                 None].expand(b, s)
         x = inputs_embeds.to(self.embed_tokens.embedding.dtype)
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, positions, seq_len, cache, i)
+            x = getattr(self, f"layer_{i}")(x, positions, seq_len, cache, i,
+                                            params.get(f"layer_{i}"))
         x = self.final_ln(x)
         if last_pos is not None:
             # only the last real position feeds the first decode step: gather
             # before the unembedding so [B, S, V] logits never exist
             idx = last_pos.long()[:, None, None].expand(b, 1, x.shape[-1])
             x = torch.gather(x, 1, idx)
-        logits = self.unembed(x)
+        logits = self.unembed(x, params.get("unembed_q"))
         if cache is not None:
             if s > 1:
                 if seq_len is None:
@@ -182,3 +203,25 @@ class QwenModel(nn.Module):
             else:
                 cache.length = cache.length + 1
         return logits
+
+
+def greedy_loop(step, last_logits, *, max_new_tokens: int, eos_id: int):
+    """The greedy decode loop: `step(ids [B]) -> logits [B, V]` advances the
+    cache by one token. Runs all `max_new_tokens` steps, as the JAX
+    package's scan does: a sequence that has emitted eos keeps emitting eos.
+    Returns (tokens [B, N] int32, lengths [B] int32), the length counting
+    the tokens before the first eos. argmax takes the first index on a tie,
+    as jnp.argmax does."""
+    logits = last_logits
+    done = torch.zeros(logits.shape[0], dtype=torch.bool,
+                       device=logits.device)
+    tokens = []
+    for _ in range(max_new_tokens):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+        logits = step(nxt.long())
+        done = done | (nxt == eos_id)
+        tokens.append(nxt)
+    tokens = torch.stack(tokens, dim=1)
+    lengths = torch.cumprod((tokens != eos_id).to(torch.int32), dim=1).sum(1)
+    return tokens, lengths.to(torch.int32)

@@ -9,9 +9,10 @@ in the JAX package; images and the output are NCHW at the boundary.
 
 On the card the windowed and the global layers both run the rel-pos
 attention kernel (K-c / K-d) straight from the packed qkv projection, and
-the MLP half of every block runs the fused LN + MLP kernel (K-b) with
-tanh-GELU. Elsewhere (CPU) the block takes the plain path: materialised
-bias, exact-erf GELU, as the JAX package does off the TPU.
+the MLP half of every block runs the fused LN + MLP kernel with tanh-GELU:
+K-b, or its W8A8 form K-f with `quant8` (under the "mlp" scope of
+LVV_Q8_SCOPE). Elsewhere (CPU) the block takes the plain path: materialised
+bias, exact-erf GELU, float MLP, as the JAX package does off the TPU.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import q8_scope
 from ..ops import fused_mlp
 from ..ops.attention import attention, relpos_attention, relpos_bias
 from .layers import MLP, Dense, LayerNorm, new_param, resize_1d
@@ -116,10 +118,12 @@ class SAMBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  mlp_ratio: float, use_rel_pos: bool,
-                 input_size: Tuple[int, int], *, dtype, device):
+                 input_size: Tuple[int, int], quant8: bool = False, *,
+                 dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.window_size = window_size
+        self.quant8 = quant8
         attn_size = (window_size, window_size) if window_size else input_size
         self.ln1 = LayerNorm(dim, 1e-6, **kw)
         self.attn = SAMAttention(dim, num_heads, use_rel_pos, attn_size, **kw)
@@ -128,6 +132,7 @@ class SAMBlock(nn.Module):
         self.mlp = MLP(dim, self.hidden, **kw)   # exact erf GELU unfused
 
     def forward(self, x):
+        q8 = self.quant8 and "mlp" in q8_scope()   # raises on other scopes
         shortcut = x
         y = self.ln1(x)
         if self.window_size:
@@ -142,7 +147,7 @@ class SAMBlock(nn.Module):
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
             return fused_mlp.ln_mlp_residual(
                 x, self.ln2.scale, self.ln2.bias, fc1.kernel, fc1.bias,
-                fc2.kernel, fc2.bias, eps=1e-6, act="gelu")
+                fc2.kernel, fc2.bias, eps=1e-6, act="gelu", quant8=q8)
         return x + self.mlp(self.ln2(x))
 
 
@@ -156,7 +161,8 @@ class SAMImageEncoder(nn.Module):
                  global_attn_indexes: Sequence[int] = (2, 5, 8, 11),
                  use_rel_pos: bool = True,
                  vary_dims: Sequence[int] = (512, 1024),
-                 frozen_trunk: bool = True, *, dtype, device):
+                 frozen_trunk: bool = True, quant8: bool = False, *, dtype,
+                 device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.patch_size = patch_size
@@ -174,7 +180,7 @@ class SAMImageEncoder(nn.Module):
             ws = 0 if i in global_attn_indexes else window_size
             setattr(self, f"block_{i}", SAMBlock(
                 embed_dim, num_heads, ws, mlp_ratio, use_rel_pos,
-                (grid, grid), **kw))
+                (grid, grid), quant8, **kw))
         self.depth = depth
         convs = (("neck_conv1", embed_dim, out_chans, 1),
                  ("neck_conv2", out_chans, out_chans, 3),

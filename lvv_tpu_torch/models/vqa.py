@@ -9,6 +9,12 @@
 the prompt, then decodes greedily through the KV cache. The decode loop is a
 Python loop that runs all `max_new_tokens` steps, as the JAX package's scan
 does, with the same done / eos / lengths rule.
+
+Serving: `prepare_serving_params` (weight-only int8 Qwen tree) and
+`prepare_serving_params_fused` (the packed int8 decode) make a
+`params_decode` for greedy_generate. Prefill always reads the float weights;
+the decode then reads its weight matrices only from the int8 tree or the
+pack, through kernels K-j and K-k on the card.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from torch import nn
 from ..config import ModelConfig
 from .deepencoder import build_deepencoder
 from .layers import init_parameters, resolve_device
-from .qwen import KVCache, QwenModel, init_cache
+from .qwen import KVCache, QwenModel, greedy_loop, init_cache
 from .vat import VATLiDAR, VATVision, VisionAdapter
 
 # special-token order matches config.LLMConfig.special_tokens
@@ -121,22 +127,56 @@ class VQAModel(nn.Module):
                           last_pos=seq_len - 1)
         return logits[:, 0]
 
-    def decode_step(self, token_ids, cache: KVCache):
-        """One step: [B] ids -> logits [B, V]; advances `cache`."""
+    def decode_step(self, token_ids, cache: KVCache, params=None):
+        """One step: [B] ids -> logits [B, V]; advances `cache`. `params`:
+        an int8 Qwen tree (`prepare_serving_params(...)["llm"]`)."""
         emb = self.llm.embed(token_ids[:, None])
         logits = self.llm(emb, positions=cache.length[:, None].long(),
-                          cache=cache)
+                          cache=cache, params=params)
         return logits[:, -1]
+
+
+def prepare_serving_params(model: VQAModel):
+    """Serving transform for the decode: {"llm": the weight-only int8 tree
+    of the Qwen projections and the tied unembed} (ops.quant.
+    quantize_llm_params). Prefill keeps reading the model's float weights."""
+    from ..ops.quant import quantize_llm_params
+    return {"llm": quantize_llm_params(model.llm)}
+
+
+def prepare_serving_params_fused(model: VQAModel):
+    """The packed decode (models/decode_fused.py): {"_fused_decode": pack},
+    4 int8 products a layer instead of 7, LoRA folded in before
+    quantization. The decode reads nothing else."""
+    from .decode_fused import pack_decode_params
+    return {"_fused_decode": pack_decode_params(model.llm)}
+
+
+def _decode_loop(model: VQAModel, params_decode, last_logits,
+                 cache: KVCache, *, max_new_tokens: int, eos_id: int):
+    """Greedy decode from the last prefill logits and the filled cache ->
+    (tokens [B, N], lengths [B]): over the pack when `params_decode` carries
+    "_fused_decode", else over its int8 tree ("llm") or the float model."""
+    if params_decode and "_fused_decode" in params_decode:
+        from .decode_fused import fused_decode_loop
+        return fused_decode_loop(
+            model.cfg.llm, model.dtype, params_decode["_fused_decode"],
+            last_logits, cache, max_new_tokens=max_new_tokens, eos_id=eos_id)
+    tree = (params_decode or {}).get("llm")
+    return greedy_loop(lambda ids: model.decode_step(ids, cache, tree),
+                       last_logits, max_new_tokens=max_new_tokens,
+                       eos_id=eos_id)
 
 
 @torch.inference_mode()
 def greedy_generate(model: VQAModel, bev, images, view_valid, prompt_ids,
                     prompt_len, *, max_new_tokens: int, eos_id: int,
-                    max_cache: Optional[int] = None):
+                    max_cache: Optional[int] = None, params_decode=None):
     """Greedy answer generation on the model's device.
     Returns (tokens [B, N] int32, lengths [B] int32): a sequence stops at its
     first eos (later tokens are eos), and its length counts the tokens
-    before it."""
+    before it. `params_decode` (from prepare_serving_params or
+    prepare_serving_params_fused) swaps what the decode loop reads."""
     dev = model.device
     bev, images, view_valid, prompt_ids, prompt_len = (
         torch.as_tensor(t, device=dev)
@@ -148,14 +188,5 @@ def greedy_generate(model: VQAModel, bev, images, view_valid, prompt_ids,
                        device=dev)
     logits = model.prefill(bev, images, view_valid, prompt_ids.long(),
                            prompt_len.to(torch.int32), cache)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    tokens = []
-    for _ in range(max_new_tokens):
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
-        logits = model.decode_step(nxt.long(), cache)
-        done = done | (nxt == eos_id)
-        tokens.append(nxt)
-    tokens = torch.stack(tokens, dim=1)
-    lengths = torch.cumprod((tokens != eos_id).to(torch.int32), dim=1).sum(1)
-    return tokens, lengths.to(torch.int32)
+    return _decode_loop(model, params_decode, logits, cache,
+                        max_new_tokens=max_new_tokens, eos_id=eos_id)

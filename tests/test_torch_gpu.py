@@ -9,7 +9,9 @@ Inputs are seeded, small but kernel-eligible (ragged lengths, GQA, head
 dims 64 / 112 / 256, windows and a global grid). Kernel and plain version
 both produce bf16 from fp32 math; the tolerance is 4 bf16 ulps of
 (|plain| + rms(plain)) elementwise and 1/128 relative L2 overall (they round
-at different points, one ulp each), as chip_smoke.py states.
+at different points, one ulp each), as chip_smoke.py states. The W8A8 MLP
+(K-f) keeps the elementwise rule and tightens the relative L2 to 1/512
+(chip_smoke.Q8_REL_L2_TOL, which states why).
 """
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 from lvv_tpu_torch import kernels
 from lvv_tpu_torch.ops import attention as A
 from lvv_tpu_torch.ops import fused_mlp as M
+from lvv_tpu_torch.ops import quant as Q
 
 pytestmark = [pytest.mark.fast, pytest.mark.gpu]
 
@@ -103,6 +106,95 @@ def test_relpos_attention(gen, b, gh, gw, heads):
                                          scale=0.125))
 
 
+def _mlp_params(gen, c, h):
+    return (1 + _rnd(gen, c, std=0.1), _rnd(gen, c, std=0.1),
+            _rnd(gen, c, h, std=c ** -0.5), _rnd(gen, h, std=0.1),
+            _rnd(gen, h, c, std=h ** -0.5), _rnd(gen, c, std=0.1))
+
+
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+@pytest.mark.parametrize("n,c,h", [(77, 768, 3072), (33, 1024, 4096),
+                                   (3, 128, 192), (130, 256, 1024)])
+def test_ln_mlp_residual_q8(gen, act, n, c, h):
+    """K-f at SAM's and CLIP's widths (one 3072 chunk; two 2048 chunks) and
+    odd shapes: 3 tokens with 64-wide chunks, 130 tokens (a ragged tile)."""
+    from chip_smoke import Q8_REL_L2_TOL, agreement
+    x = _rnd(gen, n, c)
+    p = _mlp_params(gen, c, h)
+    got = _launched("ln_mlp_residual_q8", lambda: M.ln_mlp_residual(
+        x, *p, eps=1e-6, act=act, quant8=True))
+    ok, err, rel = agreement(got, M.ln_mlp_residual_q8_plain(
+        x, *p, eps=1e-6, act=act), Q8_REL_L2_TOL)
+    assert ok, (err, rel)
+
+
+def test_q8_tolerance_sees_a_wrong_h_scale(gen):
+    """At CLIP's widths the kernel's h has one row scale per 2048-wide
+    chunk; held against a plain version with a single whole-row scale, it
+    fails the K-f tolerance."""
+    from chip_smoke import Q8_REL_L2_TOL, agreement
+    x = _rnd(gen, 1542, 1024)
+    p = _mlp_params(gen, 1024, 4096)
+    got = M.ln_mlp_residual_q8(x, *p, eps=1e-6, act="quick_gelu")
+    right = M.ln_mlp_residual_q8_plain(x, *p, eps=1e-6, act="quick_gelu")
+    wrong = M.ln_mlp_residual_q8_plain(x, *p, eps=1e-6, act="quick_gelu",
+                                       block_h=4096)
+    assert agreement(got, right, Q8_REL_L2_TOL)[0]
+    ok, _, rel = agreement(got, wrong, Q8_REL_L2_TOL)
+    assert not ok, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 3, 6])
+@pytest.mark.parametrize("k,n", [(896, 1152), (896, 9728), (4864, 896),
+                                 (300, 200)])
+def test_int8_matmul(gen, dtype, m, k, n):
+    """K-j at the decode's products and at N = 200 (no multiple of 128),
+    M = 1, 3 and 6 (two row groups)."""
+    q, s = Q.quantize_weight(torch.randn(k, n, generator=gen, device="cuda"))
+    x = _rnd(gen, m, k).to(dtype)
+    got = _launched("int8_matmul", lambda: Q.quantized_matmul(x, q, s))
+    assert got.dtype == dtype
+    _agree(got, Q.quantized_matmul_plain(x, q, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 896, 151940), (3, 896, 1000),
+                                   (5, 64, 200)])
+def test_int8_matmul_nk(gen, dtype, m, k, n):
+    """K-k at the unembed's shape and at odd ones."""
+    t = Q.quantize_rows_table(torch.randn(n, k, generator=gen,
+                                          device="cuda") * 0.02)
+    x = _rnd(gen, m, k).to(dtype)
+    got = _launched("int8_matmul_nk",
+                    lambda: Q.quantized_matmul_nk(x, t["q"], t["s"]))
+    _agree(got, Q.quantized_matmul_nk_plain(x, t["q"], t["s"]))
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x = _rnd(gen, 2, 64)
+    q, s = Q.quantize_weight(torch.randn(64, 198, device="cuda"))
+    with pytest.raises(ValueError):
+        Q.quantized_matmul(x, q, s)                    # N % 4 != 0
+    q, s = Q.quantize_weight(torch.randn(64, 200, device="cuda"))
+    with pytest.raises(ValueError):
+        Q.quantized_matmul(x.half(), q, s)             # fp16 x
+    with pytest.raises(ValueError):
+        Q.quantized_matmul(x, q.float(), s)            # not int8
+    with pytest.raises(ValueError):
+        Q.quantized_matmul(_rnd(gen, 2, 72), q, s)     # K mismatch
+    t = Q.quantize_rows_table(torch.randn(50, 72, device="cuda"))
+    with pytest.raises(ValueError):
+        Q.quantized_matmul_nk(_rnd(gen, 2, 72), t["q"], t["s"])  # K % 16
+    xq = _rnd(gen, 4, 1152)
+    with pytest.raises(ValueError):
+        M.ln_mlp_residual_q8(xq, *_mlp_params(gen, 1152, 256))   # C > 1024
+    x8 = _rnd(gen, 4, 128)
+    with pytest.raises(ValueError):
+        M.ln_mlp_residual_q8(x8.float(), *(t.float() for t in
+                                           _mlp_params(gen, 128, 256)))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x = _rnd(gen, 4, 1152)
     p = (x[0], x[0], _rnd(gen, 1152, 256), _rnd(gen, 256), _rnd(gen, 256,
@@ -136,3 +228,38 @@ def test_tiny_model_on_card_matches_cpu(gen, monkeypatch):
     want, _ = greedy_generate(cpu, *args, max_new_tokens=6, eos_id=2)
     got, _ = greedy_generate(card, *args, max_new_tokens=6, eos_id=2)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_serving_path_on_card_matches_cpu(gen, monkeypatch, fused):
+    """The tiny model's serving path (quant8 config, int8 decode packed or
+    unfused) gives the CPU's tokens on the card, in fp32: the int8 products
+    run kernels K-j and K-k there (the tiny widths keep the MLPs unfused,
+    where quant8 is ignored, as in JAX)."""
+    import dataclasses
+    from lvv_tpu_torch import (VQAModel, greedy_generate,
+                               prepare_serving_params,
+                               prepare_serving_params_fused, tiny_config)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = tiny_config().model
+    cfg = dataclasses.replace(
+        cfg, sam=dataclasses.replace(cfg.sam, quant8=True),
+        clip=dataclasses.replace(cfg.clip, quant8=True))
+    cpu = VQAModel(cfg, dtype=torch.float32, device="cpu", seed=3)
+    card = VQAModel(cfg, dtype=torch.float32, device="cuda", seed=3)
+    card.load_state_dict(cpu.state_dict())
+    prep = prepare_serving_params_fused if fused else prepare_serving_params
+    g = torch.Generator().manual_seed(1)
+    args = (torch.randn(1, 32, 24, 24, generator=g),
+            torch.rand(1, 6, 3, 64, 64, generator=g) * 2 - 1,
+            torch.ones(1, 6, dtype=torch.bool),
+            torch.randint(0, 500, (1, 6), generator=g), torch.tensor([6]))
+    want, _ = greedy_generate(cpu, *args, max_new_tokens=6, eos_id=2,
+                              params_decode=prep(cpu))
+    before = dict(kernels.launches)
+    got, _ = greedy_generate(card, *args, max_new_tokens=6, eos_id=2,
+                             params_decode=prep(card))
+    assert torch.equal(got.cpu(), want)
+    for name in ("int8_matmul", "int8_matmul_nk"):
+        assert kernels.launches[name] > before.get(name, 0)

@@ -4,7 +4,10 @@ On the tiny config with one seeded parameter tree shared through
 `from_jax_params`, in float32 on the CPU: the prefix embeddings and the
 last prefill logits agree with JAX within 1e-4 relative to (1 + |JAX|)
 (float32 round-off through ~20 layers; measured ~1e-6), and greedy_generate
-gives identical tokens and lengths, with LoRA off and at rank 2.
+gives identical tokens and lengths, with LoRA off and at rank 2. The same
+holds for bench.py's serving levers: the int8 decode (packed and unfused)
+and quant8 (which the CPU path ignores, as JAX's does off the TPU); the
+int8 packs and trees are bit-equal to JAX's.
 """
 import os
 import pathlib
@@ -20,7 +23,8 @@ from lvv_tpu.models import greedy_generate as jax_greedy_generate
 from lvv_tpu.models.qwen import init_cache as jax_init_cache
 from lvv_tpu.models.vqa import VQAModel as JaxVQAModel
 from lvv_tpu_torch import (VQAModel, default_config, from_jax_params,
-                           greedy_generate, tiny_config)
+                           greedy_generate, prepare_serving_params,
+                           prepare_serving_params_fused, tiny_config)
 from lvv_tpu_torch.models.qwen import init_cache
 from torch_parity_util import close, inputs, jax_model_and_params
 
@@ -93,6 +97,122 @@ def test_slice_matches_jax(pairs, lora_rank):
     j_tok, j_len = jax_greedy_generate(jm, params, *args, max_new_tokens=8,
                                        eos_id=eos)
     p_tok, p_len = greedy_generate(pm, *args, max_new_tokens=8, eos_id=eos)
+    np.testing.assert_array_equal(p_tok.numpy(), np.asarray(j_tok))
+    np.testing.assert_array_equal(p_len.numpy(), np.asarray(j_len))
+
+
+def _serving_args(cfg):
+    x = inputs(cfg, b=2, seed=2)
+    x["prompt_len"] = np.array([6, 4], np.int32)
+    return (x["bev"], x["images"], x["view_valid"], x["prompt_ids"],
+            x["prompt_len"])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("lora_rank", [0, 2])
+def test_int8_decode_matches_jax(pairs, lora_rank, fused):
+    """greedy_generate with the packed int8 decode (prepare_serving_params_
+    fused) or the unfused int8 tree (prepare_serving_params): identical
+    tokens and lengths to JAX's on the same weights. At rank 0 the two
+    decodes also agree with each other (under LoRA they differ by design:
+    the pack folds LoRA in before quantizing, the tree keeps it apart)."""
+    from lvv_tpu.models.vqa import prepare_serving_params as jprep
+    from lvv_tpu.models.vqa import prepare_serving_params_fused as jprep_f
+    jm, params, pm, cfg = pairs(lora_rank)
+    args = _serving_args(cfg)
+    jdec = jprep_f(jm, params) if fused else jprep(params)
+    pdec = (prepare_serving_params_fused(pm) if fused
+            else prepare_serving_params(pm))
+    j_tok, j_len = jax_greedy_generate(jm, params, *args, max_new_tokens=8,
+                                       eos_id=2, params_decode=jdec)
+    j_tok = np.asarray(j_tok)
+    assert len(set(j_tok.ravel().tolist())) > 2   # a non-degenerate answer
+    p_tok, p_len = greedy_generate(pm, *args, max_new_tokens=8, eos_id=2,
+                                   params_decode=pdec)
+    np.testing.assert_array_equal(p_tok.numpy(), j_tok)
+    np.testing.assert_array_equal(p_len.numpy(), np.asarray(j_len))
+    if lora_rank == 0:
+        other = (prepare_serving_params(pm) if fused
+                 else prepare_serving_params_fused(pm))
+        o_tok, o_len = greedy_generate(pm, *args, max_new_tokens=8,
+                                       eos_id=2, params_decode=other)
+        assert torch.equal(o_tok, p_tok) and torch.equal(o_len, p_len)
+
+
+@pytest.mark.parametrize("lora_rank", [0, 2])
+def test_int8_packs_bit_equal_jax(pairs, lora_rank):
+    """pack_decode_params (LoRA folded in) and quantize_llm_params give the
+    JAX package's int8 arrays, scales and packed biases, bit for bit."""
+    from lvv_tpu.models.decode_fused import pack_decode_params as jpack
+    from lvv_tpu.ops.quant import quantize_llm_params as jquant
+    jm, params, pm, cfg = pairs(lora_rank)
+    jp = jpack(params["llm"], jm.cfg.llm,
+               lora_scaling=4.0 / lora_rank if lora_rank else 1.0)
+    pp = prepare_serving_params_fused(pm)["_fused_decode"]
+    jt = jquant(params["llm"])
+    pt = prepare_serving_params(pm)["llm"]
+
+    def same(a, b):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+        assert b.dtype == torch.from_numpy(np.array(a)).dtype
+
+    for i in range(cfg.llm.num_layers):
+        for key in ("qkv", "o", "gateup", "down"):
+            for f in ("q", "s"):
+                same(jp["layers"][i][key][f], pp["layers"][i][key][f])
+        same(jp["layers"][i]["qkv"]["b"], pp["layers"][i]["qkv"]["b"])
+        assert "b" not in pp["layers"][i]["gateup"]
+        for block in ("attn", "mlp"):
+            tree = pt[f"layer_{i}"][block]
+            assert set(tree) == {k for k, v in jt[f"layer_{i}"][block].items()
+                                 if isinstance(v["kernel"], dict)}
+            for name, kern in tree.items():
+                for f in ("q", "s"):
+                    same(jt[f"layer_{i}"][block][name]["kernel"][f], kern[f])
+    for f in ("q", "s"):
+        same(jp["unembed"][f], pp["unembed"][f])
+        same(jt["unembed_q"][f], pt["unembed_q"][f])
+
+
+def test_packed_decode_needs_tied_embeddings(pairs):
+    """The pack's unembed is the quantized embedding table: an untied
+    config raises a ValueError instead of asserting."""
+    import dataclasses
+    from lvv_tpu_torch.models.decode_fused import pack_decode_params
+    _, _, pm, cfg = pairs(0)
+    llm = pm.llm
+    untied = dataclasses.replace(cfg.llm, tie_word_embeddings=False)
+    saved = llm.cfg
+    llm.cfg = untied
+    try:
+        with pytest.raises(ValueError, match="tied"):
+            pack_decode_params(llm)
+    finally:
+        llm.cfg = saved
+
+
+def test_quant8_serving_config_matches_jax_on_cpu(pairs):
+    """bench.py's serving configuration (quant8 on SAM and CLIP, the packed
+    int8 decode) on the CPU: both stacks take their float MLP paths there,
+    so the tokens equal JAX's from the same configuration."""
+    import dataclasses
+    from lvv_tpu.models.vqa import prepare_serving_params_fused as jprep_f
+    jm, params, _, cfg = pairs(0)
+    q8 = dataclasses.replace(
+        cfg, sam=dataclasses.replace(cfg.sam, quant8=True),
+        clip=dataclasses.replace(cfg.clip, quant8=True))
+    jq8 = JaxVQAModel(dataclasses.replace(
+        jm.cfg, sam=dataclasses.replace(jm.cfg.sam, quant8=True),
+        clip=dataclasses.replace(jm.cfg.clip, quant8=True)))
+    pm = VQAModel(q8, dtype=torch.float32, device="cpu")
+    pm.load_state_dict(from_jax_params(params, q8, device="cpu"))
+    args = _serving_args(cfg)
+    j_tok, j_len = jax_greedy_generate(jq8, params, *args, max_new_tokens=8,
+                                       eos_id=2,
+                                       params_decode=jprep_f(jq8, params))
+    p_tok, p_len = greedy_generate(pm, *args, max_new_tokens=8, eos_id=2,
+                                   params_decode=prepare_serving_params_fused(
+                                       pm))
     np.testing.assert_array_equal(p_tok.numpy(), np.asarray(j_tok))
     np.testing.assert_array_equal(p_len.numpy(), np.asarray(j_len))
 
