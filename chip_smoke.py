@@ -23,6 +23,10 @@
    and the packed int8 decode (prepare_serving_params_fused). Its prefill
    logits and first decode step's logits must agree with the same path with
    every kernel swapped for its plain version.
+5. Runs the same serving model under SAM's other int8 scopes,
+   LVV_Q8_SCOPE="mlp,dense,attn" (W8A8 projections K-i, int8 p@v K-d8) and
+   "mlp,dense,qk" (K-i, int8 scores K-g), each checked as in 4 and printed
+   on a `serving-path[scope]` line.
 
 Prints the per-kernel JSON line, then the card line, then as its last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no result
@@ -64,6 +68,17 @@ REL_L2_TOL = 1.0 / 128
 # gives ~7e-3, which the elementwise rule alone would pass
 # (tests/test_torch_gpu.py::test_q8_tolerance_sees_a_wrong_h_scale).
 Q8_REL_L2_TOL = 1.0 / 512
+# The int8 p@v arm (K-d8) against its plain version: both take q·k as exact
+# products summed in fp32 in another order, so a p on a rounding boundary of
+# p8 may land one step apart; one step moves an output by at most
+# sp / 127 · |v| / l <= max|v| / 127, which the elementwise rule adds on top
+# of BF16_TOL. The relative L2 stays REL_L2_TOL: a single whole-row scale of
+# p in place of the 1024-column groups gives ~5e-2 on these inputs and has
+# to fail it. K-i and K-g need no allowance: K-i's plain version is its
+# arithmetic exactly (K-i: per-tensor scale of x ~1.4e-2 must fail
+# Q8_REL_L2_TOL), and K-g's int8 scores are exact on both sides (the float
+# scores of K-d, ~4e-2 away, must fail REL_L2_TOL).
+SCOPES = ("mlp,dense,attn", "mlp,dense,qk")
 NEW_TOKENS, PROMPT_LEN, EOS_ID = 32, 24, 2
 
 
@@ -151,8 +166,9 @@ def kernel_cases(torch):
                 bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h),
                 rel_l2_tol=Q8_REL_L2_TOL)
             if M.q8_block_h(c, h, 2) < h:      # h has per-chunk row scales
-                case["trap"] = lambda: M.ln_mlp_residual_q8_plain(
-                    x, *p, eps=1e-6, act=act, block_h=h)
+                case["traps"] = {"whole_row_h_scale":
+                                 lambda: M.ln_mlp_residual_q8_plain(
+                                     x, *p, eps=1e-6, act=act, block_h=h)}
             return case
         return setup
 
@@ -223,6 +239,63 @@ def kernel_cases(torch):
                 peak=BF16_FLOPS, bytes=2 * (b * s * 4 * c + 2 * g * g * d))
         return setup
 
+    def w8a8_case(m, k, n):
+        def setup():
+            x, w, b = rnd(m, k), rnd(k, n, std=k ** -0.5), rnd(n, std=0.1)
+
+            def per_tensor_x():
+                """the trap: one scale for all of x in place of one a row"""
+                xf = x.float()
+                sx = torch.clamp_min(xf.abs().max() / 127.0, 1e-8)
+                xq = torch.clamp(torch.round(xf / sx), -127, 127)
+                wq, sw = Q.quantize_weight(w)
+                return (Q.int8_exact(xq, wq) * sx * sw + b.float()).to(bf)
+            return dict(
+                kernel=lambda: Q.w8a8_matmul(x, w, b),
+                plain=lambda: Q.int8_dot(x, w, b), library=None,
+                info=("info_bf16_matmul_ms_not_same_function",
+                      lambda: torch.matmul(x, w) + b),
+                flops=2 * m * k * n, peak=INT8_OPS,
+                bytes=2 * (m * k + k * n + n + m * n),
+                rel_l2_tol=Q8_REL_L2_TOL,
+                traps={"per_tensor_x_scale": per_tensor_x})
+        return setup
+
+    def relpos_q8_case(b, g, heads, d, qk8):
+        # std 1 gives peaked rows, where the quantization of p matters
+        def setup():
+            s, c = g * g, heads * d
+            qkv = rnd(b, s, 3 * c)
+            rh, rw = rnd(g, g, d, std=0.1), rnd(g, g, d, std=0.1)
+            kw = dict(heads=heads, scale=d ** -0.5)
+            pair = b * heads * 2 * s * s * d
+            bias = b * heads * 2 * s * 2 * g * d
+            case = dict(library=None, bytes=2 * (b * s * 4 * c + 2 * g * g * d))
+            if qk8:
+                case.update(
+                    kernel=lambda: A.relpos_attention_qk8(qkv, rh, rw, **kw),
+                    plain=lambda: A.relpos_attention_qk8_plain(qkv, rh, rw,
+                                                               **kw),
+                    flops=pair * 128 // d + pair,
+                    ops_ms=(pair * 128 // d / INT8_OPS
+                            + pair / BF16_FLOPS) * 1e3,
+                    traps={"float_scores": lambda: A.relpos_attention_plain(
+                        qkv, rh, rw, **kw)})
+            else:
+                case.update(
+                    kernel=lambda: A.relpos_attention(
+                        qkv, rh, rw, pv_int8=True, pv_group=1024, **kw),
+                    plain=lambda: A.relpos_attention_plain(
+                        qkv, rh, rw, pv_int8=True, pv_group=1024, **kw),
+                    flops=2 * pair + bias,
+                    ops_ms=((pair + bias) / BF16_FLOPS
+                            + pair / INT8_OPS) * 1e3,
+                    abs_extra=float(qkv[..., 2 * c:].abs().max()) / 127,
+                    traps={"whole_row_p_scale": lambda: A.relpos_attention_plain(
+                        qkv, rh, rw, pv_int8=True, pv_group=s, **kw)})
+            return case
+        return setup
+
     decode = NEW_TOKENS * 49
     layer_steps = 24 * NEW_TOKENS
     return [
@@ -264,6 +337,18 @@ def kernel_cases(torch):
          int8_case(1, 4864, 896)),
         ("int8_matmul_nk", "decode unembed [1,896]x[151940,896]^T",
          NEW_TOKENS, int8_case(1, 896, 151940, nk=True)),
+        ("w8a8_matmul", "windowed qkv [29400,768]x[768,2304]", 8,
+         w8a8_case(29400, 768, 2304)),
+        ("w8a8_matmul", "windowed proj [29400,768]x[768,768]", 8,
+         w8a8_case(29400, 768, 768)),
+        ("w8a8_matmul", "global qkv [24576,768]x[768,2304]", 4,
+         w8a8_case(24576, 768, 2304)),
+        ("w8a8_matmul", "global proj [24576,768]x[768,768]", 4,
+         w8a8_case(24576, 768, 768)),
+        ("relpos_attention_pv8[64x64]", "global [6,4096,2304] 12h d64 "
+         "groups of 1024", 4, relpos_q8_case(6, 64, 12, 64, qk8=False)),
+        ("relpos_attention_qk8[64x64]", "global [6,4096,2304] 12h d64", 4,
+         relpos_q8_case(6, 64, 12, 64, qk8=True)),
     ]
 
 
@@ -287,17 +372,28 @@ ROWS = {
                     "lvv_tpu/ops/quant.py:283"),
     "int8_matmul_nk": ("cuda", "lvv_tpu_torch/kernels/csrc/int8_matmul_nk.cu",
                        "lvv_tpu/ops/quant.py:78"),
+    "w8a8_matmul": ("cuda", "lvv_tpu_torch/kernels/csrc/w8a8_matmul.cu",
+                    "lvv_tpu/ops/quant.py:184"),
+    "relpos_attention_pv8[64x64]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/relpos_attention.cu",
+        "lvv_tpu/ops/attention.py:717"),
+    "relpos_attention_qk8[64x64]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/relpos_attention_qk8.cu",
+        "lvv_tpu/ops/attention.py:738"),
 }
 
 
-def agreement(got, want, rel_l2_tol: float = REL_L2_TOL):
+def agreement(got, want, rel_l2_tol: float = REL_L2_TOL,
+              abs_extra: float = 0.0):
     """(ok, max abs error, relative L2) of a kernel's output against its
     plain version: finite, elementwise within BF16_TOL of (|plain| +
-    rms(plain)), and within rel_l2_tol relative L2 overall."""
+    rms(plain)) plus abs_extra, and within rel_l2_tol relative L2
+    overall."""
     import torch
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    bad = err > BF16_TOL * (want.abs() + want.square().mean().sqrt())
+    bad = err > (BF16_TOL * (want.abs() + want.square().mean().sqrt())
+                 + abs_extra)
     rel_l2 = float((got - want).norm() / want.norm())
     ok = (bool(torch.isfinite(got).all()) and not bool(bad.any())
           and rel_l2 <= rel_l2_tol)
@@ -316,27 +412,31 @@ def check_kernels(torch) -> dict:
         torch.cuda.synchronize()
         want = case["plain"]()
         rel_tol = case.get("rel_l2_tol", REL_L2_TOL)
-        ok, max_err, rel_l2 = agreement(got, want, rel_tol)
+        extra = case.get("abs_extra", 0.0)
+        ok, max_err, rel_l2 = agreement(got, want, rel_tol, extra)
         bytes_ms = case["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = case["flops"] / case["peak"] * 1e3
+        ops_ms = (case["ops_ms"] if "ops_ms" in case
+                  else case["flops"] / case["peak"] * 1e3)
         line = dict(kernel=row, shape=label, launches_per_call=count,
                     max_abs_err=max_err, rel_l2=rel_l2,
-                    tol="4 bf16 ulps of (|plain| + rms(plain)); rel L2 "
-                        f"1/{round(1 / rel_tol)}",
+                    tol="4 bf16 ulps of (|plain| + rms(plain))"
+                        + (f" + {extra:.4g}" if extra else "")
+                        + f"; rel L2 1/{round(1 / rel_tol)}",
                     bound_ms=max(bytes_ms, ops_ms))
-        if "trap" in case:
-            # the tolerance has to see a wrong scale: one whole-row scale of
-            # h in place of the per-chunk ones must fail it
-            trap_ok, _, trap_l2 = agreement(got, case["trap"](), rel_tol)
-            line["whole_row_h_scale_rel_l2"] = trap_l2
+        # the tolerance has to see a wrong function: each trap must fail it
+        for name, trap in case.get("traps", {}).items():
+            trap_ok, _, trap_l2 = agreement(got, trap(), rel_tol, extra)
+            line[f"{name}_rel_l2"] = trap_l2
             if trap_ok:
                 raise AssertionError(f"{row} {label}: the tolerance passes "
-                                     "a whole-row scale of h")
+                                     f"the trap {name}")
         del got, want
         line["ms"] = timed_ms(case.get("timed_kernel", case["kernel"]), 20)
         line["plain_ms"] = timed_ms(case.get("timed_plain", case["plain"]), 3)
         line["library_ms"] = (timed_ms(case["library"], 10)
                               if case["library"] else None)
+        if "info" in case:                 # a yardstick of another function
+            line[case["info"][0]] = timed_ms(case["info"][1], 10)
         print("kernel-check", json.dumps(line), flush=True)
         if not ok:
             raise AssertionError(f"{row} {label}: kernel disagrees with its "
@@ -373,11 +473,14 @@ def bench_inputs(cfg):
     return bev, images, np.ones((b, 6), bool), prompt, np.full((b,), t)
 
 
-def expected_launches(cfg, serving: bool = False) -> dict:
+def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
     """Kernel launches of one greedy_generate at batch 1, from the model's
     structure (every norm width there is a multiple of 128). The serving
     path runs the W8A8 MLP in place of the bf16 one and the packed int8
-    decode: 4 int8 products a layer and one int8 unembed a step."""
+    decode: 4 int8 products a layer and one int8 unembed a step. Its other
+    SAM scopes add the W8A8 qkv / proj projections ("dense", 2 a block) and
+    turn the global layers (64x64 grids, eligible for both) into K-g ("qk",
+    which wins) or K-d8 ("attn")."""
     s, c, vv, vl, llm = (cfg.sam, cfg.clip, cfg.vat_vision, cfg.vat_lidar,
                          cfg.llm)
     grid = s.img_size // s.patch_size
@@ -388,12 +491,16 @@ def expected_launches(cfg, serving: bool = False) -> dict:
               + 3 * vv.n_blocks + 4             # VATVision
               + 1 + 3 * vl.n_blocks + 2)        # VATLiDAR
     per_llm_pass = 2 * llm.num_layers + 1
+    names = set(scope.split(","))
+    global_kind = ("relpos_attention_qk8" if "qk" in names else
+                   "relpos_attention_pv8" if "attn" in names else
+                   "relpos_attention")
     want = {
         "norm": encode + per_llm_pass * (1 + NEW_TOKENS),
         "flash_attention": vv.n_blocks + vl.n_blocks + llm.num_layers,
         f"relpos_attention[{s.window_size}x{s.window_size}]":
             s.depth - n_global,
-        f"relpos_attention[{grid}x{grid}]": n_global,
+        f"{global_kind}[{grid}x{grid}]": n_global,
     }
     if not serving:
         want["ln_mlp_residual"] = s.depth + c.num_layers
@@ -401,6 +508,8 @@ def expected_launches(cfg, serving: bool = False) -> dict:
         want["ln_mlp_residual_q8"] = s.depth + c.num_layers
         want["int8_matmul"] = 4 * llm.num_layers * NEW_TOKENS
         want["int8_matmul_nk"] = NEW_TOKENS
+        if "dense" in names:
+            want["w8a8_matmul"] = 2 * s.depth
     return want
 
 
@@ -437,6 +546,8 @@ def plain_kernels():
              (M, "ln_mlp_residual_q8", M.ln_mlp_residual_q8_plain),
              (A, "flash_attention", A.flash_attention_plain),
              (sam, "relpos_attention", A.relpos_attention_plain),
+             (sam, "relpos_attention_qk8", A.relpos_attention_qk8_plain),
+             (sam, "w8a8_matmul", Q.int8_dot),
              (Q, "quantized_matmul", Q.quantized_matmul_plain),
              (Q, "quantized_matmul_nk", Q.quantized_matmul_nk_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -535,54 +646,72 @@ def run_float_path(torch) -> tuple:
     return report, fast
 
 
-def run_serving_path(torch, float_logits) -> dict:
-    """bench.py's serving path: quant8 SAM/CLIP MLPs ("mlp" scope) and the
-    packed int8 decode, on the float path's seeded weights and inputs."""
+def serving_model(torch):
+    """bench.py's serving model: quant8 on SAM and CLIP, the float path's
+    seeded weights and inputs, and the packed int8 decode tree."""
     import dataclasses
-    from lvv_tpu_torch import (VQAModel, default_config, kernels,
+    from lvv_tpu_torch import (VQAModel, default_config,
                                prepare_serving_params_fused)
-    from lvv_tpu_torch.config import q8_scope
-    from lvv_tpu_torch.models.decode_fused import fused_decode_step
-    from lvv_tpu_torch.models.qwen import init_cache
     cfg = default_config().model
     cfg = dataclasses.replace(
         cfg, sam=dataclasses.replace(cfg.sam, quant8=True),
         clip=dataclasses.replace(cfg.clip, quant8=True))
-    if q8_scope() != {"mlp"}:
-        raise AssertionError("the serving path runs the \"mlp\" scope")
     model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     args = [torch.as_tensor(a, device="cuda") for a in bench_inputs(cfg)]
-    packed = prepare_serving_params_fused(model)
-    report = drive(torch, model, args, packed,
-                   expected_launches(cfg, serving=True))
+    return cfg, model, args, prepare_serving_params_fused(model)
 
-    def first_logits(token=None):
-        """Prefill logits, then the first packed decode step's logits (fed
-        `token`, or the prefill's argmax)."""
-        cache = init_cache(cfg.llm, 1, 1600, dtype=model.dtype, device="cuda")
-        pre = prefill_logits(torch, model, args, cache)
-        nxt = pre.argmax(-1) if token is None else token
-        with torch.inference_mode():
-            step = fused_decode_step(cfg.llm, model.dtype,
-                                     packed["_fused_decode"], nxt, cache)
-        return pre, step.float(), nxt
 
-    pre, step, nxt = first_logits()
-    before = dict(kernels.launches)
-    with plain_kernels():
-        pre_plain, step_plain, _ = first_logits(nxt)
-    if dict(kernels.launches) != before:
-        raise AssertionError("a kernel launched under plain_kernels()")
+def run_serving_path(torch, served, scope: str, ref_logits,
+                     ref_name: str) -> tuple:
+    """The serving model under LVV_Q8_SCOPE=scope (read at each call): the
+    driven run, then its prefill and first decode step's logits against the
+    same scope with every kernel swapped for its plain version. Returns the
+    report and the prefill logits; `ref_logits` (another path's) are
+    compared as information."""
+    import os
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.config import q8_scope
+    from lvv_tpu_torch.models.decode_fused import fused_decode_step
+    from lvv_tpu_torch.models.qwen import init_cache
+    cfg, model, args, packed = served
+    os.environ["LVV_Q8_SCOPE"] = scope
+    try:
+        if q8_scope() != frozenset(scope.split(",")):
+            raise AssertionError(f"LVV_Q8_SCOPE is not read as {scope!r}")
+        report = drive(torch, model, args, packed,
+                       expected_launches(cfg, serving=True, scope=scope))
+
+        def first_logits(token=None):
+            """Prefill logits, then the first packed decode step's logits
+            (fed `token`, or the prefill's argmax)."""
+            cache = init_cache(cfg.llm, 1, 1600, dtype=model.dtype,
+                               device="cuda")
+            pre = prefill_logits(torch, model, args, cache)
+            nxt = pre.argmax(-1) if token is None else token
+            with torch.inference_mode():
+                step = fused_decode_step(cfg.llm, model.dtype,
+                                         packed["_fused_decode"], nxt, cache)
+            return pre, step.float(), nxt
+
+        pre, step, nxt = first_logits()
+        before = dict(kernels.launches)
+        with plain_kernels():
+            pre_plain, step_plain, _ = first_logits(nxt)
+        if dict(kernels.launches) != before:
+            raise AssertionError("a kernel launched under plain_kernels()")
+    finally:
+        del os.environ["LVV_Q8_SCOPE"]
     for t in (pre, step, pre_plain, step_plain):
         if not torch.isfinite(t).all():
             raise AssertionError("non-finite serving-path logits")
     report.update(
+        scope=scope,
         logits_rel_l2_vs_plain=rel_l2(pre, pre_plain),
         logits_max_abs_vs_plain=float((pre - pre_plain).abs().max()),
         step_logits_rel_l2_vs_plain=rel_l2(step, step_plain),
         step_logits_max_abs_vs_plain=float((step - step_plain).abs().max()),
-        prefill_logits_rel_l2_q8_vs_float=rel_l2(pre, float_logits))
-    return report
+        **{f"prefill_logits_rel_l2_vs_{ref_name}": rel_l2(pre, ref_logits)})
+    return report, pre
 
 
 def device_busy(torch, generate) -> dict:
@@ -647,8 +776,15 @@ def main() -> int:
     paths["float"], float_logits = run_float_path(torch)
     print("main-path", json.dumps(paths["float"]), flush=True)
     torch.cuda.empty_cache()
-    paths["serving"] = run_serving_path(torch, float_logits)
+    served = serving_model(torch)
+    paths["serving"], mlp_logits = run_serving_path(
+        torch, served, "mlp", float_logits, "float")
     print("serving-path", json.dumps(paths["serving"]), flush=True)
+    for scope in SCOPES:
+        paths[scope], _ = run_serving_path(torch, served, scope, mlp_logits,
+                                           "mlp")
+        print(f"serving-path[{scope}]", json.dumps(paths[scope]), flush=True)
+    del served
     for name, e2e in paths.items():
         for key in ("logits_rel_l2_vs_plain", "step_logits_rel_l2_vs_plain"):
             if e2e.get(key, 0.0) > LOGITS_REL_TOL:
@@ -660,7 +796,7 @@ def main() -> int:
         by_path = {p: e["launches"].get(name, 0) for p, e in paths.items()}
         out.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=by_path["serving"] or by_path["float"],
+            launches=max(by_path.values()),
             launches_by_path=by_path,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],

@@ -13,26 +13,14 @@ import os
 from dataclasses import field
 from typing import Optional, Tuple
 
-# quant8 scopes whose kernels are not ported yet, with the TPU kernel each
-# needs (lvv_tpu/models/sam.py:128, :185, :189)
-_UNPORTED_Q8 = {
-    "dense": "K-i (_w8a8_kernel: W8A8 SAM qkv / proj projections)",
-    "attn": "K-h (int8 p@v in the head-split rel-pos attention)",
-    "qk": "K-g (_flash_hpacked_qk8_kernel: int8 attention scores)",
-}
-
-
 def q8_scope() -> frozenset:
     """Which sub-paths `quant8` applies to: the comma-set in LVV_Q8_SCOPE,
     default "mlp", read at call time as the JAX package's `_q8_scope` is.
-    Only "mlp" (the W8A8 fused MLP, K-f) is ported; any other name raises
-    rather than running the float path in its place."""
-    scope = frozenset(os.environ.get("LVV_Q8_SCOPE", "mlp").split(","))
-    for name in sorted(scope - {"mlp"}):
-        kernel = _UNPORTED_Q8.get(name, "no known kernel")
-        raise NotImplementedError(
-            f"LVV_Q8_SCOPE={name!r} is not ported: it needs {kernel}")
-    return scope
+    "mlp" is the W8A8 fused MLP (K-f), "dense" SAM's W8A8 qkv / proj
+    projections (K-i), "attn" the int8 p@v of SAM's global attention (K-d8)
+    and "qk" its int8 scores (K-g, taking precedence over "attn"). Other
+    names are ignored, as in JAX; "" turns quant8 off everywhere."""
+    return frozenset(os.environ.get("LVV_Q8_SCOPE", "mlp").split(","))
 
 
 def config(cls):
@@ -55,7 +43,7 @@ class SAMConfig:
     use_rel_pos: bool = True
     vary_dims: Tuple[int, ...] = (512, 1024)
     frozen_trunk: bool = True
-    quant8: bool = False   # W8A8 serving lever (K-f under LVV_Q8_SCOPE)
+    quant8: bool = False   # int8 serving levers, by LVV_Q8_SCOPE
 
 
 @config

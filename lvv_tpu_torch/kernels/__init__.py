@@ -25,7 +25,8 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lvv_tpu_torch"
 SOURCES = ("ln_mlp_residual", "flash_attention", "relpos_attention",
-           "ln_mlp_residual_q8", "int8_matmul", "int8_matmul_nk")
+           "ln_mlp_residual_q8", "int8_matmul", "int8_matmul_nk",
+           "w8a8_matmul", "relpos_attention_qk8")
 
 launches: collections.Counter = collections.Counter()
 
@@ -33,10 +34,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "lvv_ln_mlp_residual": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     "lvv_flash_attention": [_P] * 5 + [_I] * 7 + [_F, _P, _P],
-    "lvv_relpos_attention": [_P] * 4 + [_I] * 6 + [_F, _P],
+    "lvv_relpos_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
     "lvv_ln_mlp_residual_q8": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
     "lvv_int8_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 4 + [_P],
+    "lvv_w8a8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "lvv_relpos_attention_qk8": [_P] * 7 + [_I] * 4 + [_P],
 }
 _libs: dict = {}
 _lock = threading.Lock()
@@ -55,7 +58,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     digest = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -1,6 +1,6 @@
 // Shared pieces of the port's hand-written Hopper kernels: bf16 tensor-core
 // MMA (mma.sync m16n8k16, fp32 accumulate) with explicit fragment layouts,
-// and the online-softmax loop that the two attention kernels share.
+// and the online-softmax loop that the attention kernels share.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -42,6 +42,10 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 // A fragment of the 16x16 block at `base` of a row-major tile (ld elements).
 __device__ __forceinline__ void load_a(uint32_t* a, const bf16* base, int ld,
                                        int lane) {
@@ -81,6 +85,19 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 constexpr int kBQ = 64;        // q rows per block (16 per warp)
 constexpr int kBK = 64;        // kv rows per tile
 constexpr int kAttnThreads = 128;
@@ -100,24 +117,43 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-// Online-softmax attention of the 64-row q tile in q_s (row ld D + 8) over
-// kv positions [0, kv_end), one warp per 16 q rows.
-//   load_kv(k0): fills k_s / v_s with kv rows k0 .. k0 + kBK (zero past end)
-//   score(acc, row, col): log2-domain logit of tile row `row` (0..63) and
-//                         kv position `col`, given acc = q·k (LVV_NEG_BIG
-//                         when masked)
+// bf16 scores of this warp's 16 q rows (q_s, row ld D + 8) against the kv
+// tile in k_s: s[j] is the C fragment of kv columns 8j .. 8j + 7.
+template <int D>
+__device__ __forceinline__ void qk_bf16(float (&s)[kBK / 8][4],
+                                        const bf16* q_s, const bf16* k_s) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    load_a(a, q_s + warp * 16 * LD + kk * 16, LD, lane);
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      uint32_t b[2];
+      load_b_nk(b, k_s + j * 8 * LD + kk * 16, LD, lane);
+      mma16816(s[j], a, b);
+    }
+  }
+}
+
+// Online-softmax attention of a 64-row q tile over kv positions [0, kv_end),
+// one warp per 16 q rows.
+//   load_kv(k0):  fills the kv tile k0 .. k0 + kBK in shared memory (v_s
+//                 holds V, row ld D + 8, zero past the end)
+//   scores(k0, s): the log2-domain logits of this warp's rows against that
+//                 tile, in the C fragment layout (LVV_NEG_BIG where masked)
 // On return o holds the unnormalised output rows g and g + 8 of this warp
 // and l0 / l1 their softmax denominators.
-template <int D, class LoadKV, class Score>
-__device__ __forceinline__ void flash_tile(const bf16* q_s, const bf16* k_s,
-                                           const bf16* v_s, int kv_end,
-                                           LoadKV load_kv, Score score,
+template <int D, class LoadKV, class Scores>
+__device__ __forceinline__ void flash_loop(const bf16* v_s, int kv_end,
+                                           LoadKV load_kv, Scores scores,
                                            float (&o)[D / 8][4], float& l0,
                                            float& l1) {
   constexpr int LD = D + 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const int lane = threadIdx.x & 31;
   float m0 = LVV_NEG_BIG, m1 = LVV_NEG_BIG;
   l0 = 0.f;
   l1 = 0.f;
@@ -129,27 +165,10 @@ __device__ __forceinline__ void flash_tile(const bf16* q_s, const bf16* k_s,
     load_kv(k0);
     __syncthreads();
     float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, q_s + warp * 16 * LD + kk * 16, LD, lane);
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        uint32_t b[2];
-        load_b_nk(b, k_s + j * 8 * LD + kk * 16, LD, lane);
-        mma16816(s[j], a, b);
-      }
-    }
+    scores(k0, s);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
-      const int col = k0 + j * 8 + 2 * t;
-      s[j][0] = score(s[j][0], r0, col);
-      s[j][1] = score(s[j][1], r0, col + 1);
-      s[j][2] = score(s[j][2], r1, col);
-      s[j][3] = score(s[j][3], r1, col + 1);
       mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
       mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
@@ -195,6 +214,41 @@ __device__ __forceinline__ void flash_tile(const bf16* q_s, const bf16* k_s,
   }
   l0 = fmaxf(l0, 1e-30f);  // guard, as the JAX kernel's finalize does
   l1 = fmaxf(l1, 1e-30f);
+}
+
+// The log2-domain scores of this warp's rows against the kv tile at k0:
+// bf16 q·k (q_s / k_s, row ld D + 8), then
+//   score(acc, row, col): the logit of tile row `row` (0..63) and kv
+//                         position `col`, given acc = q·k
+template <int D, class Score>
+__device__ __forceinline__ void qk_scores(float (&s)[kBK / 8][4],
+                                          const bf16* q_s, const bf16* k_s,
+                                          int k0, Score score) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
+  qk_bf16<D>(s, q_s, k_s);
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    const int col = k0 + j * 8 + 2 * t;
+    s[j][0] = score(s[j][0], r0, col);
+    s[j][1] = score(s[j][1], r0, col + 1);
+    s[j][2] = score(s[j][2], r1, col);
+    s[j][3] = score(s[j][3], r1, col + 1);
+  }
+}
+
+// flash_loop with the bf16 q·k scores of qk_scores.
+template <int D, class LoadKV, class Score>
+__device__ __forceinline__ void flash_tile(const bf16* q_s, const bf16* k_s,
+                                           const bf16* v_s, int kv_end,
+                                           LoadKV load_kv, Score score,
+                                           float (&o)[D / 8][4], float& l0,
+                                           float& l1) {
+  auto scores = [&](int k0, float (&s)[kBK / 8][4]) {
+    qk_scores<D>(s, q_s, k_s, k0, score);
+  };
+  flash_loop<D>(v_s, kv_end, load_kv, scores, o, l0, l1);
 }
 
 // Raise a kernel's dynamic shared-memory limit above the 48 KB default.

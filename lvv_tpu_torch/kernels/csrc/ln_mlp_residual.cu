@@ -46,16 +46,6 @@ __device__ __forceinline__ float act_fn(float z) {
   return z / (1.f + __expf(-1.702f * z));  // QuickGELU
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // NT = C / 64: the n8 tiles each warp owns in the second product.
 template <int NT, int ACT>
 __global__ void __launch_bounds__(kThreads, 1)

@@ -34,19 +34,11 @@
 // from L2. 16 rows a block keep the h chunk within 227 KB at BH = 4096 but
 // leave one block per SM; CLIP's 1,542 tokens make 97 blocks for 132 SMs.
 #include "common.cuh"
+#include "int8.cuh"
 
 constexpr int kRows = 16;       // token rows per block (one m16 tile)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int ACT>
 __device__ __forceinline__ float act_fn(float z) {
@@ -55,52 +47,6 @@ __device__ __forceinline__ float act_fn(float z) {
     return 0.5f * z * (1.f + tanhf(k0 * (z + 0.044715f * z * z * z)));
   }
   return z / (1.f + expf(-1.702f * z));  // QuickGELU
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// round(v / s) half to even, clipped to +-127
-__device__ __forceinline__ signed char quant(float v, float s) {
-  const int q = __float2int_rn(__fdiv_rn(v, s));
-  return (signed char)max(-127, min(127, q));
-}
-
-__device__ __forceinline__ float row_scale(float amax) {
-  return fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-}
-
-// A fragment (16 x 32 int8, row-major) at `base` with row stride ld bytes.
-__device__ __forceinline__ void load_a8(uint32_t* a, const signed char* base,
-                                        int ld, int lane) {
-  const signed char* p0 = base + (lane >> 2) * ld + 4 * (lane & 3);
-  const signed char* p1 = p0 + 8 * ld;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-}
-
-// B fragment (k 32 x n 8) from a weight stored n-major: w[n * ld + k].
-__device__ __forceinline__ void load_b8(uint32_t* b, const signed char* w,
-                                        long long ld, int lane) {
-  const signed char* p = w + (long long)(lane >> 2) * ld + 4 * (lane & 3);
-  b[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-  b[1] = __ldg(reinterpret_cast<const unsigned int*>(p + 16));
 }
 
 // NT = C / 64: output n8 tiles each warp owns in the second product.

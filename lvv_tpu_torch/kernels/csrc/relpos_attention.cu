@@ -28,16 +28,152 @@
 // here only to use exp2. Windows are full 196-token sequences (the 64x64 grid
 // is zero-padded to 70x70 before partitioning and the zero tokens take part,
 // unmasked, as in the reference); only the tile edge past S is masked.
+//
+// The int8 p@v arm (PV8) replaces the `quant8` arm of the same TPU kernel
+// (K-d8, attention.py:717-723, LVV_Q8_SCOPE "attn" on the 4 global layers):
+// v arrives quantized per (view, head, channel) by the wrapper, transposed
+// to [B, H, d, S] (kv is the contraction axis of p@v, and the s8 MMA's B
+// fragment wants 4 consecutive kv of one channel); p is quantized in the
+// kernel per row and per GROUP of `pv_group` kv columns (1024, the TPU's kv
+// tile), against the group's own maximum: sp = max(exp2(gmax - m_new),
+// 1e-30), p8 = round(p·127/sp), pv = (z·(sp/127))·sv with z the int32 sum
+// over the group, and l sums the unquantized p. A 64-column tile cannot see
+// its group's maximum, so each group is walked twice: once for the row
+// maxima of its scores, once to quantize and accumulate (q·k is computed
+// twice; the products are 1.5x those of the float arm). p8 goes from the
+// score accumulators into the s8 A fragment in registers: the kv order
+// inside a 32-deep step is permuted the same way in the B fragments, which
+// are read two bytes at a time from the transposed v8 tile.
+//
+// What bounds the int8 arm on the H100: 2·S²·d bf16 operations for q·k and
+// 2·S²·d int8 operations for p@v: about 0.24 ms at the global shape.
 #include "common.cuh"
+#include "int8.cuh"
 
 constexpr int kMaxGh = 64;
 constexpr int kMaxGw = 128;
 
-template <int D>
+constexpr int kLDV8 = kBK + 16;  // row of the transposed int8 v tile, bytes
+
+__device__ __forceinline__ uint32_t ld_u16(const signed char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// The PV8 online softmax over kv [0, s) in groups of `group` columns (a
+// multiple of kBK). load_k(k0) fills k_s, load_v8(k0) the int8 v tile v8_s
+// ([d][kLDV8], kv along a row), scores(k0, s) as flash_loop's; sv: the d
+// per-channel scales of v. Returns what flash_loop returns.
+template <int D, class LoadK, class LoadV8, class Scores>
+__device__ __forceinline__ void pv8_loop(const signed char* v8_s, int s,
+                                         int group, LoadK load_k,
+                                         LoadV8 load_v8, Scores scores,
+                                         const float* __restrict__ sv,
+                                         float (&o)[D / 8][4], float& l0,
+                                         float& l1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float m0 = LVV_NEG_BIG, m1 = LVV_NEG_BIG;
+  l0 = 0.f;
+  l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int g0 = 0; g0 < s; g0 += group) {
+    const int g1 = min(g0 + group, s);
+    // pass 1: the group's row maxima
+    float gm0 = LVV_NEG_BIG, gm1 = LVV_NEG_BIG;
+    for (int k0 = g0; k0 < g1; k0 += kBK) {
+      __syncthreads();
+      load_k(k0);
+      __syncthreads();
+      float sc[kBK / 8][4];
+      scores(k0, sc);
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        gm0 = fmaxf(gm0, fmaxf(sc[j][0], sc[j][1]));
+        gm1 = fmaxf(gm1, fmaxf(sc[j][2], sc[j][3]));
+      }
+    }
+    gm0 = quad_max(gm0);
+    gm1 = quad_max(gm1);
+    const float mn0 = fmaxf(m0, gm0), mn1 = fmaxf(m1, gm1);
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    const float sp0 = fmaxf(exp2f(gm0 - mn0), 1e-30f);
+    const float sp1 = fmaxf(exp2f(gm1 - mn1), 1e-30f);
+    const float mul0 = __fdiv_rn(127.f, sp0), mul1 = __fdiv_rn(127.f, sp1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // pass 2: p (fp32, summed into l), p8, z += p8 @ v8 (int32)
+    int z[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) z[j][0] = z[j][1] = z[j][2] = z[j][3] = 0;
+    float ps0 = 0.f, ps1 = 0.f;
+    for (int k0 = g0; k0 < g1; k0 += kBK) {
+      __syncthreads();
+      load_k(k0);
+      load_v8(k0);
+      __syncthreads();
+      float sc[kBK / 8][4];
+      scores(k0, sc);
+      int p8[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = exp2f(sc[j][i] - (i < 2 ? m0 : m1));
+          if (i < 2) ps0 += p; else ps1 += p;
+          p8[j][i] = min(127, __float2int_rn(__fmul_rn(p, i < 2 ? mul0 : mul1)));
+        }
+      }
+      // 32 kv a step; k-slot 4t + i holds kv column 2t + (i & 1) + 8 (i >> 1)
+      // of each 16-column half (the order of the score fragments)
+#pragma unroll
+      for (int kc = 0; kc < kBK / 32; ++kc) {
+        const int j = 4 * kc;
+        uint32_t a[4];
+        a[0] = pack_s8(p8[j][0], p8[j][1], p8[j + 1][0], p8[j + 1][1]);
+        a[1] = pack_s8(p8[j][2], p8[j][3], p8[j + 1][2], p8[j + 1][3]);
+        a[2] = pack_s8(p8[j + 2][0], p8[j + 2][1], p8[j + 3][0], p8[j + 3][1]);
+        a[3] = pack_s8(p8[j + 2][2], p8[j + 2][3], p8[j + 3][2], p8[j + 3][3]);
+#pragma unroll
+        for (int jn = 0; jn < D / 8; ++jn) {
+          const signed char* vr = v8_s + (jn * 8 + g) * kLDV8 + kc * 32 + 2 * t;
+          uint32_t b[2];
+          b[0] = ld_u16(vr) | (ld_u16(vr + 8) << 16);
+          b[1] = ld_u16(vr + 16) | (ld_u16(vr + 24) << 16);
+          mma_s8(z[jn], a, b);
+        }
+      }
+    }
+    l0 = l0 * alpha0 + quad_sum(ps0);
+    l1 = l1 * alpha1 + quad_sum(ps1);
+    const float spc0 = __fmul_rn(sp0, 1.f / 127.f);
+    const float spc1 = __fmul_rn(sp1, 1.f / 127.f);
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const int c = jn * 8 + 2 * t;
+      const float sva = sv[c], svb = sv[c + 1];
+      o[jn][0] = __fadd_rn(__fmul_rn(o[jn][0], alpha0),
+                           __fmul_rn(__fmul_rn(__int2float_rn(z[jn][0]), spc0), sva));
+      o[jn][1] = __fadd_rn(__fmul_rn(o[jn][1], alpha0),
+                           __fmul_rn(__fmul_rn(__int2float_rn(z[jn][1]), spc0), svb));
+      o[jn][2] = __fadd_rn(__fmul_rn(o[jn][2], alpha1),
+                           __fmul_rn(__fmul_rn(__int2float_rn(z[jn][2]), spc1), sva));
+      o[jn][3] = __fadd_rn(__fmul_rn(o[jn][3], alpha1),
+                           __fmul_rn(__fmul_rn(__int2float_rn(z[jn][3]), spc1), svb));
+    }
+  }
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+}
+
+template <int D, bool PV8>
 __global__ void __launch_bounds__(kAttnThreads)
 relpos_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel_h,
-              const bf16* __restrict__ rel_w, bf16* __restrict__ out, int s,
-              int heads, int gh, int gw, float scale) {
+              const bf16* __restrict__ rel_w,
+              const signed char* __restrict__ v8t,
+              const float* __restrict__ sv, bf16* __restrict__ out, int s,
+              int heads, int gh, int gw, int s_pad, int group, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* bh_s = reinterpret_cast<float*>(smem_raw);   // [kBQ][kMaxGh]
@@ -97,7 +233,26 @@ relpos_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel_h,
   };
   float o[D / 8][4];
   float l0, l1;
-  flash_tile<D>(q_s, k_s, v_s, s, load_kv, score, o, l0, l1);
+  if constexpr (PV8) {
+    // the v region holds the int8 v tile instead (it is large enough)
+    signed char* v8_s = reinterpret_cast<signed char*>(v_s);
+    const signed char* v8b = v8t + ((long long)b * heads + h) * D * s_pad;
+    auto load_k = [&](int k0) { load_rows<D>(k_s, kb + k0 * row, row, s - k0); };
+    auto load_v8 = [&](int k0) {
+      for (int i = threadIdx.x; i < D * kBK / 16; i += kAttnThreads) {
+        const int n = i / (kBK / 16), cc = (i % (kBK / 16)) * 16;
+        *reinterpret_cast<uint4*>(v8_s + n * kLDV8 + cc) =
+            *reinterpret_cast<const uint4*>(v8b + (long long)n * s_pad + k0 + cc);
+      }
+    };
+    auto scores = [&](int k0, float (&sc)[kBK / 8][4]) {
+      qk_scores<D>(sc, q_s, k_s, k0, score);
+    };
+    pv8_loop<D>(v8_s, s, group, load_k, load_v8, scores,
+                sv + ((long long)b * heads + h) * D, o, l0, l1);
+  } else {
+    flash_tile<D>(q_s, k_s, v_s, s, load_kv, score, o, l0, l1);
+  }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = warp * 16 + (lane >> 2);
@@ -114,36 +269,63 @@ relpos_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel_h,
   }
 }
 
-template <int D>
+template <int D, bool PV8>
 static int launch(const void* qkv, const void* rel_h, const void* rel_w,
-                  void* out, int b, int s, int heads, int gh, int gw,
+                  const void* v8t, const void* sv, void* out, int b, int s,
+                  int heads, int gh, int gw, int s_pad, int group,
                   float scale, cudaStream_t stream) {
+  static_assert(D * kLDV8 <= kBK * (D + 8) * (int)sizeof(bf16),
+                "the int8 v tile must fit the bf16 v region");
   const size_t smem = (size_t)kBQ * (kMaxGh + kMaxGw) * sizeof(float) +
                       (size_t)(kBQ + 2 * kBK) * (D + 8) * sizeof(bf16);
-  cudaError_t e = allow_smem(relpos_kernel<D>, smem);
+  cudaError_t e = allow_smem(relpos_kernel<D, PV8>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((s + kBQ - 1) / kBQ, heads, b);
-  relpos_kernel<D><<<grid, kAttnThreads, smem, stream>>>(
-      (const bf16*)qkv, (const bf16*)rel_h, (const bf16*)rel_w, (bf16*)out,
-      s, heads, gh, gw, scale);
+  relpos_kernel<D, PV8><<<grid, kAttnThreads, smem, stream>>>(
+      (const bf16*)qkv, (const bf16*)rel_h, (const bf16*)rel_w,
+      (const signed char*)v8t, (const float*)sv, (bf16*)out, s, heads, gh,
+      gw, s_pad, group, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_arm(const void* qkv, const void* rel_h, const void* rel_w,
+                      const void* v8t, const void* sv, void* out, int b,
+                      int s, int heads, int gh, int gw, int s_pad, int group,
+                      float scale, cudaStream_t st) {
+  if (group == 0)
+    return launch<D, false>(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, gh,
+                            gw, s_pad, group, scale, st);
+  return launch<D, true>(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, gh, gw,
+                         s_pad, group, scale, st);
 }
 
 // qkv [B, S, 3·heads·d], rel_h [gh, gh, d], rel_w [gw, gw, d], out
 // [B, S, heads·d], all contiguous bf16, S = gh·gw, gh <= 64, gw <= 128.
-// Returns a cudaError_t (0 on success).
+// pv_group 0: the float arm (v8t, sv unused). Otherwise the int8 p@v arm
+// with p quantized per pv_group kv columns (a multiple of 64): v8t [B,
+// heads, d, s_pad] int8 (v quantized per channel, transposed, zero past S;
+// s_pad a multiple of 64 and >= S) and sv [B, heads, d] fp32. Returns a
+// cudaError_t (0 on success).
 extern "C" int lvv_relpos_attention(const void* qkv, const void* rel_h,
-                                    const void* rel_w, void* out, int b,
-                                    int s, int heads, int d, int gh, int gw,
-                                    float scale, void* stream) {
-  if (gh > kMaxGh || gw > kMaxGw || gh * gw != s)
+                                    const void* rel_w, const void* v8t,
+                                    const void* sv, void* out, int b, int s,
+                                    int heads, int d, int gh, int gw,
+                                    int s_pad, int pv_group, float scale,
+                                    void* stream) {
+  if (gh > kMaxGh || gw > kMaxGw || gh * gw != s || pv_group < 0 ||
+      pv_group % kBK)
+    return (int)cudaErrorInvalidValue;
+  if (pv_group && (!v8t || !sv || s_pad < s || s_pad % kBK))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 64:
-      return launch<64>(qkv, rel_h, rel_w, out, b, s, heads, gh, gw, scale, st);
+      return launch_arm<64>(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, gh,
+                            gw, s_pad, pv_group, scale, st);
     case 128:
-      return launch<128>(qkv, rel_h, rel_w, out, b, s, heads, gh, gw, scale, st);
+      return launch_arm<128>(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, gh,
+                             gw, s_pad, pv_group, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -51,7 +51,7 @@ class CLIPEncoderLayer(nn.Module):
         self.fc2 = Dense(intermediate_size, dim, **kw)
 
     def forward(self, x):
-        q8 = self.quant8 and "mlp" in q8_scope()   # raises on other scopes
+        q8 = self.quant8 and "mlp" in q8_scope()
         x = x + self.attn(self.ln1(x))
         if fused_mlp.kernel_ok(x, x.shape[-1], self.fc1.kernel.shape[1]):
             return fused_mlp.ln_mlp_residual(

@@ -14,7 +14,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..config import q8_scope
 from .clip import CLIPVisionTower
 from .projector import MlpProjector
 from .sam import SAMImageEncoder
@@ -58,8 +57,6 @@ class DeepEncoder(nn.Module):
 def build_deepencoder(cfg, *, dtype, device, clip_lora_rank: int = 0,
                       clip_lora_alpha: float = 1.0) -> DeepEncoder:
     """Construct from a `config.ModelConfig`."""
-    if cfg.sam.quant8 or cfg.clip.quant8:
-        q8_scope()                      # an unported scope raises here
     kw = dict(dtype=dtype, device=device)
     s = cfg.sam
     sam = SAMImageEncoder(

@@ -10,9 +10,17 @@ in the JAX package; images and the output are NCHW at the boundary.
 On the card the windowed and the global layers both run the rel-pos
 attention kernel (K-c / K-d) straight from the packed qkv projection, and
 the MLP half of every block runs the fused LN + MLP kernel with tanh-GELU:
-K-b, or its W8A8 form K-f with `quant8` (under the "mlp" scope of
-LVV_Q8_SCOPE). Elsewhere (CPU) the block takes the plain path: materialised
-bias, exact-erf GELU, float MLP, as the JAX package does off the TPU.
+K-b, or its W8A8 form K-f. Elsewhere (CPU) the block takes the plain path:
+materialised bias, exact-erf GELU, float MLP, as the JAX package does off
+the TPU.
+
+With `quant8`, LVV_Q8_SCOPE (read at each call) picks the int8 sub-paths,
+as in the JAX package: "mlp" the W8A8 MLP (K-f); "dense" the 24 qkv / proj
+projections through `w8a8_matmul` (K-i on the card, `int8_dot` on the CPU);
+"attn" the int8 p@v (K-d8) and "qk" the int8 scores (K-g, which wins over
+"attn") of the global layers. "qk" applies only at the shapes of JAX's
+head-packed kernel, "attn" wherever JAX's global kernels take int8 (more
+than 512 tokens), and neither on the CPU path.
 """
 from __future__ import annotations
 
@@ -25,7 +33,9 @@ from torch import nn
 
 from ..config import q8_scope
 from ..ops import fused_mlp
-from ..ops.attention import attention, relpos_attention, relpos_bias
+from ..ops.attention import (attention, relpos_attention,
+                             relpos_attention_qk8, relpos_bias)
+from ..ops.quant import w8a8_matmul
 from .layers import MLP, Dense, LayerNorm, new_param, resize_1d
 
 
@@ -72,15 +82,32 @@ def _relpos_kernel_ok(x: torch.Tensor, head_dim: int, h: int, w: int) -> bool:
     return x.is_cuda and head_dim in (64, 128) and h <= 64 and w <= 128
 
 
+def _hpacked_ok(h: int, w: int, head_dim: int) -> bool:
+    """JAX's test for its head-packed global kernel (sam.py:159-167), the
+    only place the "qk" scope applies."""
+    s = h * w
+    return (s > 512 and s % 1024 == 0 and head_dim + h <= 128 and w <= 128
+            and s % min(s, 4096) == 0 and 1024 % w == 0)
+
+
+def _pv_group(s: int) -> int:
+    """The kv tile of JAX's global kernel at S tokens, which is K-d8's
+    quantization group of p: 1024 (the head-packed and fused kernels),
+    else min(1024, S padded to 128) (attention.py:434-438)."""
+    return min(1024, -(-s // 128) * 128)
+
+
 class SAMAttention(nn.Module):
     """ViT attention with the decomposed rel-pos bias."""
 
     def __init__(self, dim: int, num_heads: int, use_rel_pos: bool,
-                 input_size: Tuple[int, int], *, dtype, device):
+                 input_size: Tuple[int, int], quant8: bool = False, *, dtype,
+                 device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.num_heads = num_heads
         self.use_rel_pos = use_rel_pos
+        self.quant8 = quant8
         hd = dim // num_heads
         self.qkv = Dense(dim, 3 * dim, **kw)
         self.proj = Dense(dim, dim, **kw)
@@ -90,18 +117,31 @@ class SAMAttention(nn.Module):
             self.rel_pos_w = new_param((2 * input_size[1] - 1, hd), "zeros",
                                        **kw)
 
+    def _dense(self, layer, x, q8: bool):
+        if q8:
+            return w8a8_matmul(x, layer.kernel, layer.bias)
+        return layer(x)
+
     def forward(self, x):
         b, h, w, c = x.shape
         hd = c // self.num_heads
         scale = 1.0 / math.sqrt(hd)
-        qkv = self.qkv(x.reshape(b, h * w, c))
+        scope = q8_scope() if self.quant8 else frozenset()
+        dense = "dense" in scope
+        qkv = self._dense(self.qkv, x.reshape(b, h * w, c), dense)
         if self.use_rel_pos:
             rh = resize_rel_pos(self.rel_pos_h.to(qkv.dtype), h, h)
             rw = resize_rel_pos(self.rel_pos_w.to(qkv.dtype), w, w)
         if self.use_rel_pos and _relpos_kernel_ok(qkv, hd, h, w):
-            out = relpos_attention(qkv, rh, rw, heads=self.num_heads,
-                                   scale=scale)
-            return self.proj(out).view(b, h, w, c)
+            if "qk" in scope and _hpacked_ok(h, w, hd):
+                out = relpos_attention_qk8(qkv, rh, rw, heads=self.num_heads,
+                                           scale=scale)
+            else:
+                pv8 = "attn" in scope and h * w > 512
+                out = relpos_attention(qkv, rh, rw, heads=self.num_heads,
+                                       scale=scale, pv_int8=pv8,
+                                       pv_group=_pv_group(h * w))
+            return self._dense(self.proj, out, dense).view(b, h, w, c)
         q, k, v = qkv.view(b, h * w, 3, self.num_heads, hd).permute(
             2, 0, 3, 1, 4)
         bias = None
@@ -110,7 +150,7 @@ class SAMAttention(nn.Module):
             bias = relpos_bias(q, rh, rw, w).to(qkv.dtype)
         out = attention(q, k, v, bias=bias)
         out = out.transpose(1, 2).reshape(b, h * w, c)
-        return self.proj(out).view(b, h, w, c)
+        return self._dense(self.proj, out, dense).view(b, h, w, c)
 
 
 class SAMBlock(nn.Module):
@@ -126,13 +166,14 @@ class SAMBlock(nn.Module):
         self.quant8 = quant8
         attn_size = (window_size, window_size) if window_size else input_size
         self.ln1 = LayerNorm(dim, 1e-6, **kw)
-        self.attn = SAMAttention(dim, num_heads, use_rel_pos, attn_size, **kw)
+        self.attn = SAMAttention(dim, num_heads, use_rel_pos, attn_size,
+                                 quant8, **kw)
         self.ln2 = LayerNorm(dim, 1e-6, **kw)
         self.hidden = int(dim * mlp_ratio)
         self.mlp = MLP(dim, self.hidden, **kw)   # exact erf GELU unfused
 
     def forward(self, x):
-        q8 = self.quant8 and "mlp" in q8_scope()   # raises on other scopes
+        q8 = self.quant8 and "mlp" in q8_scope()
         shortcut = x
         y = self.ln1(x)
         if self.window_size:

@@ -4,11 +4,15 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
 [B, Hq, Sq, D]; the SAM rel-pos op takes the packed qkv projection
 [B, S, 3C] and returns [B, S, C].
 
-- `flash_attention` (K-e) and `relpos_attention` (K-c and K-d, one CUDA
-  kernel for both) are the kernel wrappers: on a CUDA tensor they launch
-  their kernel or raise, on a CPU tensor they compute their plain version.
-- `attention_reference` (= `flash_attention_plain`) and
-  `relpos_attention_plain` are the plain PyTorch versions.
+- `flash_attention` (K-e), `relpos_attention` (K-c and K-d, one CUDA
+  kernel for both, with the int8 p@v arm K-d8 under `pv_int8`) and
+  `relpos_attention_qk8` (K-g, int8 scores) are the kernel wrappers: on a
+  CUDA tensor they launch their kernel or raise, on a CPU tensor they
+  compute their plain version.
+- `attention_reference` (= `flash_attention_plain`),
+  `relpos_attention_plain` and `relpos_attention_qk8_plain` are the plain
+  PyTorch versions. `quantize_v` and `qk8_operands` are the int8 arms'
+  glue, which the JAX package computes outside its kernels too.
 - `attention` keeps the JAX dispatch: the flash kernel once the kv sequence
   reaches 1024, without bias, and causal only for sq == sk; the reference
   otherwise. `decode_attention` is the reference over the cache, as in JAX.
@@ -22,8 +26,11 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from .quant import quantize_rows
 
 _NEG_INF = -1e30
+_LOG2E = math.log2(math.e)
+_LANE = 128              # one head's augmented depth in K-g
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -142,43 +149,203 @@ def _split_qkv(qkv, heads: int):
     return qkv.reshape(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
 
 
-def relpos_attention_plain(qkv, rel_h, rel_w, *, heads: int,
-                           scale: float) -> torch.Tensor:
+def quantize_v(v: torch.Tensor, seq_dim: int):
+    """v -> (int8 v, fp32 scales): one scale per channel of each (view,
+    head), the maximum over the sequence axis `seq_dim` / 127 floored at
+    1e-8 (K-d8's v, as attention.py quantizes it outside its kernel)."""
+    vf = v.float()
+    sv = torch.clamp_min(vf.abs().amax(dim=seq_dim, keepdim=True) / 127.0,
+                         1e-8)
+    v8 = torch.clamp(torch.round(vf / sv), -127, 127).to(torch.int8)
+    return v8, sv
+
+
+def _pv8_attention(q, k, v, bias, *, scale: float, group: int):
+    """K-d8's function on head-split q, k, v [B, H, S, d] and the fp32 bias
+    [B, H, S, S]: a base-2 online softmax over kv groups of `group` columns,
+    p quantized per row of each group against the group's maximum, int8
+    p@v summed exactly per group, v quantized per channel."""
+    b, heads, s, d = q.shape
+    v8, sv = quantize_v(v, 2)                       # sv [B, H, 1, d]
+    # group sums of products of |x| <= 127 are exact in fp32 below 2^24
+    exact = torch.float32 if group * 127 * 127 < 2 ** 24 else torch.float64
+    m = torch.full((b, heads, s), _NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, heads, s, d, device=q.device)
+    for g0 in range(0, s, group):
+        cols = slice(g0, min(g0 + group, s))
+        sc = ((torch.matmul(q.float(), k[:, :, cols].float().transpose(-1, -2))
+               * scale + bias[..., cols]) * _LOG2E)
+        gmax = sc.amax(-1)
+        m_new = torch.maximum(m, gmax)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        sp = torch.clamp_min(torch.exp2(gmax - m_new), 1e-30)
+        p8 = torch.round(p * (127.0 / sp)[..., None])
+        z = torch.matmul(p8.to(exact), v8[:, :, cols].to(exact)).float()
+        acc = acc * alpha[..., None] + (z * (sp * (1.0 / 127.0))[..., None]) * sv
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def relpos_attention_plain(qkv, rel_h, rel_w, *, heads: int, scale: float,
+                           pv_int8: bool = False,
+                           pv_group: int = 1024) -> torch.Tensor:
     """softmax(scale·q·kᵀ + q·Rh[qh,kh] + q·Rw[qw,kw]) v from packed qkv
-    [B, S, 3C], with the [S, S] bias materialised; returns [B, S, C]."""
+    [B, S, 3C], with the [S, S] bias materialised; returns [B, S, C]. With
+    pv_int8, K-d8's int8 p@v (`_pv8_attention`)."""
     q, k, v = _split_qkv(qkv, heads)
     bias = relpos_bias(q, rel_h, rel_w, rel_w.shape[0])
-    out = attention_reference(q, k, v, bias=bias, scale=scale)
+    if pv_int8:
+        out = _pv8_attention(q, k, v, bias, scale=scale, group=pv_group)
+    else:
+        out = attention_reference(q, k, v, bias=bias, scale=scale)
     b, _, s, d = out.shape
     return out.transpose(1, 2).reshape(b, s, heads * d)
 
 
-def relpos_attention(qkv, rel_h, rel_w, *, heads: int,
-                     scale: float) -> torch.Tensor:
+def relpos_attention(qkv, rel_h, rel_w, *, heads: int, scale: float,
+                     pv_int8: bool = False,
+                     pv_group: int = 1024) -> torch.Tensor:
     """Kernels K-c / K-d: SAM attention with the decomposed rel-pos bias,
     from packed qkv [B, S, 3C] (S = gh·gw tokens, row-major) and the
-    resized tables rel_h [gh, gh, d], rel_w [gw, gw, d]; returns [B, S, C]."""
+    resized tables rel_h [gh, gh, d], rel_w [gw, gw, d]; returns [B, S, C].
+    With pv_int8 the int8 p@v arm K-d8: p quantized per row of each group
+    of pv_group kv columns (a multiple of 64), v per channel."""
     if not qkv.is_cuda:
         return relpos_attention_plain(qkv, rel_h, rel_w, heads=heads,
-                                      scale=scale)
+                                      scale=scale, pv_int8=pv_int8,
+                                      pv_group=pv_group)
     b, s, c3 = qkv.shape
     d = c3 // 3 // heads
     gh, gw = rel_h.shape[0], rel_w.shape[0]
     if (c3 != 3 * heads * d or d not in (64, 128) or gh * gw != s
             or gh > 64 or gw > 128 or rel_h.shape != (gh, gh, d)
-            or rel_w.shape != (gw, gw, d)):
+            or rel_w.shape != (gw, gw, d)
+            or (pv_int8 and (pv_group <= 0 or pv_group % 64))):
         raise ValueError(f"relpos_attention: unsupported qkv {tuple(qkv.shape)}"
                          f" rel_h {tuple(rel_h.shape)} rel_w "
-                         f"{tuple(rel_w.shape)} heads={heads}")
+                         f"{tuple(rel_w.shape)} heads={heads} "
+                         f"pv_group={pv_group}")
     ops = [t.contiguous() for t in (qkv, rel_h, rel_w)]
     if any(t.dtype != torch.bfloat16 or t.device != qkv.device for t in ops):
         raise ValueError("relpos_attention: operands must be bf16 on one "
                          "device")
+    s_pad, v8t, sv, name = s, None, None, f"relpos_attention[{gh}x{gw}]"
+    if pv_int8:
+        # v per (view, head, channel), transposed to [B, H, d, S] (kv is the
+        # contraction axis of p@v) and zero-padded to whole 64-column tiles
+        v8, sv = quantize_v(ops[0][..., 2 * heads * d:].view(b, s, heads, d),
+                            1)
+        s_pad = -(-s // 64) * 64
+        v8t = torch.zeros(b, heads, d, s_pad, dtype=torch.int8,
+                          device=qkv.device)
+        v8t[..., :s] = v8.permute(0, 2, 3, 1)
+        sv = sv.view(b, heads, d).contiguous()
+        name = f"relpos_attention_pv8[{gh}x{gw}]"
     out = torch.empty(b, s, heads * d, dtype=qkv.dtype, device=qkv.device)
     fn = kernels.lib("relpos_attention").lvv_relpos_attention
-    err = fn(*(t.data_ptr() for t in ops), out.data_ptr(), b, s, heads, d,
-             gh, gw, ctypes.c_float(scale),
+    err = fn(*(t.data_ptr() for t in ops),
+             None if v8t is None else v8t.data_ptr(),
+             None if sv is None else sv.data_ptr(), out.data_ptr(), b, s,
+             heads, d, gh, gw, s_pad, pv_group if pv_int8 else 0,
+             ctypes.c_float(scale),
              torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "relpos_attention")
-    kernels.launches[f"relpos_attention[{gh}x{gw}]"] += 1
+    kernels.launches[name] += 1
+    return out
+
+
+def qk8_operands(qkv, rel_h, rel_w, *, heads: int, scale: float):
+    """K-g's operands from packed qkv [B, S, 3C] (the JAX wrapper's glue,
+    attention.py:827-878, in plain PyTorch). Per (token, head):
+    q_aug = [q·scale·log2e | q·Rh·log2e | 0] and k_aug = [k | onehot(kh) |
+    0], each 128 wide and rounded to qkv's dtype, quantized to int8 with
+    one scale each; the scales and qrw = q·Rw·log2e are rounded to qkv's
+    dtype as JAX stashes them in its lanes. Returns (q8, k8 [B, S, H, 128]
+    int8, sq, sk [B, S, H] fp32, qrw [B, S, H, gw] fp32)."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    gh, gw = rel_h.shape[0], rel_w.shape[0]
+    cd = qkv.dtype
+    qr, kr = (qkv[..., i * c:(i + 1) * c].reshape(b, s, heads, d)
+              for i in range(2))
+    q5 = qr.float().reshape(b, gh, gw, heads, d)
+    q_rh = torch.einsum("bGwnc,Gkc->bGwnk", q5, rel_h.float()).reshape(
+        b, s, heads, gh)
+    q_rw = torch.einsum("bGwnc,wkc->bGwnk", q5, rel_w.float()).reshape(
+        b, s, heads, gw)
+    pad = torch.zeros(b, s, heads, _LANE - d - gh, device=qkv.device)
+    q_aug = torch.cat([qr.float() * (scale * _LOG2E), q_rh * _LOG2E, pad],
+                      -1).to(cd)
+    onehot = (torch.arange(gh, device=qkv.device)[None, :]
+              == (torch.arange(s, device=qkv.device) // gw)[:, None])
+    k_aug = torch.cat([kr, onehot.to(cd)[None, :, None, :].expand(
+        b, s, heads, gh), pad.to(cd)], -1)
+    q8, sq = quantize_rows(q_aug)
+    k8, sk = quantize_rows(k_aug)
+    return (q8, k8, sq[..., 0].to(cd).float(), sk[..., 0].to(cd).float(),
+            (q_rw * _LOG2E).to(cd).float())
+
+
+def relpos_attention_qk8_plain(qkv, rel_h, rel_w, *, heads: int,
+                               scale: float) -> torch.Tensor:
+    """K-g's function: scores (z·sq)·sk + qrw[q, k mod gw] from the int8
+    augmented operands (z summed exactly: 128 products of |x| <= 127 stay
+    below 2^24, so fp32 sums are exact), base-2 softmax, p rounded to qkv's
+    dtype for p@v; one view at a time. Returns [B, S, C]."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    gw = rel_w.shape[0]
+    q8, k8, sq, sk, qrw = qk8_operands(qkv, rel_h, rel_w, heads=heads,
+                                       scale=scale)
+    cols = torch.arange(s, device=qkv.device) % gw
+    out = torch.empty(b, s, c, dtype=qkv.dtype, device=qkv.device)
+    for i in range(b):
+        z = torch.matmul(q8[i].transpose(0, 1).float(),
+                         k8[i].permute(1, 2, 0).float())      # [H, S, S]
+        sc = (z * sq[i].t()[..., None]) * sk[i].t()[:, None, :]
+        sc = sc + qrw[i].transpose(0, 1)[..., cols]
+        p = torch.exp2(sc - sc.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        v = qkv[i, :, 2 * c:].reshape(s, heads, d).transpose(0, 1).float()
+        o = torch.matmul(p.to(qkv.dtype).float(), v) / l
+        out[i] = o.transpose(0, 1).reshape(s, c).to(qkv.dtype)
+    return out
+
+
+def relpos_attention_qk8(qkv, rel_h, rel_w, *, heads: int,
+                         scale: float) -> torch.Tensor:
+    """Kernel K-g: SAM global attention with int8 q_aug·k_augᵀ scores (the
+    height bias inside the product, depth 128) and bf16 p@v, from packed
+    qkv [B, S, 3C] (head dim 64, d + gh <= 128, gw <= 128); returns
+    [B, S, C]."""
+    if not qkv.is_cuda:
+        return relpos_attention_qk8_plain(qkv, rel_h, rel_w, heads=heads,
+                                          scale=scale)
+    b, s, c3 = qkv.shape
+    d = c3 // 3 // heads
+    gh, gw = rel_h.shape[0], rel_w.shape[0]
+    if (c3 != 3 * heads * d or d != 64 or gh * gw != s or d + gh > _LANE
+            or gw > _LANE or rel_h.shape != (gh, gh, d)
+            or rel_w.shape != (gw, gw, d)):
+        raise ValueError(f"relpos_attention_qk8: unsupported qkv "
+                         f"{tuple(qkv.shape)} rel_h {tuple(rel_h.shape)} "
+                         f"rel_w {tuple(rel_w.shape)} heads={heads}")
+    if any(t.dtype != torch.bfloat16 or t.device != qkv.device
+           for t in (qkv, rel_h, rel_w)):
+        raise ValueError("relpos_attention_qk8: operands must be bf16 on one "
+                         "device")
+    qkv = qkv.contiguous()
+    ops = [t.contiguous() for t in qk8_operands(qkv, rel_h, rel_w,
+                                                heads=heads, scale=scale)]
+    out = torch.empty(b, s, heads * d, dtype=qkv.dtype, device=qkv.device)
+    fn = kernels.lib("relpos_attention_qk8").lvv_relpos_attention_qk8
+    err = fn(*(t.data_ptr() for t in ops), qkv.data_ptr(), out.data_ptr(), b,
+             s, heads, gw, torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "relpos_attention_qk8")
+    kernels.launches[f"relpos_attention_qk8[{gh}x{gw}]"] += 1
     return out

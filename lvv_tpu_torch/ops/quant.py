@@ -7,8 +7,12 @@ and out[m, n] = (x @ q)[m, n] * scale[n]. Quantization divides (not a
 multiply by the reciprocal), rounds half to even, clips to +-127 and floors
 the scale at 1e-8, so it is bit-equal to the JAX package's.
 
+- `w8a8_matmul` (K-i, CUDA): SAM's W8A8 projections (the "dense" scope),
+  x quantized per row inside the kernel, the float weight per column on
+  every call; `int8_dot` is its plain version and its fallback for K or N
+  off the 128 grid, as in JAX.
 - `quantized_matmul` (K-j, CUDA) and `quantized_matmul_nk` (K-k, CUDA) are
-  the kernel wrappers: on a CUDA tensor they launch their kernel or raise,
+  the kernel wrappers of the decode: on a CUDA tensor they launch their kernel or raise,
   on a CPU tensor they compute their plain version. Both read the int8
   weight as stored ([K, N], or [N, K] for the tied unembed) and dequantize
   in registers; no dequantized copy of a weight is made on the card.
@@ -56,7 +60,8 @@ def int8_dot(x: torch.Tensor, w: torch.Tensor,
              bias: Optional[torch.Tensor] = None,
              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """W8A8 x [..., K] @ w [K, N]: per-row int8 x, per-column int8 w, exact
-    integer accumulation, float32 rescale (plain; no kernel of its own)."""
+    integer accumulation, float32 rescale (K-i's plain version, and its
+    fallback off the 128 grid)."""
     out_dtype = out_dtype or x.dtype
     lead, k = x.shape[:-1], x.shape[-1]
     xq, sx = quantize_rows(x.reshape(-1, k))
@@ -65,6 +70,37 @@ def int8_dot(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         out = out + bias.float()
     return out.to(out_dtype).reshape(*lead, w.shape[1])
+
+
+def w8a8_matmul(x: torch.Tensor, w: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K-i: W8A8 x [..., K] @ w [K, N] (+ bias) -> [..., N] in x's
+    dtype, with JAX's dispatch: K or N off the 128 grid take `int8_dot`
+    (also the plain version, on a CPU tensor); otherwise the weight is
+    quantized here, per call, and the kernel quantizes x per row."""
+    k, n = w.shape
+    if k % 128 or n % 128 or not x.is_cuda:
+        return int8_dot(x, w, bias)
+    if x.dtype not in _KINDS or x.shape[-1] != k or k > 1536:
+        raise ValueError(f"w8a8_matmul: unsupported x {tuple(x.shape)} "
+                         f"{x.dtype} / weight {tuple(w.shape)}")
+    if any(t is not None and t.device != x.device for t in (w, bias)):
+        raise ValueError("w8a8_matmul: operands must be on one device")
+    wq, sw = quantize_weight(w)
+    wt = wq.t().contiguous()                 # B fragments: 4 k of a column
+    b = (torch.zeros(n, dtype=torch.float32, device=x.device)
+         if bias is None else bias.float().contiguous())
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).contiguous()
+    out = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
+    if x2.shape[0]:
+        err = kernels.lib("w8a8_matmul").lvv_w8a8_matmul(
+            x2.data_ptr(), wt.data_ptr(), sw.data_ptr(), b.data_ptr(),
+            out.data_ptr(), x2.shape[0], k, n, _KINDS[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check(err, "w8a8_matmul")
+        kernels.launches["w8a8_matmul"] += 1
+    return out.view(*lead, n)
 
 
 def quantized_matmul_plain(x: torch.Tensor, q: torch.Tensor,

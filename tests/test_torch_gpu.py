@@ -11,7 +11,9 @@ both produce bf16 from fp32 math; the tolerance is 4 bf16 ulps of
 (|plain| + rms(plain)) elementwise and 1/128 relative L2 overall (they round
 at different points, one ulp each), as chip_smoke.py states. The W8A8 MLP
 (K-f) keeps the elementwise rule and tightens the relative L2 to 1/512
-(chip_smoke.Q8_REL_L2_TOL, which states why).
+(chip_smoke.Q8_REL_L2_TOL, which states why), as does the W8A8 projection
+(K-i); the int8 p@v arm (K-d8) allows one p8 step elementwise (chip_smoke
+states why).
 """
 import pytest
 import torch
@@ -263,3 +265,71 @@ def test_tiny_serving_path_on_card_matches_cpu(gen, monkeypatch, fused):
     assert torch.equal(got.cpu(), want)
     for name in ("int8_matmul", "int8_matmul_nk"):
         assert kernels.launches[name] > before.get(name, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(77, 768, 2304), (130, 768, 768),
+                                   (5, 128, 256), (300, 1024, 384)])
+def test_w8a8_matmul(gen, dtype, m, k, n):
+    """K-i at SAM's projection widths with ragged M (77, 130, 5 rows: the
+    last 128-row block part empty), and at K = 1024. The kernel computes
+    its plain version's arithmetic (chip_smoke.Q8_REL_L2_TOL)."""
+    from chip_smoke import Q8_REL_L2_TOL, agreement
+    x = _rnd(gen, m, k).to(dtype)
+    w, b = _rnd(gen, k, n, std=k ** -0.5), _rnd(gen, n, std=0.1)
+    got = _launched("w8a8_matmul", lambda: Q.w8a8_matmul(x, w, b))
+    assert got.dtype == dtype
+    ok, err, rel = agreement(got, Q.int8_dot(x, w, b), Q8_REL_L2_TOL)
+    assert ok, (err, rel)
+
+
+def test_w8a8_matmul_falls_back_off_the_128_grid(gen):
+    """K or N off the 128 grid take int8_dot, as in JAX: no launch."""
+    before = kernels.launches["w8a8_matmul"]
+    for k, n in ((200, 256), (256, 200)):
+        x, w = _rnd(gen, 9, k), _rnd(gen, k, n, std=0.05)
+        _agree(Q.w8a8_matmul(x, w), Q.int8_dot(x, w))
+    assert kernels.launches["w8a8_matmul"] == before
+
+
+@pytest.mark.parametrize("b,gh,gw,heads,d,group", [
+    (1, 32, 32, 2, 64, 256),        # four groups of p scales a row
+    (2, 24, 40, 2, 64, 1024),       # K-h's ragged grid: one partial group
+    (1, 64, 64, 2, 64, 1024),       # the global grid
+    (1, 16, 64, 2, 128, 512)])      # head dim 128
+def test_relpos_attention_pv8(gen, b, gh, gw, heads, d, group):
+    """K-d8 against its plain version with chip_smoke's rule: one p8 step
+    (max|v| / 127) on top of the bf16 tolerance elementwise."""
+    from chip_smoke import REL_L2_TOL, agreement
+    qkv = _rnd(gen, b, gh * gw, 3 * heads * d)
+    rh, rw = _rnd(gen, gh, gh, d, std=0.1), _rnd(gen, gw, gw, d, std=0.1)
+    kw = dict(heads=heads, scale=d ** -0.5, pv_int8=True, pv_group=group)
+    got = _launched(f"relpos_attention_pv8[{gh}x{gw}]",
+                    lambda: A.relpos_attention(qkv, rh, rw, **kw))
+    vmax = float(qkv[..., 2 * heads * d:].abs().max())
+    ok, err, rel = agreement(got, A.relpos_attention_plain(qkv, rh, rw, **kw),
+                             REL_L2_TOL, vmax / 127)
+    assert ok, (err, rel)
+
+
+@pytest.mark.parametrize("b,gh,gw,heads", [(1, 32, 32, 2), (2, 8, 64, 3),
+                                           (1, 64, 64, 2)])
+def test_relpos_attention_qk8(gen, b, gh, gw, heads):
+    """K-g against its plain version (the same exact int8 scores)."""
+    qkv = _rnd(gen, b, gh * gw, 3 * heads * 64)
+    rh, rw = _rnd(gen, gh, gh, 64, std=0.1), _rnd(gen, gw, gw, 64, std=0.1)
+    got = _launched(f"relpos_attention_qk8[{gh}x{gw}]",
+                    lambda: A.relpos_attention_qk8(qkv, rh, rw, heads=heads,
+                                                   scale=0.125))
+    _agree(got, A.relpos_attention_qk8_plain(qkv, rh, rw, heads=heads,
+                                             scale=0.125))
+
+
+def test_int8_attention_refuses_what_the_kernels_do_not_take(gen):
+    qkv = _rnd(gen, 1, 32 * 32, 3 * 2 * 128)
+    rh, rw = _rnd(gen, 32, 32, 128), _rnd(gen, 32, 32, 128)
+    with pytest.raises(ValueError):                   # head dim 128
+        A.relpos_attention_qk8(qkv, rh, rw, heads=2, scale=0.1)
+    with pytest.raises(ValueError):                   # group not of 64s
+        A.relpos_attention(qkv, rh, rw, heads=2, scale=0.1, pv_int8=True,
+                           pv_group=100)

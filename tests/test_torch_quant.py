@@ -20,7 +20,6 @@ import torch
 
 from lvv_tpu.ops import fused_mlp as jmlp
 from lvv_tpu.ops import quant as jq
-from lvv_tpu_torch import config as tconfig
 from lvv_tpu_torch import kernels
 from lvv_tpu_torch.ops import fused_mlp as tmlp
 from lvv_tpu_torch.ops import quant as tq
@@ -191,28 +190,6 @@ def test_sam_block_quant8_matches_jax(monkeypatch):
         assert float((port(_t(x)) - got).abs().max()) > 1e-3
 
 
-@pytest.mark.parametrize("scope,kernel", [("dense", "K-i"), ("attn", "K-h"),
-                                          ("qk", "K-g"), ("mlp,qk", "K-g")])
-def test_unported_q8_scopes_raise(monkeypatch, scope, kernel):
-    """Only the "mlp" scope of LVV_Q8_SCOPE is ported; the others name the
-    kernel they need and never run the float path in its place."""
-    import dataclasses
-    from lvv_tpu_torch import VQAModel, tiny_config
-    cfg = tiny_config().model
-    cfg = dataclasses.replace(cfg, sam=dataclasses.replace(cfg.sam,
-                                                           quant8=True))
-    monkeypatch.setenv("LVV_Q8_SCOPE", scope)
-    with pytest.raises(NotImplementedError, match=kernel):
-        tconfig.q8_scope()
-    with pytest.raises(NotImplementedError, match=kernel):
-        VQAModel(cfg, dtype=torch.float32, device="cpu")
-    monkeypatch.setenv("LVV_Q8_SCOPE", "mlp")
-    model = VQAModel(cfg, dtype=torch.float32, device="cpu")
-    monkeypatch.setenv("LVV_Q8_SCOPE", scope)
-    with pytest.raises(NotImplementedError, match=kernel):
-        model.deepencoder.sam.block_0(torch.zeros(1, 8, 8, 32))
-
-
 def test_cpu_int8_wrappers_launch_nothing():
     """On CPU tensors the int8 wrappers take their plain versions."""
     kernels.launches.clear()
@@ -222,5 +199,6 @@ def test_cpu_int8_wrappers_launch_nothing():
     tmlp.ln_mlp_residual_q8(torch.randn(3, 128), torch.ones(128),
                             torch.zeros(128), torch.randn(128, 256),
                             None, torch.randn(256, 128), None)
+    tq.w8a8_matmul(torch.randn(3, 128), torch.randn(128, 256))
     assert sum(kernels.launches.values()) == 0
     assert not kernels._libs
