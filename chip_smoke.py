@@ -6,10 +6,12 @@
    versions, and builds every CUDA kernel from the sources in this checkout
    (one nvcc per source, all at once).
 2. Holds each hand-written kernel against its plain PyTorch version at the
-   shapes the main path gives it, in bf16 on the card, and times kernel,
-   plain version and (where one PyTorch call computes the same function) the
-   library call with CUDA events. A disagreement beyond the stated
-   tolerance fails the run.
+   shapes each driven path gives it (K-h's two forms that no path runs at
+   the shapes of the benchmarks that time them), in bf16 on the card, and
+   times kernel, plain version and (where one PyTorch call computes the same
+   function) the library call with CUDA events. A disagreement beyond the
+   stated tolerance, or a wrapper that did not launch its kernel, fails the
+   run.
 3. Drives the float main path: `greedy_generate` of
    VQAModel(default_config()) in bf16 with seeded random weights on
    bench.py's inputs (6 views at 1024², BEV [1, 128, 180, 180], 24 prompt
@@ -27,6 +29,14 @@
    LVV_Q8_SCOPE="mlp,dense,attn" (W8A8 projections K-i, int8 p@v K-d8) and
    "mlp,dense,qk" (K-i, int8 scores K-g), each checked as in 4 and printed
    on a `serving-path[scope]` line.
+6. Drives the same two models with SAM at 1280² (DeepSeek-OCR's "Large"
+   resolution: an 80x80 global grid, which fails the head-packed test, so
+   the 4 global layers run K-h, the head-split rel-pos kernel): the float
+   path ("main-path[sam1280]") and the serving model under
+   LVV_Q8_SCOPE="mlp,dense,attn" with the packed int8 decode, where K-h
+   takes its int8 p@v arm ("serving-path[sam1280,mlp,dense,attn]"). Both
+   are checked as in 4: launch counts, repeated tokens, and prefill and
+   first-step logits against every kernel swapped for its plain version.
 
 Prints the per-kernel JSON line, then the card line, then as its last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no result
@@ -35,6 +45,7 @@ stated dtypes). Needs torch with CUDA, nvcc (CUDA_HOME or PATH) and triton.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import pathlib
@@ -74,12 +85,25 @@ Q8_REL_L2_TOL = 1.0 / 512
 # sp / 127 · |v| / l <= max|v| / 127, which the elementwise rule adds on top
 # of BF16_TOL. The relative L2 stays REL_L2_TOL: a single whole-row scale of
 # p in place of the 1024-column groups gives ~5e-2 on these inputs and has
-# to fail it. K-i and K-g need no allowance: K-i's plain version is its
-# arithmetic exactly (K-i: per-tensor scale of x ~1.4e-2 must fail
-# Q8_REL_L2_TOL), and K-g's int8 scores are exact on both sides (the float
-# scores of K-d, ~4e-2 away, must fail REL_L2_TOL).
+# to fail it. K-h's int8 arm takes the same rule and trap. K-i and K-g need
+# no allowance: K-i's plain version is its arithmetic exactly (K-i:
+# per-tensor scale of x ~1.4e-2 must fail Q8_REL_L2_TOL), and K-g's int8
+# scores are exact on both sides (the float scores of K-d, ~4e-2 away, must
+# fail REL_L2_TOL).
 SCOPES = ("mlp,dense,attn", "mlp,dense,qk")
+# the 1280² paths: the float path, and the serving model under this scope
+LARGE, LARGE_SCOPE = 1280, "mlp,dense,attn"
 NEW_TOKENS, PROMPT_LEN, EOS_ID = 32, 24, 2
+
+
+def kh_whole_row_trap(q, k, v, q_rh, q_rw, **kw):
+    """K-h's int8 arm with one p scale for each whole row (a kv tile as
+    wide as the sequence) in place of the 1024-column tiles: the trap its
+    tolerance must fail."""
+    from lvv_tpu_torch.ops import attention as A
+    s = q.shape[2]
+    return A.flash_attention_relpos_plain(
+        q, k, v, q_rh, q_rw, **dict(kw, block_k=-(-s // 128) * 128))
 
 
 def card_line() -> str:
@@ -111,8 +135,10 @@ def timed_ms(fn, iters: int) -> float:
 # --------------------------------------------------------------- kernels --
 
 def kernel_cases(torch):
-    """(row, label, launches per greedy_generate, setup) at the main path's
-    shapes. setup() -> dict(kernel, plain, library, flops, bytes, peak)."""
+    """(row, label, launches per greedy_generate, setup, resolution) at the
+    shapes of the paths at SAM's 1024² and 1280² (resolution None: a form
+    that no path runs, timed per call). setup() -> dict(kernel, plain,
+    library, flops, bytes, peak)."""
     import torch.nn.functional as F
     from lvv_tpu_torch.ops import attention as A
     from lvv_tpu_torch.ops import fused_mlp as M
@@ -210,6 +236,11 @@ def kernel_cases(torch):
             rep = hq // hkv
             kr, vr = (t.repeat_interleave(rep, 1) for t in (k, v))
             pairs = sq * sk / (2 if causal else 1)
+            # a causal row over few keys is a sum of few p·v terms: the two
+            # versions round p to bf16 at different points (each up to 2^-8
+            # of p, the p of a row summing to 1), which moves such an output
+            # by up to max|v| / 128 where |out| may be near 0
+            extra = float(v.abs().max()) / 128 if causal else 0.0
             return dict(
                 kernel=lambda: A.flash_attention(q, k, v, causal=causal,
                                                  kv_len=kl),
@@ -218,7 +249,8 @@ def kernel_cases(torch):
                 library=lambda: F.scaled_dot_product_attention(
                     q, kr, vr, is_causal=causal),
                 flops=4 * pairs * d * hq, peak=BF16_FLOPS,
-                bytes=2 * (2 * sq * hq * d + 2 * sk * hkv * d))
+                bytes=2 * (2 * sq * hq * d + 2 * sk * hkv * d),
+                abs_extra=extra)
         return setup
 
     def relpos_case(b, g, heads, d):
@@ -296,9 +328,108 @@ def kernel_cases(torch):
             return case
         return setup
 
+    def kh_case(b, g, heads, d, quant8=False, bq=4096, bk=1024):
+        # K-h on head-split views of a packed projection, as SAM passes
+        # them; std 1 gives the int8 arm peaked rows (see relpos_q8_case)
+        def setup():
+            s = g * g
+            qkv = rnd(b, s, 3 * heads * d, std=1.0 if quant8 else 0.5)
+            q, k, v = qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
+            ops = (q, k, v, rnd(b, heads, s, g, std=0.5),
+                   rnd(b, heads, s, g, std=0.5))
+            kw = dict(scale=d ** -0.5, grid_w=g, block_q=bq, block_k=bk,
+                      quant8=quant8)
+            pair = b * heads * 2 * s * s * d
+            case = dict(
+                kernel=lambda: A.flash_attention_relpos(*ops, **kw),
+                plain=lambda: A.flash_attention_relpos_plain(*ops, **kw),
+                library=None, bytes=2 * b * heads * s * (4 * d + 2 * g),
+                flops=2 * pair, peak=BF16_FLOPS)
+            if quant8:
+                case.update(ops_ms=(pair / BF16_FLOPS + pair / INT8_OPS) * 1e3,
+                            abs_extra=float(v.abs().max()) / 127,
+                            traps={"whole_row_p_scale":
+                                   lambda: kh_whole_row_trap(*ops, **kw)})
+            else:
+                # SDPA with the [S, S] bias materialised in bf16
+                cols = torch.arange(s, device=dev)
+                bias = torch.empty(b, heads, s, s, dtype=bf, device=dev)
+                for i in range(b):
+                    bias[i] = (ops[3][i][..., cols // g]
+                               + ops[4][i][..., cols % g])
+                case["library"] = lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias)
+            return case
+        return setup
+
     decode = NEW_TOKENS * 49
     layer_steps = 24 * NEW_TOKENS
-    return [
+    large = [       # every shape of the 1280² paths
+        ("norm", "LN SAM [38400,768]", 12, norm_case(38400, 768, False)),
+        ("norm", "LN SAM neck [38400,256]", 2, norm_case(38400, 256, False)),
+        ("norm", "LN CLIP [2406,1024]", 25, norm_case(2406, 1024, False)),
+        ("norm", "LN adapter [2400,2048]", 1, norm_case(2400, 2048, False)),
+        ("norm", "LN VATVision [1200,2048]", 15,
+         norm_case(1200, 2048, False)),
+        ("norm", "LN VATVision out [1200,896]", 1,
+         norm_case(1200, 896, False)),
+        ("norm", "LN VATLiDAR [768,896]", 14, norm_case(768, 896, False)),
+        ("norm", "LN VATLiDAR in [32400,896]", 1,
+         norm_case(32400, 896, False)),
+        ("norm", "RMS prefill [1996,896]", 49, norm_case(1996, 896, True)),
+        ("norm", "RMS decode [1,896]", decode, norm_case(1, 896, True)),
+        ("ln_mlp_residual", "SAM [38400,768]x[768,3072] gelu", 12,
+         mlp_case(38400, 768, 3072, "gelu")),
+        ("ln_mlp_residual", "CLIP [2406,1024]x[1024,4096] quick_gelu", 24,
+         mlp_case(2406, 1024, 4096, "quick_gelu")),
+        ("flash_attention", "VATVision self q1200 kv1200 8h d256", 4,
+         flash_case(1200, 1200, 8, 8, 256, False)),
+        ("flash_attention", "VATVision cross q1200 kv2400 8h d256", 4,
+         flash_case(1200, 2400, 8, 8, 256, False)),
+        ("flash_attention", "VATLiDAR cross q768 kv32400 8h d112", 4,
+         flash_case(768, 32400, 8, 8, 112, False)),
+        ("flash_attention", "Qwen prefill causal 1996 14/2h d64", 24,
+         flash_case(1996, 1996, 14, 2, 64, True)),
+        ("relpos_attention[14x14]", "windows [216,196,2304] 12h d64", 8,
+         relpos_case(216, 14, 12, 64)),
+        ("flash_attention_relpos[80x80]",
+         "global [6,12,6400,64] tiles 4096/1024", 4, kh_case(6, 80, 12, 64)),
+        ("ln_mlp_residual_q8", "SAM [38400,768]x[768,3072] gelu", 12,
+         q8_case(38400, 768, 3072, "gelu")),
+        ("ln_mlp_residual_q8", "CLIP [2406,1024]x[1024,4096] quick_gelu", 24,
+         q8_case(2406, 1024, 4096, "quick_gelu")),
+        ("int8_matmul", "decode qkv [1,896]x[896,1152]", layer_steps,
+         int8_case(1, 896, 1152)),
+        ("int8_matmul", "decode o [1,896]x[896,896]", layer_steps,
+         int8_case(1, 896, 896)),
+        ("int8_matmul", "decode gate|up [1,896]x[896,9728]", layer_steps,
+         int8_case(1, 896, 9728)),
+        ("int8_matmul", "decode down [1,4864]x[4864,896]", layer_steps,
+         int8_case(1, 4864, 896)),
+        ("int8_matmul_nk", "decode unembed [1,896]x[151940,896]^T",
+         NEW_TOKENS, int8_case(1, 896, 151940, nk=True)),
+        ("w8a8_matmul", "windowed qkv [42336,768]x[768,2304]", 8,
+         w8a8_case(42336, 768, 2304)),
+        ("w8a8_matmul", "windowed proj [42336,768]x[768,768]", 8,
+         w8a8_case(42336, 768, 768)),
+        ("w8a8_matmul", "global qkv [38400,768]x[768,2304]", 4,
+         w8a8_case(38400, 768, 2304)),
+        ("w8a8_matmul", "global proj [38400,768]x[768,768]", 4,
+         w8a8_case(38400, 768, 768)),
+        ("flash_attention_relpos_pv8[80x80]",
+         "global [6,12,6400,64] tiles 4096/1024, int8 groups of 1024", 4,
+         kh_case(6, 80, 12, 64, quant8=True)),
+    ]
+    unused = [      # K-h's forms that no path runs (launches 0 on every one)
+        ("flash_attention_relpos_fused[64x64]",
+         "[6,12,4096,64] tiles 4096/1024 (benchmarks/gattn_fused_micro.py)",
+         0, kh_case(6, 64, 12, 64)),
+        ("flash_attention_relpos_mh[14x14]",
+         "[150,12,196,64] tiles 256 (benchmarks/sam_block_bisect.py)", 0,
+         kh_case(150, 14, 12, 64, bq=256, bk=256)),
+    ]
+    # the 1024² list: every shape of its four paths
+    return [c + (1024,) for c in [
         ("norm", "LN SAM [24576,768]", 12, norm_case(24576, 768, False)),
         ("norm", "LN SAM neck [24576,256]", 2, norm_case(24576, 256, False)),
         ("norm", "LN CLIP [1542,1024]", 25, norm_case(1542, 1024, False)),
@@ -349,7 +480,7 @@ def kernel_cases(torch):
          "groups of 1024", 4, relpos_q8_case(6, 64, 12, 64, qk8=False)),
         ("relpos_attention_qk8[64x64]", "global [6,4096,2304] 12h d64", 4,
          relpos_q8_case(6, 64, 12, 64, qk8=True)),
-    ]
+    ]] + [c + (LARGE,) for c in large] + [c + (None,) for c in unused]
 
 
 ROWS = {
@@ -380,6 +511,18 @@ ROWS = {
     "relpos_attention_qk8[64x64]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/relpos_attention_qk8.cu",
         "lvv_tpu/ops/attention.py:738"),
+    "flash_attention_relpos[80x80]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
+        "lvv_tpu/ops/attention.py:269"),
+    "flash_attention_relpos_pv8[80x80]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
+        "lvv_tpu/ops/attention.py:336"),
+    "flash_attention_relpos_fused[64x64]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
+        "lvv_tpu/ops/attention.py:553"),
+    "flash_attention_relpos_mh[14x14]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
+        "lvv_tpu/ops/attention.py:363"),
 }
 
 
@@ -401,60 +544,78 @@ def agreement(got, want, rel_l2_tol: float = REL_L2_TOL,
 
 
 def check_kernels(torch) -> dict:
-    """Each case: kernel vs plain (raise past BF16_TOL), then timings.
-    Returns per-row totals over one greedy_generate's launches."""
-    rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                       library_ms=0.0, has_library=True, bytes_ms=0.0,
-                       ops_ms=0.0) for name in ROWS}
-    for row, label, count, setup in kernel_cases(torch):
-        case = setup()
-        got = case["kernel"]()
-        torch.cuda.synchronize()
-        want = case["plain"]()
-        rel_tol = case.get("rel_l2_tol", REL_L2_TOL)
-        extra = case.get("abs_extra", 0.0)
-        ok, max_err, rel_l2 = agreement(got, want, rel_tol, extra)
-        bytes_ms = case["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = (case["ops_ms"] if "ops_ms" in case
-                  else case["flops"] / case["peak"] * 1e3)
-        line = dict(kernel=row, shape=label, launches_per_call=count,
-                    max_abs_err=max_err, rel_l2=rel_l2,
-                    tol="4 bf16 ulps of (|plain| + rms(plain))"
-                        + (f" + {extra:.4g}" if extra else "")
-                        + f"; rel L2 1/{round(1 / rel_tol)}",
-                    bound_ms=max(bytes_ms, ops_ms))
-        # the tolerance has to see a wrong function: each trap must fail it
-        for name, trap in case.get("traps", {}).items():
-            trap_ok, _, trap_l2 = agreement(got, trap(), rel_tol, extra)
-            line[f"{name}_rel_l2"] = trap_l2
-            if trap_ok:
-                raise AssertionError(f"{row} {label}: the tolerance passes "
-                                     f"the trap {name}")
-        del got, want
-        line["ms"] = timed_ms(case.get("timed_kernel", case["kernel"]), 20)
-        line["plain_ms"] = timed_ms(case.get("timed_plain", case["plain"]), 3)
-        line["library_ms"] = (timed_ms(case["library"], 10)
-                              if case["library"] else None)
-        if "info" in case:                 # a yardstick of another function
-            line[case["info"][0]] = timed_ms(case["info"][1], 10)
-        print("kernel-check", json.dumps(line), flush=True)
-        if not ok:
-            raise AssertionError(f"{row} {label}: kernel disagrees with its "
-                                 f"plain version (max abs err {max_err})")
-        r = rows[row]
-        r["max_abs_err"] = max(r["max_abs_err"], max_err)
-        r["bytes_ms"] += count * bytes_ms
-        r["ops_ms"] += count * ops_ms
-        r["bound_ms"] += count * max(bytes_ms, ops_ms)
-        r["ms"] += count * line["ms"]
-        r["plain_ms"] += count * line["plain_ms"]
-        if case["library"] is None:
-            r["has_library"] = False
+    """Each case: kernel vs plain (raise past the tolerance), then timings;
+    a shape that two resolutions share is measured once. Returns, per row
+    and resolution, totals over one greedy_generate's launches (per call
+    for resolution None)."""
+    totals = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                  library_ms=0.0, has_library=True, bytes_ms=0.0, ops_ms=0.0)
+    rows = {name: {} for name in ROWS}
+    measured = {}
+    for row, label, count, setup, res in kernel_cases(torch):
+        if (row, label) not in measured:
+            measured[row, label] = check_case(torch, row, label, count, setup)
+        line, ok, has_library = measured[row, label]
+        r = rows[row].setdefault(res, dict(totals))
+        weight = count if res else 1
+        r["max_abs_err"] = max(r["max_abs_err"], line["max_abs_err"])
+        for key in ("bytes_ms", "ops_ms", "bound_ms", "ms", "plain_ms"):
+            r[key] += weight * line[key]
+        if has_library:
+            r["library_ms"] += weight * line["library_ms"]
         else:
-            r["library_ms"] += count * line["library_ms"]
-        del case
-        torch.cuda.empty_cache()
+            r["has_library"] = False
     return rows
+
+
+def check_case(torch, row, label, count, setup) -> tuple:
+    """One case: agreement with the plain version (and each trap's failure),
+    then kernel / plain / library times; prints its kernel-check line.
+    Returns (line, ok, has_library)."""
+    from lvv_tpu_torch import kernels
+    case = setup()
+    before = kernels.launches[row]
+    got = case["kernel"]()
+    torch.cuda.synchronize()
+    if kernels.launches[row] == before:
+        raise AssertionError(f"{row} {label}: the wrapper did not launch "
+                             "that kernel")
+    want = case["plain"]()
+    rel_tol = case.get("rel_l2_tol", REL_L2_TOL)
+    extra = case.get("abs_extra", 0.0)
+    ok, max_err, rel_l2 = agreement(got, want, rel_tol, extra)
+    bytes_ms = case["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = (case["ops_ms"] if "ops_ms" in case
+              else case["flops"] / case["peak"] * 1e3)
+    line = dict(kernel=row, shape=label, launches_per_call=count,
+                max_abs_err=max_err, rel_l2=rel_l2,
+                tol="4 bf16 ulps of (|plain| + rms(plain))"
+                    + (f" + {extra:.4g}" if extra else "")
+                    + f"; rel L2 1/{round(1 / rel_tol)}",
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms))
+    # the tolerance has to see a wrong function: each trap must fail it
+    for name, trap in case.get("traps", {}).items():
+        trap_ok, _, trap_l2 = agreement(got, trap(), rel_tol, extra)
+        line[f"{name}_rel_l2"] = trap_l2
+        if trap_ok:
+            raise AssertionError(f"{row} {label}: the tolerance passes "
+                                 f"the trap {name}")
+    del got, want
+    line["ms"] = timed_ms(case.get("timed_kernel", case["kernel"]), 20)
+    line["plain_ms"] = timed_ms(case.get("timed_plain", case["plain"]), 3)
+    line["library_ms"] = (timed_ms(case["library"], 10)
+                          if case["library"] else None)
+    if "info" in case:                 # a yardstick of another function
+        line[case["info"][0]] = timed_ms(case["info"][1], 10)
+    print("kernel-check", json.dumps(line), flush=True)
+    if not ok:
+        raise AssertionError(f"{row} {label}: kernel disagrees with its "
+                             f"plain version (max abs err {max_err})")
+    has_library = case["library"] is not None
+    del case
+    torch.cuda.empty_cache()
+    return line, ok, has_library
 
 
 # ------------------------------------------------------------- main path --
@@ -473,17 +634,39 @@ def bench_inputs(cfg):
     return bev, images, np.ones((b, 6), bool), prompt, np.full((b,), t)
 
 
+def global_kind(cfg, names) -> str:
+    """The kernel (launch-count name) of SAM's global layers: the model's
+    three-way test on the grid (models/sam.py SAMAttention), with the scope
+    names `names`."""
+    from lvv_tpu_torch.models import sam
+    from lvv_tpu_torch.ops.attention import kh_tiles
+    s = cfg.sam
+    g, hd = s.img_size // s.patch_size, s.embed_dim // s.num_heads
+    if g * g <= 512:                                  # a window's branch
+        kind = "relpos_attention"
+    elif sam._hpacked_ok(g, g, hd):
+        kind = ("relpos_attention_qk8" if "qk" in names else
+                "relpos_attention_pv8" if "attn" in names else
+                "relpos_attention")
+    elif kh_tiles(g * g, 4096, 1024)[0] <= 512:
+        kind = "flash_attention_relpos_mh"
+    else:
+        kind = ("flash_attention_relpos_pv8" if "attn" in names else
+                "flash_attention_relpos")
+    return f"{kind}[{g}x{g}]"
+
+
 def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
     """Kernel launches of one greedy_generate at batch 1, from the model's
     structure (every norm width there is a multiple of 128). The serving
     path runs the W8A8 MLP in place of the bf16 one and the packed int8
     decode: 4 int8 products a layer and one int8 unembed a step. Its other
     SAM scopes add the W8A8 qkv / proj projections ("dense", 2 a block) and
-    turn the global layers (64x64 grids, eligible for both) into K-g ("qk",
-    which wins) or K-d8 ("attn")."""
+    change the global layers' kernel (`global_kind`): at 64x64, K-g ("qk",
+    which wins) or K-d8 ("attn"); at 80x80, K-h's int8 arm ("attn")."""
+    from lvv_tpu_torch.models.vqa import sam_grid_side
     s, c, vv, vl, llm = (cfg.sam, cfg.clip, cfg.vat_vision, cfg.vat_lidar,
                          cfg.llm)
-    grid = s.img_size // s.patch_size
     n_global = len(s.global_attn_indexes)
     encode = (s.depth + 2                       # ln1 per block + neck LNs
               + 1 + c.num_layers                # pre_ln + ln1 per layer
@@ -492,16 +675,22 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
               + 1 + 3 * vl.n_blocks + 2)        # VATLiDAR
     per_llm_pass = 2 * llm.num_layers + 1
     names = set(scope.split(","))
-    global_kind = ("relpos_attention_qk8" if "qk" in names else
-                   "relpos_attention_pv8" if "attn" in names else
-                   "relpos_attention")
-    want = {
+    # `attention` takes the flash kernel once kv reaches 1024 tokens: the
+    # VAT blocks' self-attention over their queries (VATVision's 1,200 at
+    # 1280², not its 768 at 1024²) and cross-attention over the image
+    # tokens / BEV cells, and the prefill
+    n_tok = cfg.adapter.num_views * sam_grid_side(cfg) ** 2
+    kv_lens = ((vv.n_blocks, n_tok // vv.compression_factor),
+               (vv.n_blocks, n_tok),
+               (vl.n_blocks, vl.n_queries),
+               (vl.n_blocks, cfg.bev_hw[0] * cfg.bev_hw[1]),
+               (llm.num_layers, cache_tokens(cfg) - NEW_TOKENS - 8))
+    want = collections.Counter({
         "norm": encode + per_llm_pass * (1 + NEW_TOKENS),
-        "flash_attention": vv.n_blocks + vl.n_blocks + llm.num_layers,
+        "flash_attention": sum(n for n, kv in kv_lens if kv >= 1024),
         f"relpos_attention[{s.window_size}x{s.window_size}]":
-            s.depth - n_global,
-        f"{global_kind}[{grid}x{grid}]": n_global,
-    }
+            s.depth - n_global})
+    want[global_kind(cfg, names)] += n_global
     if not serving:
         want["ln_mlp_residual"] = s.depth + c.num_layers
     else:
@@ -510,7 +699,7 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
         want["int8_matmul_nk"] = NEW_TOKENS
         if "dense" in names:
             want["w8a8_matmul"] = 2 * s.depth
-    return want
+    return dict(want)
 
 
 @contextlib.contextmanager
@@ -535,18 +724,23 @@ def plain_path():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Keep every dispatch of the model and swap each kernel wrapper of the
-    serving path for its plain version (on the card: quant8 stays on, the
-    plain W8A8 MLP runs where the kernel would)."""
+    """Keep every dispatch of the model and swap each kernel wrapper for its
+    plain version (on the card: quant8 stays on, the plain W8A8 MLP runs
+    where the kernel would)."""
     from lvv_tpu_torch.models import sam
     from lvv_tpu_torch.ops import attention as A
     from lvv_tpu_torch.ops import fused_mlp as M
     from lvv_tpu_torch.ops import quant as Q
+
+    def mlp_plain(*args, quant8=False, **kw):
+        return (M.ln_mlp_residual_q8_plain if quant8
+                else M.ln_mlp_residual_plain)(*args, **kw)
     swaps = [(M, "norm", M.norm_plain),
-             (M, "ln_mlp_residual_q8", M.ln_mlp_residual_q8_plain),
+             (M, "ln_mlp_residual", mlp_plain),
              (A, "flash_attention", A.flash_attention_plain),
              (sam, "relpos_attention", A.relpos_attention_plain),
              (sam, "relpos_attention_qk8", A.relpos_attention_qk8_plain),
+             (sam, "flash_attention_relpos", A.flash_attention_relpos_plain),
              (sam, "w8a8_matmul", Q.int8_dot),
              (Q, "quantized_matmul", Q.quantized_matmul_plain),
              (Q, "quantized_matmul_nk", Q.quantized_matmul_nk_plain)]
@@ -612,13 +806,20 @@ def drive(torch, model, args, params_decode, want) -> dict:
                 peak_mem_gib=peak / 2 ** 30, launches=counts)
 
 
+def cache_tokens(cfg) -> int:
+    """KV-cache length of one generate, as greedy_generate sizes it (1,996
+    prefill tokens at SAM 1280², 1,564 at 1024²)."""
+    from lvv_tpu_torch.models.vqa import _prefix_len
+    return _prefix_len(cfg) + PROMPT_LEN + NEW_TOKENS + 8
+
+
 def prefill_logits(torch, model, args, cache=None):
     """Last prefill logits [1, V] in fp32 (fills `cache` when given)."""
     from lvv_tpu_torch.models.qwen import init_cache
     with torch.inference_mode():
         if cache is None:
-            cache = init_cache(model.cfg.llm, 1, 1600, dtype=model.dtype,
-                               device="cuda")
+            cache = init_cache(model.cfg.llm, 1, cache_tokens(model.cfg),
+                               dtype=model.dtype, device="cuda")
         return model.prefill(args[0], args[1], args[2], args[3],
                              args[4].int(), cache).float()
 
@@ -627,14 +828,78 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def run_float_path(torch) -> tuple:
-    """The float main path: default_config(), float decode. Returns its report
-    and its prefill logits (for the q8-versus-float comparison)."""
-    from lvv_tpu_torch import VQAModel, default_config
+def first_logits(torch, model, args, packed, token=None) -> tuple:
+    """Prefill logits, then the first decode step's logits (packed int8
+    decode when `packed`, else the float one), fed `token` or the prefill's
+    argmax. Returns (prefill, step, token)."""
+    from lvv_tpu_torch.models.decode_fused import fused_decode_step
+    from lvv_tpu_torch.models.qwen import init_cache
+    cfg = model.cfg
+    cache = init_cache(cfg.llm, 1, cache_tokens(cfg), dtype=model.dtype,
+                       device="cuda")
+    pre = prefill_logits(torch, model, args, cache)
+    nxt = pre.argmax(-1) if token is None else token
+    with torch.inference_mode():
+        if packed:
+            step = fused_decode_step(cfg.llm, model.dtype,
+                                     packed["_fused_decode"], nxt, cache)
+        else:
+            step = model.decode_step(nxt, cache)
+    return pre, step.float(), nxt
+
+
+def against_plain_kernels(torch, model, args, packed) -> tuple:
+    """Prefill and first-step logits of the path against the same path with
+    every kernel swapped for its plain version. Returns (report, prefill
+    logits)."""
+    from lvv_tpu_torch import kernels
+    pre, step, nxt = first_logits(torch, model, args, packed)
+    before = dict(kernels.launches)
+    with plain_kernels():
+        pre_plain, step_plain, _ = first_logits(torch, model, args, packed,
+                                                nxt)
+    if dict(kernels.launches) != before:
+        raise AssertionError("a kernel launched under plain_kernels()")
+    for t in (pre, step, pre_plain, step_plain):
+        if not torch.isfinite(t).all():
+            raise AssertionError("non-finite logits")
+    return dict(
+        logits_shape=list(pre.shape),
+        logits_rel_l2_vs_plain=rel_l2(pre, pre_plain),
+        logits_max_abs_vs_plain=float((pre - pre_plain).abs().max()),
+        step_logits_rel_l2_vs_plain=rel_l2(step, step_plain),
+        step_logits_max_abs_vs_plain=float((step - step_plain).abs().max()),
+    ), pre
+
+
+def config(img_size: int, quant8: bool):
+    """default_config() with SAM at img_size; quant8 on SAM and CLIP (the
+    serving model) or not."""
+    import dataclasses
+    from lvv_tpu_torch import default_config
     cfg = default_config().model
+    return dataclasses.replace(
+        cfg, sam=dataclasses.replace(cfg.sam, img_size=img_size,
+                                     quant8=quant8),
+        clip=dataclasses.replace(cfg.clip, quant8=quant8))
+
+
+def run_float_path(torch, img_size: int = 1024) -> tuple:
+    """The float main path: default_config() (SAM at img_size), float
+    decode. At 1024² its prefill logits are held to the plain PyTorch path
+    (materialised rel-pos bias); at 1280², where that bias would take
+    5.9 GB a layer, its prefill and first-step logits are held to the same
+    path with every kernel swapped for its plain version. Returns its
+    report and its prefill logits."""
+    from lvv_tpu_torch import VQAModel
+    cfg = config(img_size, quant8=False)
     model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     args = [torch.as_tensor(a, device="cuda") for a in bench_inputs(cfg)]
     report = drive(torch, model, args, None, expected_launches(cfg))
+    if img_size != 1024:
+        checks, fast = against_plain_kernels(torch, model, args, None)
+        report.update(img_size=img_size, **checks)
+        return report, fast
     fast = prefill_logits(torch, model, args)
     with plain_path():
         slow = prefill_logits(torch, model, args)
@@ -646,16 +911,11 @@ def run_float_path(torch) -> tuple:
     return report, fast
 
 
-def serving_model(torch):
+def serving_model(torch, img_size: int = 1024):
     """bench.py's serving model: quant8 on SAM and CLIP, the float path's
     seeded weights and inputs, and the packed int8 decode tree."""
-    import dataclasses
-    from lvv_tpu_torch import (VQAModel, default_config,
-                               prepare_serving_params_fused)
-    cfg = default_config().model
-    cfg = dataclasses.replace(
-        cfg, sam=dataclasses.replace(cfg.sam, quant8=True),
-        clip=dataclasses.replace(cfg.clip, quant8=True))
+    from lvv_tpu_torch import VQAModel, prepare_serving_params_fused
+    cfg = config(img_size, quant8=True)
     model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     args = [torch.as_tensor(a, device="cuda") for a in bench_inputs(cfg)]
     return cfg, model, args, prepare_serving_params_fused(model)
@@ -669,10 +929,7 @@ def run_serving_path(torch, served, scope: str, ref_logits,
     report and the prefill logits; `ref_logits` (another path's) are
     compared as information."""
     import os
-    from lvv_tpu_torch import kernels
     from lvv_tpu_torch.config import q8_scope
-    from lvv_tpu_torch.models.decode_fused import fused_decode_step
-    from lvv_tpu_torch.models.qwen import init_cache
     cfg, model, args, packed = served
     os.environ["LVV_Q8_SCOPE"] = scope
     try:
@@ -680,37 +937,12 @@ def run_serving_path(torch, served, scope: str, ref_logits,
             raise AssertionError(f"LVV_Q8_SCOPE is not read as {scope!r}")
         report = drive(torch, model, args, packed,
                        expected_launches(cfg, serving=True, scope=scope))
-
-        def first_logits(token=None):
-            """Prefill logits, then the first packed decode step's logits
-            (fed `token`, or the prefill's argmax)."""
-            cache = init_cache(cfg.llm, 1, 1600, dtype=model.dtype,
-                               device="cuda")
-            pre = prefill_logits(torch, model, args, cache)
-            nxt = pre.argmax(-1) if token is None else token
-            with torch.inference_mode():
-                step = fused_decode_step(cfg.llm, model.dtype,
-                                         packed["_fused_decode"], nxt, cache)
-            return pre, step.float(), nxt
-
-        pre, step, nxt = first_logits()
-        before = dict(kernels.launches)
-        with plain_kernels():
-            pre_plain, step_plain, _ = first_logits(nxt)
-        if dict(kernels.launches) != before:
-            raise AssertionError("a kernel launched under plain_kernels()")
+        checks, pre = against_plain_kernels(torch, model, args, packed)
     finally:
         del os.environ["LVV_Q8_SCOPE"]
-    for t in (pre, step, pre_plain, step_plain):
-        if not torch.isfinite(t).all():
-            raise AssertionError("non-finite serving-path logits")
-    report.update(
-        scope=scope,
-        logits_rel_l2_vs_plain=rel_l2(pre, pre_plain),
-        logits_max_abs_vs_plain=float((pre - pre_plain).abs().max()),
-        step_logits_rel_l2_vs_plain=rel_l2(step, step_plain),
-        step_logits_max_abs_vs_plain=float((step - step_plain).abs().max()),
-        **{f"prefill_logits_rel_l2_vs_{ref_name}": rel_l2(pre, ref_logits)})
+    report.update(scope=scope, img_size=cfg.sam.img_size, **checks,
+                  **{f"prefill_logits_rel_l2_vs_{ref_name}":
+                     rel_l2(pre, ref_logits)})
     return report, pre
 
 
@@ -785,6 +1017,17 @@ def main() -> int:
                                            "mlp")
         print(f"serving-path[{scope}]", json.dumps(paths[scope]), flush=True)
     del served
+    torch.cuda.empty_cache()
+    large = f"sam{LARGE}"
+    paths[large], large_logits = run_float_path(torch, LARGE)
+    print(f"main-path[{large}]", json.dumps(paths[large]), flush=True)
+    torch.cuda.empty_cache()
+    served = serving_model(torch, LARGE)
+    name = f"{large},{LARGE_SCOPE}"
+    paths[name], _ = run_serving_path(torch, served, LARGE_SCOPE,
+                                      large_logits, f"float_{large}")
+    print(f"serving-path[{name}]", json.dumps(paths[name]), flush=True)
+    del served
     for name, e2e in paths.items():
         for key in ("logits_rel_l2_vs_plain", "step_logits_rel_l2_vs_plain"):
             if e2e.get(key, 0.0) > LOGITS_REL_TOL:
@@ -792,16 +1035,28 @@ def main() -> int:
 
     out = []
     for name, (route, source, replaces) in ROWS.items():
-        r = rows[name]
+        by_res = rows[name]
+        res = next(r for r in (1024, LARGE, None) if r in by_res)
+        r = by_res[res]
         by_path = {p: e["launches"].get(name, 0) for p, e in paths.items()}
-        out.append(dict(
+        row = dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=max(by_path.values()),
             launches_by_path=by_path,
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"],
+            max_abs_err=max(t["max_abs_err"] for t in by_res.values()),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-            library_ms=r["library_ms"] if r["has_library"] else None))
+            library_ms=r["library_ms"] if r["has_library"] else None,
+            times_per=(f"generate at SAM {res}²" if res
+                       else "call (no path runs it)"))
+        if len(by_res) > 1:
+            row["per_generate_at"] = {
+                f"SAM {k}²": dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                                  bound_ms=t["bound_ms"],
+                                  library_ms=t["library_ms"]
+                                  if t["has_library"] else None)
+                for k, t in by_res.items()}
+        out.append(row)
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

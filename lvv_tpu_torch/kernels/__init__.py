@@ -26,7 +26,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lvv_tpu_torch"
 SOURCES = ("ln_mlp_residual", "flash_attention", "relpos_attention",
            "ln_mlp_residual_q8", "int8_matmul", "int8_matmul_nk",
-           "w8a8_matmul", "relpos_attention_qk8")
+           "w8a8_matmul", "relpos_attention_qk8",
+           "flash_attention_relpos")
 
 launches: collections.Counter = collections.Counter()
 
@@ -40,6 +41,7 @@ _ARGTYPES = {
     "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 4 + [_P],
     "lvv_w8a8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "lvv_relpos_attention_qk8": [_P] * 7 + [_I] * 4 + [_P],
+    "lvv_flash_attention_relpos": [_P] * 9 + [_I] * 10 + [_F, _P],
 }
 _libs: dict = {}
 _lock = threading.Lock()

@@ -139,6 +139,31 @@ __device__ __forceinline__ void qk_bf16(float (&s)[kBK / 8][4],
   }
 }
 
+// o += P @ V for this warp's 16 rows: P (in the C fragment layout of the
+// kv tile's scores) rounded to bf16 straight from the accumulators, V the
+// tile in v_s (row ld D + 8).
+template <int D>
+__device__ __forceinline__ void pv_bf16(float (&o)[D / 8][4],
+                                        const float (&s)[kBK / 8][4],
+                                        const bf16* v_s) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kc = 0; kc < kBK / 16; ++kc) {
+    uint32_t a[4];
+    a[0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
+    a[1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
+    a[2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+    a[3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      uint32_t b[2];
+      load_b_kn(b, v_s + kc * 16 * LD + j * 8, LD, lane);
+      mma16816(o[j], a, b);
+    }
+  }
+}
+
 // Online-softmax attention of a 64-row q tile over kv positions [0, kv_end),
 // one warp per 16 q rows.
 //   load_kv(k0):  fills the kv tile k0 .. k0 + kBK in shared memory (v_s
@@ -152,8 +177,6 @@ __device__ __forceinline__ void flash_loop(const bf16* v_s, int kv_end,
                                            LoadKV load_kv, Scores scores,
                                            float (&o)[D / 8][4], float& l0,
                                            float& l1) {
-  constexpr int LD = D + 8;
-  const int lane = threadIdx.x & 31;
   float m0 = LVV_NEG_BIG, m1 = LVV_NEG_BIG;
   l0 = 0.f;
   l1 = 0.f;
@@ -196,21 +219,7 @@ __device__ __forceinline__ void flash_loop(const bf16* v_s, int kv_end,
       o[j][2] *= alpha1;
       o[j][3] *= alpha1;
     }
-    // P (bf16, straight from the score accumulators) @ V
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        uint32_t b[2];
-        load_b_kn(b, v_s + kc * 16 * LD + j * 8, LD, lane);
-        mma16816(o[j], a, b);
-      }
-    }
+    pv_bf16<D>(o, s, v_s);
   }
   l0 = fmaxf(l0, 1e-30f);  // guard, as the JAX kernel's finalize does
   l1 = fmaxf(l1, 1e-30f);

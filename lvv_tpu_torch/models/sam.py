@@ -7,20 +7,24 @@ neck to 256 channels -> VARY net_2 (256->512, stride 2) and net_3
 (512->1024, stride 2) -> [B, 1024, 16, 16]. Token maps are NHWC inside, as
 in the JAX package; images and the output are NCHW at the boundary.
 
-On the card the windowed and the global layers both run the rel-pos
-attention kernel (K-c / K-d) straight from the packed qkv projection, and
-the MLP half of every block runs the fused LN + MLP kernel with tanh-GELU:
-K-b, or its W8A8 form K-f. Elsewhere (CPU) the block takes the plain path:
-materialised bias, exact-erf GELU, float MLP, as the JAX package does off
-the TPU.
+On the card SAMAttention keeps the JAX package's three-way dispatch
+(sam.py:139-231, with "CUDA tensor" in place of "TPU backend"): square
+grids of at most 512 tokens (the windows) run the rel-pos kernel straight
+from the packed qkv projection (K-c), global grids that pass the
+head-packed test (64x64 at 1024²) run it too (K-d), and every other grid
+(80x80 at 1280²) runs the head-split kernel K-h on bf16-rounded q·R
+tables. The MLP half of every block runs the fused LN + MLP kernel with
+tanh-GELU: K-b, or its W8A8 form K-f. Elsewhere (CPU) the block takes the
+plain path: materialised bias, exact-erf GELU, float MLP, as the JAX
+package does off the TPU.
 
 With `quant8`, LVV_Q8_SCOPE (read at each call) picks the int8 sub-paths,
 as in the JAX package: "mlp" the W8A8 MLP (K-f); "dense" the 24 qkv / proj
 projections through `w8a8_matmul` (K-i on the card, `int8_dot` on the CPU);
-"attn" the int8 p@v (K-d8) and "qk" the int8 scores (K-g, which wins over
-"attn") of the global layers. "qk" applies only at the shapes of JAX's
-head-packed kernel, "attn" wherever JAX's global kernels take int8 (more
-than 512 tokens), and neither on the CPU path.
+"attn" the int8 p@v of the global layers (K-d8 on head-packed grids, K-h's
+int8 arm elsewhere) and "qk" the int8 scores (K-g, which wins over "attn",
+on head-packed grids only). Neither applies to the windows or on the CPU
+path.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ from torch import nn
 
 from ..config import q8_scope
 from ..ops import fused_mlp
-from ..ops.attention import (attention, relpos_attention,
-                             relpos_attention_qk8, relpos_bias)
+from ..ops.attention import (attention, flash_attention_relpos,
+                             relpos_attention, relpos_attention_qk8,
+                             relpos_bias)
 from ..ops.quant import w8a8_matmul
 from .layers import MLP, Dense, LayerNorm, new_param, resize_1d
 
@@ -74,12 +79,11 @@ def window_unpartition(x: torch.Tensor, window: int, padded_hw, hw):
 
 
 def _relpos_kernel_ok(x: torch.Tensor, head_dim: int, h: int, w: int) -> bool:
-    """The rel-pos kernel runs on the card for MMA-friendly head dims (the
-    JAX rule, with "CUDA tensor" in place of "TPU backend") and any grid
-    whose bias tables fit its shared memory. That covers the JAX package's
-    windowed (K-c) and global (K-d) shapes and those its head-split kernel
-    takes (K-h), so no shape test beyond the kernel's own limits is kept."""
-    return x.is_cuda and head_dim in (64, 128) and h <= 64 and w <= 128
+    """The rel-pos kernels run on the card for MMA-friendly head dims (the
+    JAX rule, with "CUDA tensor" in place of "TPU backend"), at any grid:
+    the dispatch in SAMAttention picks K-c / K-d or K-h by shape."""
+    del h, w
+    return x.is_cuda and head_dim in (64, 128)
 
 
 def _hpacked_ok(h: int, w: int, head_dim: int) -> bool:
@@ -91,9 +95,9 @@ def _hpacked_ok(h: int, w: int, head_dim: int) -> bool:
 
 
 def _pv_group(s: int) -> int:
-    """The kv tile of JAX's global kernel at S tokens, which is K-d8's
-    quantization group of p: 1024 (the head-packed and fused kernels),
-    else min(1024, S padded to 128) (attention.py:434-438)."""
+    """K-d8's quantization group of p at S tokens: the head-packed
+    kernel's kv tile, 1024 (min(1024, S padded to 128), as
+    attention.py:434-438 computes it, is the same at those grids)."""
     return min(1024, -(-s // 128) * 128)
 
 
@@ -129,28 +133,59 @@ class SAMAttention(nn.Module):
         scope = q8_scope() if self.quant8 else frozenset()
         dense = "dense" in scope
         qkv = self._dense(self.qkv, x.reshape(b, h * w, c), dense)
-        if self.use_rel_pos:
+        if self.use_rel_pos and _relpos_kernel_ok(qkv, hd, h, w):
             rh = resize_rel_pos(self.rel_pos_h.to(qkv.dtype), h, h)
             rw = resize_rel_pos(self.rel_pos_w.to(qkv.dtype), w, w)
-        if self.use_rel_pos and _relpos_kernel_ok(qkv, hd, h, w):
-            if "qk" in scope and _hpacked_ok(h, w, hd):
-                out = relpos_attention_qk8(qkv, rh, rw, heads=self.num_heads,
-                                           scale=scale)
-            else:
-                pv8 = "attn" in scope and h * w > 512
+            if h == w and h * w <= 512:                   # windows: K-c
                 out = relpos_attention(qkv, rh, rw, heads=self.num_heads,
-                                       scale=scale, pv_int8=pv8,
-                                       pv_group=_pv_group(h * w))
+                                       scale=scale)
+            elif _hpacked_ok(h, w, hd):                   # K-d / K-d8 / K-g
+                if "qk" in scope:
+                    out = relpos_attention_qk8(qkv, rh, rw,
+                                               heads=self.num_heads,
+                                               scale=scale)
+                else:
+                    out = relpos_attention(qkv, rh, rw, heads=self.num_heads,
+                                           scale=scale,
+                                           pv_int8="attn" in scope,
+                                           pv_group=_pv_group(h * w))
+            else:                                         # K-h
+                out = _kh_attention(qkv, rh, rw, self.num_heads, scale, h, w,
+                                    "attn" in scope)
             return self._dense(self.proj, out, dense).view(b, h, w, c)
         q, k, v = qkv.view(b, h * w, 3, self.num_heads, hd).permute(
             2, 0, 3, 1, 4)
         bias = None
         if self.use_rel_pos:
+            rh = resize_rel_pos(self.rel_pos_h.to(qkv.dtype), h, h)
+            rw = resize_rel_pos(self.rel_pos_w.to(qkv.dtype), w, w)
             # SAM adds q·R with UNSCALED q; only q·k takes 1/sqrt(d)
             bias = relpos_bias(q, rh, rw, w).to(qkv.dtype)
         out = attention(q, k, v, bias=bias)
         out = out.transpose(1, 2).reshape(b, h * w, c)
         return self._dense(self.proj, out, dense).view(b, h, w, c)
+
+
+def _kh_attention(qkv, rh, rw, heads: int, scale: float, h: int, w: int,
+                  quant8: bool) -> torch.Tensor:
+    """The JAX package's third branch (sam.py:202-231): head-split q, k, v,
+    the tables q·Rh and q·Rw in fp32 rounded to qkv's dtype, and K-h with
+    tiles 4096 / 1024 (256 / 256 at 256 tokens or fewer). Returns [B, S, C]
+    from packed qkv [B, S, 3C]."""
+    b, s, c3 = qkv.shape
+    hd = c3 // 3 // heads
+    q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    qr = q.float().reshape(b, heads, h, w, hd)
+    q_rh = torch.einsum("bnhwc,hkc->bnhwk", qr, rh.float()).reshape(
+        b, heads, s, h).to(qkv.dtype)
+    q_rw = torch.einsum("bnhwc,wkc->bnhwk", qr, rw.float()).reshape(
+        b, heads, s, w).to(qkv.dtype)
+    small = s <= 256
+    out = flash_attention_relpos(q, k, v, q_rh, q_rw, scale=scale, grid_w=w,
+                                 block_q=256 if small else 4096,
+                                 block_k=256 if small else 1024,
+                                 quant8=quant8)
+    return out.transpose(1, 2).reshape(b, s, heads * hd)
 
 
 class SAMBlock(nn.Module):

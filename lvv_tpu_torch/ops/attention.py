@@ -5,14 +5,17 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
 [B, S, 3C] and returns [B, S, C].
 
 - `flash_attention` (K-e), `relpos_attention` (K-c and K-d, one CUDA
-  kernel for both, with the int8 p@v arm K-d8 under `pv_int8`) and
-  `relpos_attention_qk8` (K-g, int8 scores) are the kernel wrappers: on a
-  CUDA tensor they launch their kernel or raise, on a CPU tensor they
-  compute their plain version.
+  kernel for both, with the int8 p@v arm K-d8 under `pv_int8`),
+  `relpos_attention_qk8` (K-g, int8 scores) and `flash_attention_relpos` /
+  `flash_attention_relpos_fused` (K-h, head-split q, k, v with the caller's
+  q·R tables) are the kernel wrappers: on a CUDA tensor they launch their
+  kernel or raise, on a CPU tensor they compute their plain version.
 - `attention_reference` (= `flash_attention_plain`),
-  `relpos_attention_plain` and `relpos_attention_qk8_plain` are the plain
-  PyTorch versions. `quantize_v` and `qk8_operands` are the int8 arms'
-  glue, which the JAX package computes outside its kernels too.
+  `relpos_attention_plain`, `relpos_attention_qk8_plain`,
+  `flash_attention_relpos_plain` and `flash_attention_relpos_fused_plain`
+  are the plain PyTorch versions. `quantize_v`, `qk8_operands` and
+  `fused_operands` are glue that the JAX package computes outside its
+  kernels too.
 - `attention` keeps the JAX dispatch: the flash kernel once the kv sequence
   reaches 1024, without bias, and causal only for sq == sk; the reference
   otherwise. `decode_attention` is the reference over the cache, as in JAX.
@@ -162,31 +165,13 @@ def quantize_v(v: torch.Tensor, seq_dim: int):
 
 def _pv8_attention(q, k, v, bias, *, scale: float, group: int):
     """K-d8's function on head-split q, k, v [B, H, S, d] and the fp32 bias
-    [B, H, S, S]: a base-2 online softmax over kv groups of `group` columns,
-    p quantized per row of each group against the group's maximum, int8
-    p@v summed exactly per group, v quantized per channel."""
-    b, heads, s, d = q.shape
-    v8, sv = quantize_v(v, 2)                       # sv [B, H, 1, d]
-    # group sums of products of |x| <= 127 are exact in fp32 below 2^24
-    exact = torch.float32 if group * 127 * 127 < 2 ** 24 else torch.float64
-    m = torch.full((b, heads, s), _NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(b, heads, s, d, device=q.device)
-    for g0 in range(0, s, group):
-        cols = slice(g0, min(g0 + group, s))
-        sc = ((torch.matmul(q.float(), k[:, :, cols].float().transpose(-1, -2))
-               * scale + bias[..., cols]) * _LOG2E)
-        gmax = sc.amax(-1)
-        m_new = torch.maximum(m, gmax)
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(sc - m_new[..., None])
-        l = alpha * l + p.sum(-1)
-        sp = torch.clamp_min(torch.exp2(gmax - m_new), 1e-30)
-        p8 = torch.round(p * (127.0 / sp)[..., None])
-        z = torch.matmul(p8.to(exact), v8[:, :, cols].to(exact)).float()
-        acc = acc * alpha[..., None] + (z * (sp * (1.0 / 127.0))[..., None]) * sv
-        m = m_new
-    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    [B, H, S, S]: `_kh_online`'s int8 arm in base 2 over kv groups of
+    `group` columns."""
+    def scores(c0, c1):
+        return (torch.matmul(q.float(), k[:, :, c0:c1].float().transpose(
+            -1, -2)) * scale + bias[..., c0:c1]) * _LOG2E
+    return _kh_online(scores, v, quantize_v(v, 2), kv_end=q.shape[2],
+                      group=group, exp=torch.exp2).to(q.dtype)
 
 
 def relpos_attention_plain(qkv, rel_h, rel_w, *, heads: int, scale: float,
@@ -349,3 +334,294 @@ def relpos_attention_qk8(qkv, rel_h, rel_w, *, heads: int,
     kernels.check(err, "relpos_attention_qk8")
     kernels.launches[f"relpos_attention_qk8[{gh}x{gw}]"] += 1
     return out
+
+
+# --------------------------------------------------------------- K-h ------
+# Head-split rel-pos attention (JAX: `flash_attention_relpos` and
+# `flash_attention_relpos_fused`): q, k, v [B, H, S, d] with S = gh·gw and
+# the caller's q·Rh / q·Rw tables q_rh [B, H, S, gh], q_rw [B, H, S, gw].
+
+
+def _pad_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _fused_ok(s: int, d: int, gh: int, grid_w: int, block_q: int,
+              block_k: int) -> bool:
+    """JAX's test for the fused-bias form (attention.py:424-425)."""
+    return (s > 512 and s % block_q == 0 and s % block_k == 0
+            and block_k % grid_w == 0 and d + gh <= _LANE)
+
+
+def kh_tiles(s: int, block_q: int, block_k: int):
+    """JAX's block arithmetic for the streaming and small forms
+    (attention.py:434-438) -> (s_pad, kv tile, kv extent). The kernel walks
+    s_pad // tile whole kv tiles and masks columns past S, so keys at or
+    past tile·(s_pad // tile) are never read (at a 40x40 grid with tiles of
+    4096 / 1024, S = 1600 pads to 1664 and only keys below 1024 count)."""
+    block_k = min(block_k, _pad_to(s, _LANE))
+    block_q = min(block_q, _pad_to(s, _LANE))
+    s_pad = _pad_to(s, max(block_q, block_k))
+    block_k = min(block_k, s_pad)
+    return s_pad, block_k, min(s, s_pad // block_k * block_k)
+
+
+def _grid_cols(s: int, grid_w: int, device):
+    cols = torch.arange(s, device=device)
+    return cols // grid_w, cols % grid_w
+
+
+def _kh_online(scores, v, pv8, *, kv_end: int, group: int, exp):
+    """The TPU kernels' online softmax over kv [0, kv_end) in tiles of
+    `group` columns: scores(c0, c1) -> fp32 logits [..., Sq, c1 - c0] in the
+    domain of `exp` (torch.exp or torch.exp2), v [..., S, d]. Float arm: p
+    (against the running maximum) rounded to v's dtype for p@v. With
+    pv8 = (v8, sv) from `quantize_v`: p quantized per row of each tile
+    against the tile's own maximum, int8 p@v summed exactly (products of
+    |x| <= 127 stay exact in fp32 below 2^24). Returns fp32 [..., Sq, d]."""
+    m = l = acc = None
+    for c0 in range(0, kv_end, group):
+        c1 = min(c0 + group, kv_end)
+        sc = scores(c0, c1)
+        smax = sc.amax(-1)
+        if m is None:
+            m = torch.full_like(smax, _NEG_INF)
+            l = torch.zeros_like(smax)
+            acc = torch.zeros(*smax.shape, v.shape[-1], device=v.device)
+        m_new = torch.maximum(m, smax)
+        p = exp(sc - m_new[..., None])
+        alpha = exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        if pv8 is not None:
+            v8, sv = pv8
+            exact = (torch.float32 if (c1 - c0) * 127 * 127 < 2 ** 24
+                     else torch.float64)
+            sp = torch.clamp_min(exp(smax - m_new), 1e-30)
+            p8 = torch.round(p * (127.0 / sp)[..., None])
+            z = torch.matmul(p8.to(exact), v8[..., c0:c1, :].to(exact))
+            pv = (z.float() * (sp * (1.0 / 127.0))[..., None]) * sv
+        else:
+            pv = torch.matmul(p.to(v.dtype).float(), v[..., c0:c1, :].float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def flash_attention_relpos_plain(q, k, v, q_rh, q_rw, *, scale: float,
+                                 grid_w: int, block_q: int = 1024,
+                                 block_k: int = 1024, quant8: bool = False,
+                                 fused: bool = True) -> torch.Tensor:
+    """K-h's function with the JAX wrapper's dispatch, one view at a time
+    (no [S, S] array exists for all views at once): the fused form where
+    its test holds; all kv in one softmax with p normalised before it is
+    rounded for p@v where S pads to 512 or less (no int8 arm there, as in
+    JAX); else the streaming form over kv tiles of `kh_tiles`, base e, with
+    the int8 p@v arm under quant8 (v per (view, head, channel), p per row of
+    each kv tile). Logits (q·kᵀ·scale + q_rh[kv // w]) + q_rw[kv % w] in
+    fp32. Returns [B, H, S, d] in q's dtype."""
+    b, heads, s, d = q.shape
+    gh = s // grid_w
+    if fused and _fused_ok(s, d, gh, grid_w, block_q, block_k):
+        return flash_attention_relpos_fused_plain(
+            q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
+            block_k=block_k, quant8=quant8)
+    s_pad, tile, kv_end = kh_tiles(s, block_q, block_k)
+    kh, kw = _grid_cols(s, grid_w, q.device)
+    v8, sv = quantize_v(v, 2) if quant8 and s_pad > 512 else (None, None)
+    out = torch.empty_like(q)
+    for i in range(b):
+        qf = q[i].float()
+        rh, rw = q_rh[i].float(), q_rw[i].float()
+
+        def scores(c0, c1):
+            return ((torch.matmul(qf, k[i, :, c0:c1].float().transpose(-1, -2))
+                     * scale + rh[..., kh[c0:c1]]) + rw[..., kw[c0:c1]])
+
+        if s_pad <= 512:
+            sc = scores(0, s)
+            p = torch.exp(sc - sc.amax(-1, keepdim=True))
+            p = p / p.sum(-1, keepdim=True)
+            o = torch.matmul(p.to(v.dtype).float(), v[i].float())
+        else:
+            o = _kh_online(scores, v[i], None if v8 is None else
+                           (v8[i], sv[i]), kv_end=kv_end, group=tile,
+                           exp=torch.exp)
+        out[i] = o.to(q.dtype)
+    return out
+
+
+def fused_operands(q, k, q_rh, q_rw, *, scale: float, grid_w: int):
+    """The fused form's operands (the JAX wrapper's glue, attention.py:
+    630-640, in plain PyTorch), each rounded to q's dtype:
+    q_aug = [q·scale·log2e | q_rh·log2e | 0], k_aug = [k | onehot(kh) | 0]
+    (zero-padded to 128 columns, which changes no product), and
+    qrw = q_rw·log2e."""
+    b, heads, s, d = q.shape
+    gh = s // grid_w
+    pad = torch.zeros(b, heads, s, _LANE - d - gh, device=q.device)
+    q_aug = torch.cat([q.float() * (scale * _LOG2E), q_rh.float() * _LOG2E,
+                       pad], -1).to(q.dtype)
+    onehot = (torch.arange(gh, device=q.device)[None, :]
+              == (torch.arange(s, device=q.device) // grid_w)[:, None])
+    k_aug = torch.cat([k, onehot.to(k.dtype).expand(b, heads, s, gh),
+                       pad.to(k.dtype)], -1)
+    return q_aug, k_aug, (q_rw.float() * _LOG2E).to(q.dtype)
+
+
+def flash_attention_relpos_fused_plain(q, k, v, q_rh, q_rw, *, scale: float,
+                                       grid_w: int, block_q: int = 2048,
+                                       block_k: int = 1024,
+                                       quant8: bool = False) -> torch.Tensor:
+    """The fused form's function (S a multiple of block_q and block_k,
+    grid_w | block_k, d + gh <= 128): logits q_aug·k_augᵀ + qrw[kv % w] in
+    base 2, online over kv tiles of block_k, p rounded to v's dtype for p@v
+    or, under quant8, the int8 p@v arm as in the streaming form; one view at
+    a time. Returns [B, H, S, d] in q's dtype."""
+    b, heads, s, d = q.shape
+    if not _fused_ok(s, d, s // grid_w, grid_w, block_q, block_k):
+        raise ValueError(f"flash_attention_relpos_fused: S={s}, d={d}, "
+                         f"grid_w={grid_w}, blocks {block_q}/{block_k} are "
+                         "not the fused form's")
+    q_aug, k_aug, qrw = fused_operands(q, k, q_rh, q_rw, scale=scale,
+                                       grid_w=grid_w)
+    kw = torch.arange(s, device=q.device) % grid_w
+    v8, sv = quantize_v(v, 2) if quant8 else (None, None)
+    out = torch.empty_like(q)
+    for i in range(b):
+        qa, rw = q_aug[i].float(), qrw[i].float()
+
+        def scores(c0, c1):
+            return (torch.matmul(qa, k_aug[i, :, c0:c1].float().transpose(
+                -1, -2)) + rw[..., kw[c0:c1]])
+
+        o = _kh_online(scores, v[i], None if v8 is None else (v8[i], sv[i]),
+                       kv_end=s, group=block_k, exp=torch.exp2)
+        out[i] = o.to(q.dtype)
+    return out
+
+
+# kernel modes of flash_attention_relpos.cu
+_KH_STREAM, _KH_FUSED, _KH_SMALL = 0, 1, 2
+
+
+def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
+               grid_w: int, d: int, kv_end: int, group: int):
+    """Launch K-h's kernel in `mode` on [B, H, S, *] operands (q / k of
+    depth d, or 128 in the fused mode); returns [B, H, S, d] (written
+    token-major, so the caller's head merge is a free view)."""
+    b, heads, s, _ = q.shape
+    gh = s // grid_w
+    ops = [t if t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+           and all(st % 8 == 0 for st in t.stride()[:3]) else t.contiguous()
+           for t in (q, k, v)]
+    tables = [None if t is None else t.contiguous() for t in (qrh, qrw)]
+    v8t = sv = None
+    if group:
+        # v per (view, head, channel), transposed to [B, H, d, S] (kv is the
+        # contraction axis of p@v) and zero-padded to whole 64-column tiles
+        v8, sv = quantize_v(ops[2], 2)
+        v8t = torch.zeros(b, heads, d, _pad_to(s, 64), dtype=torch.int8,
+                          device=q.device)
+        v8t[..., :s] = v8.transpose(-1, -2)
+        sv = sv.reshape(b, heads, d).contiguous()
+    out = torch.empty(b, s, heads, d, dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(
+        st for t in (*ops, out) for st in t.stride()[:3]))
+    fn = kernels.lib("flash_attention_relpos").lvv_flash_attention_relpos
+    err = fn(*(t.data_ptr() for t in ops),
+             *(None if t is None else t.data_ptr() for t in tables),
+             None if v8t is None else v8t.data_ptr(),
+             None if sv is None else sv.data_ptr(), out.data_ptr(),
+             ctypes.cast(strides, ctypes.c_void_p), b, heads, s, d, gh,
+             grid_w, kv_end, group, 0 if v8t is None else v8t.shape[-1],
+             mode, ctypes.c_float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash_attention_relpos")
+    kernels.launches[name] += 1
+    return out
+
+
+def _kh_check(fn: str, q, k, v, tables, grid_w: int):
+    b, heads, s, d = q.shape
+    gh = s // grid_w if grid_w > 0 else 0
+    ok = (d in (64, 128) and grid_w > 0 and gh * grid_w == s
+          and k.shape == q.shape and v.shape == q.shape
+          and tables[0].shape == (b, heads, s, gh)
+          and tables[1].shape == (b, heads, s, grid_w)
+          # the kernel keeps a 64-row slice of both tables in shared memory
+          and 64 * 4 * ((gh | 1) + (grid_w | 1)) <= 160 * 1024)
+    if not ok:
+        raise ValueError(f"{fn}: unsupported q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} tables "
+                         f"{[tuple(t.shape) for t in tables]} "
+                         f"grid_w={grid_w}")
+    if any(t.dtype != torch.bfloat16 or t.device != q.device
+           for t in (q, k, v, *tables)):
+        raise ValueError(f"{fn}: operands must be bf16 on one device")
+
+
+def flash_attention_relpos(q, k, v, q_rh, q_rw, *, scale: float,
+                           grid_w: int, block_q: int = 1024,
+                           block_k: int = 1024, quant8: bool = False,
+                           fused: bool = True) -> torch.Tensor:
+    """Kernel K-h: SAM attention with the decomposed rel-pos bias on
+    head-split q, k, v [B, H, S, d] (S = gh·grid_w, d 64 or 128) and the
+    caller's tables q_rh [B, H, S, gh], q_rw [B, H, S, grid_w], never
+    materialising [S, S]. The JAX wrapper's dispatch and block arithmetic:
+    the fused form (`flash_attention_relpos_fused`) where its test holds,
+    the small form where S pads to 512 or less, else the streaming form
+    with kv extent and int8 group from `kh_tiles`. Returns [B, H, S, d]."""
+    if not q.is_cuda:
+        return flash_attention_relpos_plain(
+            q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
+            block_k=block_k, quant8=quant8, fused=fused)
+    b, heads, s, d = q.shape
+    _kh_check("flash_attention_relpos", q, k, v, (q_rh, q_rw), grid_w)
+    gh = s // grid_w
+    if fused and _fused_ok(s, d, gh, grid_w, block_q, block_k):
+        return flash_attention_relpos_fused(
+            q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
+            block_k=block_k, quant8=quant8)
+    s_pad, tile, kv_end = kh_tiles(s, block_q, block_k)
+    if s_pad <= 512:
+        return _kh_launch(_KH_SMALL,
+                          f"flash_attention_relpos_mh[{gh}x{grid_w}]", q, k,
+                          v, q_rh, q_rw, scale=scale, grid_w=grid_w, d=d,
+                          kv_end=s, group=0)
+    if quant8 and tile % 64:
+        raise ValueError(f"flash_attention_relpos: int8 group {tile} is not "
+                         "a multiple of 64")
+    name = "flash_attention_relpos" + ("_pv8" if quant8 else "")
+    return _kh_launch(_KH_STREAM, f"{name}[{gh}x{grid_w}]", q, k, v, q_rh,
+                      q_rw, scale=scale, grid_w=grid_w, d=d, kv_end=kv_end,
+                      group=tile if quant8 else 0)
+
+
+def flash_attention_relpos_fused(q, k, v, q_rh, q_rw, *, scale: float,
+                                 grid_w: int, block_q: int = 2048,
+                                 block_k: int = 1024,
+                                 quant8: bool = False) -> torch.Tensor:
+    """Kernel K-h, fused form: the operands of `fused_operands` (the height
+    bias inside a depth-128 score product, base 2) and a width-bias table,
+    int8 p@v per kv tile of block_k under quant8. Head dim 64."""
+    if not q.is_cuda:
+        return flash_attention_relpos_fused_plain(
+            q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
+            block_k=block_k, quant8=quant8)
+    b, heads, s, d = q.shape
+    _kh_check("flash_attention_relpos_fused", q, k, v, (q_rh, q_rw), grid_w)
+    gh = s // grid_w
+    if d != 64 or not _fused_ok(s, d, gh, grid_w, block_q, block_k):
+        raise ValueError(f"flash_attention_relpos_fused: S={s}, d={d}, "
+                         f"grid_w={grid_w}, blocks {block_q}/{block_k} are "
+                         "not the fused form's")
+    if quant8 and block_k % 64:
+        raise ValueError(f"flash_attention_relpos_fused: int8 group "
+                         f"{block_k} is not a multiple of 64")
+    q_aug, k_aug, qrw = fused_operands(q, k, q_rh, q_rw, scale=scale,
+                                       grid_w=grid_w)
+    name = "flash_attention_relpos_fused" + ("_pv8" if quant8 else "")
+    return _kh_launch(_KH_FUSED, f"{name}[{gh}x{grid_w}]", q_aug, k_aug, v,
+                      None, qrw, scale=scale, grid_w=grid_w, d=d, kv_end=s,
+                      group=block_k if quant8 else 0)

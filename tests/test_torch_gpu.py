@@ -333,3 +333,96 @@ def test_int8_attention_refuses_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):                   # group not of 64s
         A.relpos_attention(qkv, rh, rw, heads=2, scale=0.1, pv_int8=True,
                            pv_group=100)
+
+
+def _kh_operands(gen, b, heads, gh, gw, d, std=1.0):
+    """q, k, v [B, H, S, d] as views of a packed projection (as SAM passes
+    them) and the bf16 tables q·Rh, q·Rw."""
+    s = gh * gw
+    qkv = _rnd(gen, b, s, 3 * heads * d, std=std)
+    q, k, v = qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
+    return (q, k, v, _rnd(gen, b, heads, s, gh, std=0.5),
+            _rnd(gen, b, heads, s, gw, std=0.5))
+
+
+@pytest.mark.parametrize("b,heads,gh,gw,d,bq,bk", [
+    (1, 2, 80, 80, 64, 4096, 1024),     # SAM's global grid at 1280²
+    (2, 2, 24, 40, 64, 4096, 1024),     # ragged: one partial kv tile
+    (1, 2, 40, 40, 64, 4096, 1024),     # keys past 1024 dropped, as in JAX
+    (1, 2, 16, 100, 128, 1024, 1024)])  # head dim 128
+def test_flash_attention_relpos(gen, b, heads, gh, gw, d, bq, bk):
+    """K-h's streaming form (float arm) against its plain version."""
+    ops = _kh_operands(gen, b, heads, gh, gw, d, std=0.5)
+    kw = dict(scale=d ** -0.5, grid_w=gw, block_q=bq, block_k=bk)
+    got = _launched(f"flash_attention_relpos[{gh}x{gw}]",
+                    lambda: A.flash_attention_relpos(*ops, **kw))
+    _agree(got, A.flash_attention_relpos_plain(*ops, **kw))
+
+
+@pytest.mark.parametrize("b,heads,gh,gw,d", [(1, 2, 80, 80, 64),
+                                             (2, 2, 24, 40, 64),
+                                             (1, 2, 32, 64, 128)])
+def test_flash_attention_relpos_pv8(gen, b, heads, gh, gw, d):
+    """K-h's int8 p@v arm (p per row of each 1024-column kv tile) with
+    chip_smoke's rule, and the trap (one p scale for the whole row) that the
+    rule must fail."""
+    from chip_smoke import REL_L2_TOL, agreement, kh_whole_row_trap
+    ops = _kh_operands(gen, b, heads, gh, gw, d)
+    kw = dict(scale=d ** -0.5, grid_w=gw, block_q=4096, block_k=1024,
+              quant8=True)
+    got = _launched(f"flash_attention_relpos_pv8[{gh}x{gw}]",
+                    lambda: A.flash_attention_relpos(*ops, **kw))
+    vmax = float(ops[2].abs().max())
+    ok, err, rel = agreement(got, A.flash_attention_relpos_plain(*ops, **kw),
+                             REL_L2_TOL, vmax / 127)
+    assert ok, (err, rel)
+    if gh * gw > 1024:
+        ok, _, rel = agreement(got, kh_whole_row_trap(*ops, **kw),
+                               REL_L2_TOL, vmax / 127)
+        assert not ok, rel
+
+
+@pytest.mark.parametrize("quant8", [False, True])
+@pytest.mark.parametrize("b,heads,g,bk", [(1, 2, 64, 1024), (2, 2, 32, 512)])
+def test_flash_attention_relpos_fused(gen, quant8, b, heads, g, bk):
+    """K-h's fused form (d + gh <= 128, aligned tiles)."""
+    from chip_smoke import REL_L2_TOL, agreement
+    ops = _kh_operands(gen, b, heads, g, g, 64, std=0.5)
+    kw = dict(scale=0.125, grid_w=g, block_q=g * g, block_k=bk,
+              quant8=quant8)
+    name = "flash_attention_relpos_fused" + ("_pv8" if quant8 else "")
+    got = _launched(f"{name}[{g}x{g}]",
+                    lambda: A.flash_attention_relpos(*ops, **kw))
+    extra = float(ops[2].abs().max()) / 127 if quant8 else 0.0
+    ok, err, rel = agreement(got, A.flash_attention_relpos_plain(*ops, **kw),
+                             REL_L2_TOL, extra)
+    assert ok, (err, rel)
+
+
+@pytest.mark.parametrize("b,heads,gh,gw,d", [(150, 2, 14, 14, 64),
+                                             (3, 2, 16, 20, 128)])
+def test_flash_attention_relpos_small(gen, b, heads, gh, gw, d):
+    """K-h's small form (S padded to 512 or less: 196 tokens in 256, a
+    16x20 grid in 384), which has no int8 arm."""
+    ops = _kh_operands(gen, b, heads, gh, gw, d, std=0.5)
+    s = gh * gw
+    bq = bk = 256 if s <= 256 else 1024
+    for quant8 in (False, True):
+        kw = dict(scale=d ** -0.5, grid_w=gw, block_q=bq, block_k=bk,
+                  quant8=quant8)
+        got = _launched(f"flash_attention_relpos_mh[{gh}x{gw}]",
+                        lambda: A.flash_attention_relpos(*ops, **kw))
+        _agree(got, A.flash_attention_relpos_plain(*ops, **kw))
+
+
+def test_flash_attention_relpos_refuses_what_the_kernel_does_not_take(gen):
+    q, k, v, qrh, qrw = _kh_operands(gen, 1, 2, 24, 40, 64)
+    with pytest.raises(ValueError):                   # grid_w does not divide
+        A.flash_attention_relpos(q, k, v, qrh, qrw, scale=0.1, grid_w=41)
+    with pytest.raises(ValueError):                   # fp32 operands
+        A.flash_attention_relpos(q.float(), k.float(), v.float(),
+                                 qrh.float(), qrw.float(), scale=0.1,
+                                 grid_w=40)
+    with pytest.raises(ValueError):                   # int8 group of 1000
+        A.flash_attention_relpos(q, k, v, qrh, qrw, scale=0.1, grid_w=40,
+                                 block_k=1000, quant8=True)
