@@ -6,12 +6,18 @@
    versions, and builds every CUDA kernel from the sources in this checkout
    (one nvcc per source, all at once).
 2. Holds each hand-written kernel against its plain PyTorch version at the
-   shapes each driven path gives it (K-h's two forms that no path runs at
-   the shapes of the benchmarks that time them), in bf16 on the card, and
-   times kernel, plain version and (where one PyTorch call computes the same
-   function) the library call with CUDA events. A disagreement beyond the
-   stated tolerance, or a wrapper that did not launch its kernel, fails the
-   run.
+   shapes each driven path gives it (the kernels that no path runs, K-h's
+   fused and small forms, K-l's window alternates with their q·R prep and
+   K-m's prepped global attention, at the shapes of the benchmarks that
+   time them), in bf16 on the card, and times kernel, plain version and
+   (where one PyTorch call computes the same function) the library call
+   with CUDA events. A disagreement beyond the stated tolerance, or a
+   wrapper that did not launch its kernel, fails the run. Then one line per
+   A/B benchmark of the JAX package that times K-l or K-m
+   (`winattn-ab[...]`, `gattn-prep-ab`): per-call ms of each variant beside
+   the kernel SAM runs for that function (K-c for the windows, K-d for the
+   64x64 grid) on the benchmark's inputs, and the benchmark's numcheck, the
+   max |diff| against that kernel.
 3. Drives the float main path: `greedy_generate` of
    VQAModel(default_config()) in bf16 with seeded random weights on
    bench.py's inputs (6 views at 1024², BEV [1, 128, 180, 180], 24 prompt
@@ -47,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import pathlib
 import subprocess
@@ -94,6 +101,22 @@ SCOPES = ("mlp,dense,attn", "mlp,dense,qk")
 # the 1280² paths: the float path, and the serving model under this scope
 LARGE, LARGE_SCOPE = 1280, "mlp,dense,attn"
 NEW_TOKENS, PROMPT_LEN, EOS_ID = 32, 24, 2
+# (views or windows, grid side, heads, head dim) of the JAX package's A/B
+# benchmarks of K-l (benchmarks/winattn_*_micro.py: SAM-B's 150 windows of
+# 14x14 at 1024²) and K-m (benchmarks/gattn_prep_micro.py: 6 views of 64x64)
+WINDOWS, GLOBAL = (6 * 25, 14, 12, 64), (6, 64, 12, 64)
+# each K-l benchmark's variants: (its result key, variant, options)
+WINATTN_AB = {
+    "winattn_fused_micro": [("fused2", "fused2", {}),
+                            ("fused_wc1", "fused", {"wchunk": 1}),
+                            ("fused_wc5", "fused", {"wchunk": 5})],
+    "winattn_v3_micro": [("v3_edot", "v3", {"bias_mode": "edot"}),
+                         ("v3_bcast", "v3", {"bias_mode": "bcast"})],
+    "winattn_v4_micro": [("v4", "v4", {})],
+    "winattn_v2_micro": [(f"phased_g{g}" + ("_bdot" if bt else ""), "phased",
+                          {"gwin": g, "batched": bt})
+                         for g in (1, 2, 5) for bt in (False, True)],
+}
 
 
 def kh_whole_row_trap(q, k, v, q_rh, q_rw, **kw):
@@ -130,6 +153,73 @@ def timed_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+_BENCH_INPUTS: dict = {}
+
+
+def benchmark_inputs(torch, b: int, g: int, heads: int, d: int):
+    """The A/B benchmarks' inputs, drawn as they draw them (numpy
+    default_rng(0): qkv N(0, 1) [b, g², 3·heads·d], then rel_h and rel_w
+    0.3·N(0, 1) [g, g, d]), in bf16 on the card; made once per shape."""
+    import numpy as np
+    key = (b, g, heads, d)
+    if key not in _BENCH_INPUTS:
+        rng = np.random.default_rng(0)
+        arrs = (rng.normal(size=(b, g * g, 3 * heads * d)),
+                rng.normal(size=(g, g, d)) * 0.3,
+                rng.normal(size=(g, g, d)) * 0.3)
+        _BENCH_INPUTS[key] = tuple(torch.from_numpy(a).to(
+            torch.bfloat16).cuda() for a in arrs)
+    return _BENCH_INPUTS[key]
+
+
+def ab_lines(torch) -> None:
+    """The JAX package's A/B benchmarks of K-l and K-m on the port: per-call
+    ms of each variant beside the kernel SAM runs for the same function
+    (K-c, `relpos_attention[14x14]`, for the windows; K-d,
+    `relpos_attention[64x64]`, for the global grid) on the benchmark's
+    inputs, and its numcheck (max |diff| against that kernel). Prints one
+    line per benchmark; a non-finite output fails the run."""
+    from lvv_tpu_torch.ops import attention as A
+
+    def run(ref, variants, kw):
+        ms, numcheck = {}, {}
+        for key, fn in variants.items():
+            out = fn().float()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"A/B {key}: non-finite output")
+            if ref is not None:
+                numcheck[key] = float((out - ref).abs().max())
+            ms[key] = timed_ms(fn, 20)
+        return dict(ms=ms, numcheck=numcheck, **kw)
+
+    b, g, heads, d = WINDOWS
+    qkv, rh, rw = benchmark_inputs(torch, *WINDOWS)
+    kw = dict(scale=d ** -0.5, heads=heads)
+    packed = {"packed": lambda: A.relpos_attention(qkv, rh, rw, **kw)}
+    ref = packed["packed"]().float()
+    base = run(None, packed, {})["ms"]
+    for bench, variants in WINATTN_AB.items():
+        line = run(ref, {key: functools.partial(
+            getattr(A, f"window_attention_{kind}"), qkv, rh, rw, win=g,
+            **kw, **opts) for key, kind, opts in variants},
+            dict(benchmark=f"benchmarks/{bench}.py",
+                 shape=f"qkv [{b},{g * g},{3 * heads * d}]"))
+        line["ms"] = {**base, **line["ms"]}
+        print(f"winattn-ab[{bench}]", json.dumps(line), flush=True)
+    b, g, heads, d = GLOBAL
+    qkv, rh, rw = benchmark_inputs(torch, *GLOBAL)
+    kw = dict(scale=d ** -0.5, heads=heads)
+    glue = functools.partial(A.relpos_attention, qkv, rh, rw, **kw)
+    ref = glue().float()
+    line = run(ref, {"hpacked_prepped": functools.partial(
+        A.flash_attention_relpos_hpacked_prepped, qkv, rh, rw, grid_w=g,
+        **kw)}, dict(benchmark="benchmarks/gattn_prep_micro.py",
+                     shape=f"qkv [{b},{g * g},{3 * heads * d}]"))
+    line["ms"] = {"hpacked_glue": timed_ms(glue, 20), **line["ms"]}
+    print("gattn-prep-ab", json.dumps(line), flush=True)
+    _BENCH_INPUTS.clear()
 
 
 # --------------------------------------------------------------- kernels --
@@ -362,6 +452,99 @@ def kernel_cases(torch):
             return case
         return setup
 
+    def sdpa_bias(qkv, rh, rw, heads, g):
+        """SDPA with SAM's rel-pos bias materialised in bf16, from packed
+        qkv (the yardstick of the K-c / K-d rows)."""
+        q, k, v = A._split_qkv(qkv, heads)
+        bias = A.relpos_bias(q, rh, rw, g).to(bf)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    def flat(outs):
+        return torch.cat([t.reshape(-1) for t in outs])
+
+    def window_case(kind, **opts):
+        # a K-l variant at its A/B benchmark's shape and inputs; its ms
+        # holds the wrapper's glue (v4: its prep kernel)
+        def setup():
+            b, g, heads, d = WINDOWS
+            qkv, rh, rw = benchmark_inputs(torch, *WINDOWS)
+            kw = dict(scale=d ** -0.5, heads=heads, win=g, **opts)
+            s, c = g * g, heads * d
+            return dict(
+                kernel=lambda: getattr(A, f"window_attention_{kind}")(
+                    qkv, rh, rw, **kw),
+                plain=lambda: getattr(A, f"window_attention_{kind}_plain")(
+                    qkv, rh, rw, **kw),
+                library=sdpa_bias(qkv, rh, rw, heads, g),
+                also=("qr_prep[rows]",) if kind == "v4" else (),
+                flops=b * heads * (4 * s * s * d + 2 * s * 2 * g * d),
+                peak=BF16_FLOPS, bytes=2 * (b * s * 4 * c + 2 * g * g * d))
+        return setup
+
+    def window_prep_case():
+        def setup():
+            b, g, heads, d = WINDOWS
+            qkv, rh, rw = benchmark_inputs(torch, *WINDOWS)
+            kw = dict(heads=heads, win=g)
+            s, c, kp = g * g, heads * d, A._kpad(g)
+            # one einsum over the gathered tables makes both rows
+            cols = torch.arange(s, device=qkv.device)
+            tg = torch.cat([A._log2e_table(rh, bf)[cols // g],
+                            A._log2e_table(rw, bf)[cols % g]], 1)
+            q4 = qkv[..., :c].view(b, s, heads, d)
+            return dict(
+                kernel=lambda: flat(A.window_bias_prep(qkv, rh, rw, **kw)),
+                plain=lambda: flat(A.window_bias_prep_plain(qkv, rh, rw,
+                                                            **kw)),
+                library=lambda: torch.einsum("bshd,skd->bshk", q4, tg),
+                flops=2 * b * s * heads * 2 * g * d, peak=BF16_FLOPS,
+                bytes=2 * (b * s * c + 2 * g * g * d + 2 * b * s * heads * kp))
+        return setup
+
+    def hpacked_prep_case(mode):
+        def setup():
+            b, g, heads, d = GLOBAL
+            qkv, rh, rw = benchmark_inputs(torch, *GLOBAL)
+            kw = dict(heads=heads, grid_w=g, scale=d ** -0.5, modes=(mode,))
+            s, c = g * g, heads * d
+            # one einsum makes the same q·R rows (not the copied lanes)
+            q5 = qkv[..., :c].view(b, g, g, heads, d)
+            eq, tab = (("bGwnc,Gkc->bGwnk", rh) if mode == "qk"
+                       else ("bGwnc,wkc->bGwnk", rw))
+            tab = A._log2e_table(tab, bf)
+            n_out = 2 if mode == "qk" else 1
+            return dict(
+                kernel=lambda: flat(A.hpacked_prep(qkv, rh, rw, **kw)),
+                plain=lambda: flat(A.hpacked_prep_plain(qkv, rh, rw, **kw)),
+                library=lambda: torch.einsum(eq, q5, tab),
+                flops=2 * b * s * heads * g * d, peak=BF16_FLOPS,
+                bytes=2 * (2 * b * s * c + g * g * d
+                           + n_out * b * s * heads * 128))
+        return setup
+
+    def prepped_case():
+        # K-m from qkv: its two prep launches, then K-h's fused mode
+        def setup():
+            b, g, heads, d = GLOBAL
+            qkv, rh, rw = benchmark_inputs(torch, *GLOBAL)
+            kw = dict(scale=d ** -0.5, grid_w=g, heads=heads)
+            s, c = g * g, heads * d
+            return dict(
+                kernel=lambda: A.flash_attention_relpos_hpacked_prepped(
+                    qkv, rh, rw, **kw),
+                plain=lambda: A.flash_attention_relpos_hpacked_prepped_plain(
+                    qkv, rh, rw, **kw),
+                library=sdpa_bias(qkv, rh, rw, heads, g),
+                also=("qr_prep[qk]", "qr_prep[v]"),
+                # the kernel rounds p against the running maximum of 64-key
+                # tiles, the plain version (as the TPU) of 1024-key tiles;
+                # on these peaked rows (qkv N(0, 1)) an output is a sum of
+                # few p·v terms, each rounding worth up to 2^-9·max|v|
+                abs_extra=float(qkv[..., 2 * c:].abs().max()) / 128,
+                flops=b * heads * (4 * s * s * d + 2 * s * 2 * g * d),
+                peak=BF16_FLOPS, bytes=2 * (b * s * 4 * c + 2 * g * g * d))
+        return setup
+
     decode = NEW_TOKENS * 49
     layer_steps = 24 * NEW_TOKENS
     large = [       # every shape of the 1280² paths
@@ -420,13 +603,34 @@ def kernel_cases(torch):
          "global [6,12,6400,64] tiles 4096/1024, int8 groups of 1024", 4,
          kh_case(6, 80, 12, 64, quant8=True)),
     ]
-    unused = [      # K-h's forms that no path runs (launches 0 on every one)
+    win_label = "windows [150,196,2304] 12h d64 (benchmarks/winattn_{}.py)"
+    unused = [      # forms that no path runs (launches 0 on every one)
         ("flash_attention_relpos_fused[64x64]",
          "[6,12,4096,64] tiles 4096/1024 (benchmarks/gattn_fused_micro.py)",
          0, kh_case(6, 64, 12, 64)),
         ("flash_attention_relpos_mh[14x14]",
          "[150,12,196,64] tiles 256 (benchmarks/sam_block_bisect.py)", 0,
          kh_case(150, 14, 12, 64, bq=256, bk=256)),
+        ("window_attention_rows[fused]", win_label.format("fused_micro"), 0,
+         window_case("fused")),
+        ("window_attention_rows[fused2]", win_label.format("fused_micro"), 0,
+         window_case("fused2")),
+        ("window_attention_rows[v3]", win_label.format("v3_micro"), 0,
+         window_case("v3")),
+        ("window_attention_rows[v4]",
+         win_label.format("v4_micro") + ", with its prep", 0,
+         window_case("v4")),
+        ("qr_prep[rows]", "[150,196,2304] -> q·Rh, q·Rw rows 2x[150,196,192]"
+         " (window_attention_v4's prep)", 0, window_prep_case()),
+        ("window_attention_rows[phased]", win_label.format("v2_micro"), 0,
+         window_case("phased")),
+        ("qr_prep[qk]", "[6,4096,2304] -> q_aug, k_aug [6,4096,1536] "
+         "(benchmarks/gattn_prep_micro.py)", 0, hpacked_prep_case("qk")),
+        ("qr_prep[v]", "[6,4096,2304] -> v_aug [6,4096,1536] "
+         "(benchmarks/gattn_prep_micro.py)", 0, hpacked_prep_case("v")),
+        ("flash_attention_relpos_hpacked_prepped[64x64]",
+         "global [6,4096,2304] 12h d64 tiles 4096/1024, with its prep "
+         "(benchmarks/gattn_prep_micro.py)", 0, prepped_case()),
     ]
     # the 1024² list: every shape of its four paths
     return [c + (1024,) for c in [
@@ -523,6 +727,30 @@ ROWS = {
     "flash_attention_relpos_mh[14x14]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
         "lvv_tpu/ops/attention.py:363"),
+    "window_attention_rows[fused]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/window_attention_rows.cu",
+        "lvv_tpu/ops/attention.py:1138"),
+    "window_attention_rows[fused2]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/window_attention_rows.cu",
+        "lvv_tpu/ops/attention.py:1247"),
+    "window_attention_rows[v3]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/window_attention_rows.cu",
+        "lvv_tpu/ops/attention.py:1793"),
+    "window_attention_rows[v4]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/window_attention_rows.cu",
+        "lvv_tpu/ops/attention.py:1561"),
+    "window_attention_rows[phased]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/window_attention_rows.cu",
+        "lvv_tpu/ops/attention.py:1654"),
+    "qr_prep[rows]": ("cuda", "lvv_tpu_torch/kernels/csrc/qr_prep.cu",
+                      "lvv_tpu/ops/attention.py:1493"),
+    "qr_prep[qk]": ("cuda", "lvv_tpu_torch/kernels/csrc/qr_prep.cu",
+                    "lvv_tpu/ops/attention.py:1352"),
+    "qr_prep[v]": ("cuda", "lvv_tpu_torch/kernels/csrc/qr_prep.cu",
+                   "lvv_tpu/ops/attention.py:1382"),
+    "flash_attention_relpos_hpacked_prepped[64x64]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
+        "lvv_tpu/ops/attention.py:682"),
 }
 
 
@@ -574,12 +802,14 @@ def check_case(torch, row, label, count, setup) -> tuple:
     Returns (line, ok, has_library)."""
     from lvv_tpu_torch import kernels
     case = setup()
-    before = kernels.launches[row]
+    names = (row, *case.get("also", ()))
+    before = [kernels.launches[n] for n in names]
     got = case["kernel"]()
     torch.cuda.synchronize()
-    if kernels.launches[row] == before:
-        raise AssertionError(f"{row} {label}: the wrapper did not launch "
-                             "that kernel")
+    for n, b in zip(names, before):
+        if kernels.launches[n] == b:
+            raise AssertionError(f"{row} {label}: the wrapper did not "
+                                 f"launch {n}")
     want = case["plain"]()
     rel_tol = case.get("rel_l2_tol", REL_L2_TOL)
     extra = case.get("abs_extra", 0.0)
@@ -1004,6 +1234,8 @@ def main() -> int:
     sys.stdout.flush()
 
     rows = check_kernels(torch)
+    ab_lines(torch)
+    torch.cuda.empty_cache()
     paths = {}
     paths["float"], float_logits = run_float_path(torch)
     print("main-path", json.dumps(paths["float"]), flush=True)

@@ -27,7 +27,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lvv_tpu_tor
 SOURCES = ("ln_mlp_residual", "flash_attention", "relpos_attention",
            "ln_mlp_residual_q8", "int8_matmul", "int8_matmul_nk",
            "w8a8_matmul", "relpos_attention_qk8",
-           "flash_attention_relpos")
+           "flash_attention_relpos", "window_attention_rows", "qr_prep")
 
 launches: collections.Counter = collections.Counter()
 
@@ -42,6 +42,8 @@ _ARGTYPES = {
     "lvv_w8a8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "lvv_relpos_attention_qk8": [_P] * 7 + [_I] * 4 + [_P],
     "lvv_flash_attention_relpos": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "lvv_window_attention_rows": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "lvv_qr_prep": [_P] * 5 + [_I] * 8 + [_F, _P],
 }
 _libs: dict = {}
 _lock = threading.Lock()

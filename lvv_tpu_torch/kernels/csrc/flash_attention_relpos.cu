@@ -23,6 +23,11 @@
 //            q_rh·log2e | 0] and k_aug = [k | onehot(kv / gw) | 0] at depth
 //            128 (so the height bias comes out of the product), plus the
 //            width table q_rw·log2e; base 2 as on the TPU. Same int8 arm.
+//            It also runs K-m's attention, _flash_hpacked_kernel with
+//            qrw_off = d (via flash_attention_relpos_hpacked_prepped): q_aug,
+//            k_aug and v are strided views of qr_prep.cu's [B, S, H·128]
+//            lane blocks, and the width table is read where it lies, in
+//            v_aug's lanes d .. d + gw of the query rows.
 //   kSmall   _relpos_mh_kernel (S padded to 512 or less): one softmax over
 //            all kv with p divided by its row sum BEFORE it is rounded to
 //            bf16 for p@v, as the TPU's single-tile kernel does; so each
@@ -53,7 +58,8 @@ struct KhArgs {
   const signed char* v8t;  // [B, H, d, s_pad8] int8 v (int8 arm)
   const float* sv;         // [B, H, d] per-channel scales of v (int8 arm)
   bf16* out;
-  long long st[12];        // (view, head, token) strides of q, k, v, out
+  long long st[18];        // (view, head, token) strides of q, k, v, out,
+                           // qrh, qrw
   int heads, s, gh, gw, kv_end, group, s_pad8, ldh, ldw;
   float scale;
 };
@@ -137,17 +143,18 @@ __global__ void __launch_bounds__(kAttnThreads) kh_kernel(const KhArgs a) {
     *reinterpret_cast<uint4*>(q_s + r * LDQ + c) = val;
   }
   // this q tile's rows of the tables (0 past S: those rows are not written)
-  const long long row0 = ((long long)b * a.heads + h) * a.s + q_start;
+  const bf16* rwb = a.qrw + b * a.st[15] + h * a.st[16];
   for (int i = threadIdx.x; i < kBQ * a.gw; i += kAttnThreads) {
     const int r = i / a.gw, j = i - r * a.gw;
     bw_s[r * a.ldw + j] =
-        q_start + r < a.s ? bf(a.qrw[(row0 + r) * a.gw + j]) : 0.f;
+        q_start + r < a.s ? bf(rwb[(q_start + r) * a.st[17] + j]) : 0.f;
   }
   if constexpr (MODE != kFused) {
+    const bf16* rhb = a.qrh + b * a.st[12] + h * a.st[13];
     for (int i = threadIdx.x; i < kBQ * a.gh; i += kAttnThreads) {
       const int r = i / a.gh, j = i - r * a.gh;
       bh_s[r * a.ldh + j] =
-          q_start + r < a.s ? bf(a.qrh[(row0 + r) * a.gh + j]) : 0.f;
+          q_start + r < a.s ? bf(rhb[(q_start + r) * a.st[14] + j]) : 0.f;
     }
   }
   // (each loop synchronises before its first read of shared memory)
@@ -242,10 +249,11 @@ static int launch_arm(const KhArgs& a, int b, cudaStream_t stream) {
 }
 
 // q, k, v [B, H, S, *] bf16 with unit stride on the last axis and the
-// (view, head, token) strides in `strides` (12 int64: q, k, v, out), rows
-// 16-byte aligned; q / k of depth d (128 in mode kFused, where q, k are
-// q_aug, k_aug and d = 64 is v's depth); qrh [B, H, S, gh] (not read in
-// mode kFused) and qrw [B, H, S, gw] contiguous bf16; out [B, H, S, d].
+// (view, head, token) strides in `strides` (18 int64: q, k, v, out, qrh,
+// qrw), rows of q, k, v 16-byte aligned; q / k of depth d (128 in mode
+// kFused, where q, k are q_aug, k_aug and d = 64 is v's depth); qrh
+// [B, H, S, gh] (not read in mode kFused) and qrw [B, H, S, gw] bf16 with
+// unit stride on the last axis; out [B, H, S, d].
 // Keys at or past kv_end (<= S) are masked. group 0: the float arm;
 // otherwise the int8 p@v arm with p quantized per `group` kv columns (a
 // multiple of 64): v8t [B, H, d, s_pad8] int8 (zero past S; s_pad8 a

@@ -8,14 +8,16 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
   kernel for both, with the int8 p@v arm K-d8 under `pv_int8`),
   `relpos_attention_qk8` (K-g, int8 scores) and `flash_attention_relpos` /
   `flash_attention_relpos_fused` (K-h, head-split q, k, v with the caller's
-  q·R tables) are the kernel wrappers: on a CUDA tensor they launch their
-  kernel or raise, on a CPU tensor they compute their plain version.
-- `attention_reference` (= `flash_attention_plain`),
-  `relpos_attention_plain`, `relpos_attention_qk8_plain`,
-  `flash_attention_relpos_plain` and `flash_attention_relpos_fused_plain`
-  are the plain PyTorch versions. `quantize_v`, `qk8_operands` and
-  `fused_operands` are glue that the JAX package computes outside its
-  kernels too.
+  q·R tables), the window alternates `window_attention_fused` / `_fused2` /
+  `_v3` / `_v4` / `_phased` with `window_bias_prep` (K-l, no model path
+  runs them), and `hpacked_prep` with
+  `flash_attention_relpos_hpacked_prepped` (K-m, likewise) are the kernel
+  wrappers: on a CUDA tensor they launch their kernel or raise, on a CPU
+  tensor they compute their plain version.
+- `attention_reference` (= `flash_attention_plain`) and each wrapper's
+  `*_plain` are the plain PyTorch versions. `quantize_v`, `qk8_operands`,
+  `fused_operands` and the window variants' row glue are glue that the JAX
+  package computes outside its kernels too.
 - `attention` keeps the JAX dispatch: the flash kernel once the kv sequence
   reaches 1024, without bias, and causal only for sq == sk; the reference
   otherwise. `decode_attention` is the reference over the cache, as in JAX.
@@ -507,14 +509,16 @@ _KH_STREAM, _KH_FUSED, _KH_SMALL = 0, 1, 2
 def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
                grid_w: int, d: int, kv_end: int, group: int):
     """Launch K-h's kernel in `mode` on [B, H, S, *] operands (q / k of
-    depth d, or 128 in the fused mode); returns [B, H, S, d] (written
-    token-major, so the caller's head merge is a free view)."""
+    depth d, or 128 in the fused mode) and tables read through their
+    strides; returns [B, H, S, d] (written token-major, so the caller's head
+    merge is a free view)."""
     b, heads, s, _ = q.shape
     gh = s // grid_w
     ops = [t if t.stride(-1) == 1 and t.data_ptr() % 16 == 0
            and all(st % 8 == 0 for st in t.stride()[:3]) else t.contiguous()
            for t in (q, k, v)]
-    tables = [None if t is None else t.contiguous() for t in (qrh, qrw)]
+    tables = [None if t is None else t if t.stride(-1) == 1
+              else t.contiguous() for t in (qrh, qrw)]
     v8t = sv = None
     if group:
         # v per (view, head, channel), transposed to [B, H, d, S] (kv is the
@@ -526,8 +530,10 @@ def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
         sv = sv.reshape(b, heads, d).contiguous()
     out = torch.empty(b, s, heads, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(*(
-        st for t in (*ops, out) for st in t.stride()[:3]))
+    strides = (ctypes.c_longlong * 18)(*(
+        st for t in (*ops, out) for st in t.stride()[:3]),
+        *(st for t in tables
+          for st in ((0, 0, 0) if t is None else t.stride()[:3])))
     fn = kernels.lib("flash_attention_relpos").lvv_flash_attention_relpos
     err = fn(*(t.data_ptr() for t in ops),
              *(None if t is None else t.data_ptr() for t in tables),
@@ -625,3 +631,421 @@ def flash_attention_relpos_fused(q, k, v, q_rh, q_rw, *, scale: float,
     return _kh_launch(_KH_FUSED, f"{name}[{gh}x{grid_w}]", q_aug, k_aug, v,
                       None, qrw, scale=scale, grid_w=grid_w, d=d, kv_end=s,
                       group=block_k if quant8 else 0)
+
+
+# --------------------------------------------------------------- K-l ------
+# SAM window attention over precomputed q·R bias rows: the five window
+# alternates of the JAX package (`window_attention_fused`, `_fused2`, `_v3`,
+# `_v4` with its prep kernel, `_phased`). All compute
+#   softmax₂(q·k·scale·log2e + rh[q, kv // win] + rw[q, kv % win]) v
+# over one window's S = win² keys, with p divided by its row sum and then
+# rounded to qkv's dtype for p@v; they differ in where q·scale·log2e is
+# rounded (before the product in fused / fused2, after it elsewhere) and in
+# how their glue makes and lays out the bias rows rh, rw (each wrapper's
+# glue below keeps JAX's roundings). One CUDA kernel,
+# `window_attention_rows.cu`, runs all five on the rows where they lie.
+
+
+def _kpad(win: int) -> int:
+    """JAX's bias-row width max(8, ceil(win / 8)·8)."""
+    return max(8, _pad_to(win, 8))
+
+
+def _window_shape(fn: str, qkv, rel_h, rel_w, heads: int, win: int):
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // heads if heads > 0 else 0
+    if (s != win * win or c3 != 3 * c or hd * heads != c
+            or rel_h.shape != (win, win, hd) or rel_w.shape != (win, win, hd)):
+        raise ValueError(f"{fn}: qkv {tuple(qkv.shape)} rel_h "
+                         f"{tuple(rel_h.shape)} rel_w {tuple(rel_w.shape)} "
+                         f"are not {win}x{win} windows of {heads} heads")
+    return b, s, c, hd
+
+
+def _log2e_table(rel, dtype):
+    """rel·log2e rounded to `dtype`: the per-coordinate table of JAX's prep
+    kernels (attention.py:1516-1520, :1404-1414) without the kron."""
+    return (rel.float() * _LOG2E).to(dtype)
+
+
+def _rows_fp32(qkv, rel_h, rel_w, heads: int, win: int):
+    """fused / fused2 glue (attention.py:1207-1217, :1296-1306): fp32 q
+    times the fp32 tables rel·log2e, rounded to qkv's dtype; [B, H, S, win]
+    each (fp32 matmuls: TF32 off)."""
+    b, s, c, hd = _window_shape("window_attention", qkv, rel_h, rel_w,
+                                heads, win)
+    q = qkv[..., :c].float().reshape(b, win, win, heads, hd)
+    return tuple(torch.einsum(eq, q, r.float() * _LOG2E).reshape(
+        b, heads, s, win).to(qkv.dtype) for eq, r in (
+            ("bxyhd,xkd->bhxyk", rel_h), ("bxyhd,ykd->bhxyk", rel_w)))
+
+
+def _rows_grouped(qkv, rel_h, rel_w, heads: int, win: int):
+    """v3 / phased glue (attention.py:1849-1865, :1739-1748): q times the
+    tables rounded to qkv's dtype, summed in fp32, times log2e, rounded to
+    qkv's dtype and zero-padded to `_kpad` columns; [B, H, S, kpad] each."""
+    b, s, c, hd = _window_shape("window_attention", qkv, rel_h, rel_w,
+                                heads, win)
+    q = qkv[..., :c].float().reshape(b, win, win, heads, hd)
+    pad = _kpad(win) - win
+    return tuple(torch.nn.functional.pad(
+        torch.einsum(eq, q, r.to(qkv.dtype).float()).reshape(
+            b, heads, s, win) * _LOG2E, (0, pad)).to(qkv.dtype)
+        for eq, r in (("bxyhd,xkd->bhxyk", rel_h),
+                      ("bxyhd,ykd->bhxyk", rel_w)))
+
+
+def window_bias_prep_plain(qkv, rel_h, rel_w, *, heads: int, win: int):
+    """`window_bias_prep`'s function: (qrh, qrw) [B, S, H·kp] with
+    qrh[t, h·kp + k] = q[t, h]·bf16(rel_h[t // win, k]·log2e) summed in fp32
+    and rounded to qkv's dtype (qrw: rel_w[t % win]); columns k >= win are
+    zero."""
+    b, s, c, hd = _window_shape("window_bias_prep", qkv, rel_h, rel_w, heads,
+                                win)
+    q = qkv[..., :c].float().reshape(b, win, win, heads, hd)
+    pad = _kpad(win) - win
+    return tuple(torch.nn.functional.pad(
+        torch.einsum(eq, q, _log2e_table(r, qkv.dtype).float()),
+        (0, pad)).to(qkv.dtype).reshape(b, s, heads * (win + pad))
+        for eq, r in (("bxyhd,xkd->bxyhk", rel_h),
+                      ("bxyhd,ykd->bxyhk", rel_w)))
+
+
+# kernel modes of qr_prep.cu
+_QR_ROWS, _QR_QK, _QR_V = 0, 1, 2
+
+
+def _qr_prep_launch(mode: int, qkv, tab_h, tab_w, outs, *, heads: int,
+                    gh: int, gw: int, width: int, cs: float = 0.0):
+    b, s, c3 = qkv.shape
+    fn = kernels.lib("qr_prep").lvv_qr_prep
+    err = fn(qkv.data_ptr(), *(None if t is None else t.data_ptr()
+                               for t in (tab_h, tab_w)),
+             outs[0].data_ptr(), None if len(outs) < 2 else outs[1].data_ptr(),
+             b, s, heads, c3 // 3 // heads, gh, gw, width, mode,
+             ctypes.c_float(cs),
+             torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "qr_prep")
+    kernels.launches[f"qr_prep[{('rows', 'qk', 'v')[mode]}]"] += 1
+
+
+def _bf16_on_one_device(fn: str, *ts):
+    if any(t.dtype != torch.bfloat16 or t.device != ts[0].device for t in ts):
+        raise ValueError(f"{fn}: operands must be bf16 on one device")
+
+
+def window_bias_prep(qkv, rel_h, rel_w, *, heads: int, win: int):
+    """Kernel K-l's prep (`qr_prep.cu`, mode rows; JAX `_window_bias_prep`):
+    the grouped q·R bias rows (qrh, qrw) [B, S, H·kp] of packed qkv
+    [B, S, 3C] (S = win², kp = max(8, ceil(win / 8)·8)), scaled by log2e;
+    head dim 64 or 128."""
+    if not qkv.is_cuda:
+        return window_bias_prep_plain(qkv, rel_h, rel_w, heads=heads, win=win)
+    b, s, c, hd = _window_shape("window_bias_prep", qkv, rel_h, rel_w, heads,
+                                win)
+    if hd not in (64, 128) or _kpad(win) > 64:
+        raise ValueError(f"window_bias_prep: head dim {hd}, window {win}")
+    _bf16_on_one_device("window_bias_prep", qkv, rel_h, rel_w)
+    qkv = qkv.contiguous()
+    kp = _kpad(win)
+    outs = [torch.empty(b, s, heads * kp, dtype=qkv.dtype, device=qkv.device)
+            for _ in range(2)]
+    _qr_prep_launch(_QR_ROWS, qkv, *(_log2e_table(r, qkv.dtype).contiguous()
+                                     for r in (rel_h, rel_w)), outs,
+                    heads=heads, gh=win, gw=win, width=kp)
+    return tuple(outs)
+
+
+def _window_rows_plain(qkv, rh, rw, *, heads: int, win: int, scale: float,
+                       prescale: bool):
+    """The five bodies' function on bias rows rh, rw [B, H, S, >= win]."""
+    b, s, c3 = qkv.shape
+    q, k, v = _split_qkv(qkv, heads)
+    cs = torch.tensor(scale * _LOG2E, dtype=torch.float32).item()
+    kt = k.float().transpose(-1, -2)
+    if prescale:
+        st = torch.matmul((q.float() * cs).to(qkv.dtype).float(), kt)
+    else:
+        st = torch.matmul(q.float(), kt) * cs
+    kh, kw = _grid_cols(s, win, qkv.device)
+    st = st + (rh[..., :win].float()[..., kh] + rw[..., :win].float()[..., kw])
+    p = torch.exp2(st - st.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    out = torch.matmul(p.to(qkv.dtype).float(), v.float()).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(b, s, c3 // 3)
+
+
+def _window_rows_launch(kind: str, qkv, rh, rw, *, heads: int, win: int,
+                        scale: float, prescale: bool):
+    b, s, c3 = qkv.shape
+    hd = c3 // 3 // heads
+    if hd not in (64, 128) or s > 256:
+        raise ValueError(f"window_attention_{kind}: head dim {hd}, window "
+                         f"{win} (the kernel takes d 64 / 128, S <= 256)")
+    _bf16_on_one_device(f"window_attention_{kind}", qkv, rh, rw)
+    qkv = qkv.contiguous()
+    out = torch.empty(b, s, c3 // 3, dtype=qkv.dtype, device=qkv.device)
+    strides = (ctypes.c_longlong * 6)(*rh.stride()[:3], *rw.stride()[:3])
+    fn = kernels.lib("window_attention_rows").lvv_window_attention_rows
+    err = fn(qkv.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
+             ctypes.cast(strides, ctypes.c_void_p), b, s, heads, hd, win,
+             int(prescale), ctypes.c_float(scale * _LOG2E),
+             torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "window_attention_rows")
+    kernels.launches[f"window_attention_rows[{kind}]"] += 1
+    return out
+
+
+def _window_attention(kind: str, qkv, rel_h, rel_w, *, scale: float,
+                      heads: int, win: int, plain: bool = False,
+                      wchunk: int = 1, gwin: int = 1,
+                      bias_mode: str = "edot", batched: bool = False):
+    """One of the five variants: JAX's asserts as ValueErrors, its glue,
+    then the kernel (CUDA tensor, not `plain`) or the plain version. wchunk,
+    gwin, bias_mode and batched pick TPU schedules of one function."""
+    fn = f"window_attention_{kind}"
+    b, s, c, hd = _window_shape(fn, qkv, rel_h, rel_w, heads, win)
+    if ((kind == "fused" and (hd + 2 * win > _LANE or wchunk <= 0
+                              or b % wchunk))
+            or (kind == "phased" and (gwin <= 0 or b % gwin))
+            or bias_mode not in ("edot", "bcast")):
+        raise ValueError(f"{fn}: head dim {hd}, window {win}, {b} windows, "
+                         f"wchunk={wchunk}, gwin={gwin}, "
+                         f"bias_mode={bias_mode!r}")
+    plain = plain or not qkv.is_cuda
+    if kind in ("fused", "fused2"):
+        rh, rw = _rows_fp32(qkv, rel_h, rel_w, heads, win)
+        if kind == "fused2":                  # JAX's qrhw [B, H, S, 2·win]
+            rhw = torch.cat([rh, rw], -1)
+            rh, rw = rhw[..., :win], rhw[..., win:]
+    elif kind == "v4":
+        prep = window_bias_prep_plain if plain else window_bias_prep
+        rh, rw = (t.view(b, s, heads, -1).transpose(1, 2) for t in prep(
+            qkv, rel_h, rel_w, heads=heads, win=win))
+    else:
+        rh, rw = _rows_grouped(qkv, rel_h, rel_w, heads, win)
+    args = dict(heads=heads, win=win, scale=scale,
+                prescale=kind in ("fused", "fused2"))
+    if plain:
+        return _window_rows_plain(qkv, rh, rw, **args)
+    return _window_rows_launch(kind, qkv, rh, rw, **args)
+
+
+def window_attention_fused(qkv, rel_h, rel_w, *, scale: float, heads: int,
+                           win: int, wchunk: int = 1) -> torch.Tensor:
+    """Kernel K-l (`_window_fused_kernel`): window attention over packed
+    qkv [B, S, 3C] (S = win², row-major window tokens) and the tables
+    rel_h / rel_w [win, win, hd], with q·scale·log2e rounded before the
+    product and fp32-glue bias rows; needs hd + 2·win <= 128 and
+    B % wchunk == 0. Returns [B, S, C]."""
+    return _window_attention("fused", qkv, rel_h, rel_w, scale=scale,
+                             heads=heads, win=win, wchunk=wchunk)
+
+
+def window_attention_fused2(qkv, rel_h, rel_w, *, scale: float, heads: int,
+                            win: int) -> torch.Tensor:
+    """Kernel K-l (`_window_fused2_kernel`): the fused variant's function,
+    its bias rows in one [B, H, S, 2·win] tensor."""
+    return _window_attention("fused2", qkv, rel_h, rel_w, scale=scale,
+                             heads=heads, win=win)
+
+
+def window_attention_v3(qkv, rel_h, rel_w, *, scale: float, heads: int,
+                        win: int, bias_mode: str = "edot") -> torch.Tensor:
+    """Kernel K-l (`_window_v3_kernel`): (q·k)·scale·log2e plus grouped-dot
+    bias rows [B, H, S, kp]; bias_mode "edot" / "bcast" compute the same
+    function."""
+    return _window_attention("v3", qkv, rel_h, rel_w, scale=scale,
+                             heads=heads, win=win, bias_mode=bias_mode)
+
+
+def window_attention_v4(qkv, rel_h, rel_w, *, scale: float, heads: int,
+                        win: int) -> torch.Tensor:
+    """Kernel K-l (`_window_v4_kernel` after `_wbias_prep_kernel`): v3's
+    function over `window_bias_prep`'s token-major rows [B, S, H·kp]."""
+    return _window_attention("v4", qkv, rel_h, rel_w, scale=scale,
+                             heads=heads, win=win)
+
+
+def window_attention_phased(qkv, rel_h, rel_w, *, scale: float, heads: int,
+                            win: int, gwin: int = 1,
+                            batched: bool = False) -> torch.Tensor:
+    """Kernel K-l (`_window_phased_kernel`): v3's function (gathered-table
+    glue); gwin (B % gwin == 0) and batched do not change it."""
+    return _window_attention("phased", qkv, rel_h, rel_w, scale=scale,
+                             heads=heads, win=win, gwin=gwin,
+                             batched=batched)
+
+
+def window_attention_fused_plain(qkv, rel_h, rel_w, **kw):
+    return _window_attention("fused", qkv, rel_h, rel_w, plain=True, **kw)
+
+
+def window_attention_fused2_plain(qkv, rel_h, rel_w, **kw):
+    return _window_attention("fused2", qkv, rel_h, rel_w, plain=True, **kw)
+
+
+def window_attention_v3_plain(qkv, rel_h, rel_w, **kw):
+    return _window_attention("v3", qkv, rel_h, rel_w, plain=True, **kw)
+
+
+def window_attention_v4_plain(qkv, rel_h, rel_w, **kw):
+    return _window_attention("v4", qkv, rel_h, rel_w, plain=True, **kw)
+
+
+def window_attention_phased_plain(qkv, rel_h, rel_w, **kw):
+    return _window_attention("phased", qkv, rel_h, rel_w, plain=True, **kw)
+
+
+# --------------------------------------------------------------- K-m ------
+# The head-packed global attention with Pallas-built operands (JAX:
+# `hpacked_prep_pallas` and `flash_attention_relpos_hpacked_prepped`): each
+# head's 128-lane block of q_aug = [bf16(q·scale·log2e) | q·Rh | 0], k_aug =
+# [k | onehot(kh) | 0] and v_aug = [v | q·Rw | 0], with q·R = q times the
+# table bf16(rel·log2e) summed in fp32 and rounded, then K-h's fused form on
+# strided views of those blocks (v_aug's lanes d .. d + gw are the width
+# table of the query rows).
+
+
+def _hpacked_shape(fn: str, qkv, rel_h, rel_w, heads: int, grid_w: int):
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads if heads > 0 else 0
+    gh = s // grid_w if grid_w > 0 else 0
+    if (c3 != 3 * c or d * heads != c or gh * grid_w != s
+            or rel_h.shape != (gh, gh, d) or rel_w.shape != (grid_w, grid_w, d)
+            or gh > _LANE - d or grid_w > _LANE - d):
+        raise ValueError(f"{fn}: qkv {tuple(qkv.shape)} rel_h "
+                         f"{tuple(rel_h.shape)} rel_w {tuple(rel_w.shape)} "
+                         f"heads={heads} grid_w={grid_w} (needs gh, gw <= "
+                         "128 - d)")
+    return b, s, c, d, gh
+
+
+_PREP_MODES = ("qk", "v")
+
+
+def hpacked_prep_plain(qkv, rel_h, rel_w, *, heads: int, grid_w: int,
+                       scale: float, modes=_PREP_MODES):
+    """`hpacked_prep`'s function: (q_aug, k_aug) for mode "qk", (v_aug,)
+    for mode "v", each [B, S, H·128] in qkv's dtype."""
+    b, s, c, d, gh = _hpacked_shape("hpacked_prep", qkv, rel_h, rel_w, heads,
+                                    grid_w)
+    pad, cd = _LANE - d, qkv.dtype
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, s, heads, d)
+               for i in range(3))
+    q5 = q.float().reshape(b, gh, grid_w, heads, d)
+    F = torch.nn.functional
+    out = []
+    if "qk" in modes:
+        qrh = torch.einsum("bGwnc,Gkc->bGwnk", q5,
+                           _log2e_table(rel_h, cd).float())
+        cs = torch.tensor(scale * _LOG2E, dtype=torch.float32).item()
+        out.append(torch.cat([(q.float() * cs).to(cd), F.pad(
+            qrh, (0, pad - gh)).to(cd).reshape(b, s, heads, pad)], -1))
+        onehot = (torch.arange(pad, device=qkv.device)[None, :]
+                  == (torch.arange(s, device=qkv.device) // grid_w)[:, None])
+        out.append(torch.cat([k, onehot.to(cd)[None, :, None, :].expand(
+            b, s, heads, pad)], -1))
+    if "v" in modes:
+        qrw = torch.einsum("bGwnc,wkc->bGwnk", q5,
+                           _log2e_table(rel_w, cd).float())
+        out.append(torch.cat([v, F.pad(qrw, (0, pad - grid_w)).to(cd).reshape(
+            b, s, heads, pad)], -1))
+    return tuple(t.reshape(b, s, heads * _LANE) for t in out)
+
+
+def hpacked_prep(qkv, rel_h, rel_w, *, heads: int, grid_w: int, scale: float,
+                 modes=_PREP_MODES):
+    """Kernel K-m's prep (`qr_prep.cu`, modes qk and v; JAX
+    `hpacked_prep_pallas`): (q_aug, k_aug) and / or (v_aug,) of packed qkv
+    [B, S, 3C] over a gh x grid_w grid, [B, S, H·128] each; head dim 64,
+    gh and grid_w <= 64."""
+    if not qkv.is_cuda:
+        return hpacked_prep_plain(qkv, rel_h, rel_w, heads=heads,
+                                  grid_w=grid_w, scale=scale, modes=modes)
+    b, s, c, d, gh = _hpacked_shape("hpacked_prep", qkv, rel_h, rel_w, heads,
+                                    grid_w)
+    if d != 64:
+        raise ValueError(f"hpacked_prep: head dim {d} (the kernel takes 64)")
+    _bf16_on_one_device("hpacked_prep", qkv, rel_h, rel_w)
+    qkv = qkv.contiguous()
+    out = []
+    for mode in modes:
+        outs = [torch.empty(b, s, heads * _LANE, dtype=qkv.dtype,
+                            device=qkv.device)
+                for _ in range(2 if mode == "qk" else 1)]
+        tabs = [_log2e_table(r, qkv.dtype).contiguous() if m == mode else None
+                for r, m in ((rel_h, "qk"), (rel_w, "v"))]
+        _qr_prep_launch({"qk": _QR_QK, "v": _QR_V}[mode], qkv, *tabs, outs,
+                        heads=heads, gh=gh, gw=grid_w, width=_LANE - d,
+                        cs=scale * _LOG2E)
+        out += outs
+    return tuple(out)
+
+
+def _prepped_check(fn: str, qkv, rel_h, rel_w, heads: int, grid_w: int,
+                   block_q: int, block_k: int):
+    b, s, c, d, gh = _hpacked_shape(fn, qkv, rel_h, rel_w, heads, grid_w)
+    if (block_q <= 0 or block_k <= 0 or s % block_q or s % block_k
+            or block_k % grid_w):
+        raise ValueError(f"{fn}: S={s}, blocks {block_q}/{block_k}, "
+                         f"grid_w={grid_w} (JAX's asserts, attention.py:"
+                         "974-975)")
+    return b, s, c, d, gh
+
+
+def flash_attention_relpos_hpacked_prepped_plain(
+        qkv, rel_h, rel_w, *, scale: float, grid_w: int, heads: int,
+        block_q: int = 4096, block_k: int = 1024) -> torch.Tensor:
+    """K-m's function: `hpacked_prep_plain`'s operands, logits q_aug·k_augᵀ
+    + qrw[q, kv % gw] (qrw = v_aug's lanes d .. d + gw) in base 2, online
+    over kv tiles of block_k with p rounded to qkv's dtype for p@v, one view
+    at a time. Returns [B, S, C]."""
+    b, s, c, d, gh = _prepped_check(
+        "flash_attention_relpos_hpacked_prepped", qkv, rel_h, rel_w, heads,
+        grid_w, block_q, block_k)
+    qa, ka, va = (t.view(b, s, heads, _LANE).transpose(1, 2)
+                  for t in hpacked_prep_plain(qkv, rel_h, rel_w, heads=heads,
+                                              grid_w=grid_w, scale=scale))
+    kw = torch.arange(s, device=qkv.device) % grid_w
+    out = torch.empty(b, s, heads, d, dtype=qkv.dtype, device=qkv.device)
+    for i in range(b):
+        qf, qrw = qa[i].float(), va[i, ..., d:d + grid_w].float()
+
+        def scores(c0, c1):
+            return (torch.matmul(qf, ka[i, :, c0:c1].float().transpose(-1, -2))
+                    + qrw[..., kw[c0:c1]])
+
+        o = _kh_online(scores, va[i, ..., :d], None, kv_end=s, group=block_k,
+                       exp=torch.exp2)
+        out[i] = o.transpose(0, 1).to(qkv.dtype)
+    return out.reshape(b, s, c)
+
+
+def flash_attention_relpos_hpacked_prepped(
+        qkv, rel_h, rel_w, *, scale: float, grid_w: int, heads: int,
+        block_q: int = 4096, block_k: int = 1024) -> torch.Tensor:
+    """Kernel K-m: SAM global attention from packed qkv [B, S, 3C] (head
+    dim 64, S = gh·grid_w, d + gh <= 128, grid_w <= 64, S a multiple of
+    block_q and block_k, grid_w | block_k): `hpacked_prep`'s lane blocks,
+    then K-h's fused form on strided views of them. Returns [B, S, C]."""
+    if not qkv.is_cuda:
+        return flash_attention_relpos_hpacked_prepped_plain(
+            qkv, rel_h, rel_w, scale=scale, grid_w=grid_w, heads=heads,
+            block_q=block_q, block_k=block_k)
+    b, s, c, d, gh = _prepped_check(
+        "flash_attention_relpos_hpacked_prepped", qkv, rel_h, rel_w, heads,
+        grid_w, block_q, block_k)
+    if d != 64:
+        raise ValueError(f"flash_attention_relpos_hpacked_prepped: head dim "
+                         f"{d} (the kernel takes 64)")
+    qa, ka, va = (t.view(b, s, heads, _LANE).transpose(1, 2)
+                  for t in hpacked_prep(qkv, rel_h, rel_w, heads=heads,
+                                        grid_w=grid_w, scale=scale))
+    out = _kh_launch(_KH_FUSED,
+                     f"flash_attention_relpos_hpacked_prepped[{gh}x{grid_w}]",
+                     qa, ka, va[..., :d], None, va[..., d:d + grid_w],
+                     scale=scale, grid_w=grid_w, d=d, kv_end=s, group=0)
+    return out.transpose(1, 2).reshape(b, s, c)

@@ -426,3 +426,111 @@ def test_flash_attention_relpos_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError):                   # int8 group of 1000
         A.flash_attention_relpos(q, k, v, qrh, qrw, scale=0.1, grid_w=40,
                                  block_k=1000, quant8=True)
+
+
+# K-l and K-m: the window alternates and the head-packed prep, at a small
+# shape and at their benchmarks' (150 windows of 14x14, 6 views of 64x64,
+# 12 heads, head dim 64); qkv N(0, 1), tables 0.3·N(0, 1) as those scripts
+# draw them.
+_WINDOW_KINDS = [("fused", {}), ("fused2", {}), ("v3", {}),
+                 ("v3", {"bias_mode": "bcast"}), ("v4", {}), ("phased", {})]
+
+
+def _window_operands(gen, b, win, heads, d):
+    return (_rnd(gen, b, win * win, 3 * heads * d),
+            _rnd(gen, win, win, d, std=0.3), _rnd(gen, win, win, d, std=0.3))
+
+
+_WINDOW_SHAPES = [(5, 7, 3, 64), (3, 16, 2, 128), (150, 14, 12, 64)]
+
+
+@pytest.mark.parametrize("kind,opts,b,win,heads,d", [
+    (kind, opts, *shape) for kind, opts in _WINDOW_KINDS
+    for shape in _WINDOW_SHAPES
+    # the fused variant needs d + 2·win <= 128, as in JAX
+    if kind != "fused" or shape[3] + 2 * shape[1] <= 128])
+def test_window_attention_rows(gen, kind, opts, b, win, heads, d):
+    """K-l's five bodies (one kernel, window_attention_rows.cu) against
+    their plain versions; v4 also launches its prep."""
+    qkv, rh, rw = _window_operands(gen, b, win, heads, d)
+    kw = dict(scale=d ** -0.5, heads=heads, win=win, **opts)
+    prep = kernels.launches["qr_prep[rows]"]
+    got = _launched(f"window_attention_rows[{kind}]", lambda: getattr(
+        A, f"window_attention_{kind}")(qkv, rh, rw, **kw))
+    assert kernels.launches["qr_prep[rows]"] == prep + (kind == "v4")
+    _agree(got, getattr(A, f"window_attention_{kind}_plain")(qkv, rh, rw,
+                                                             **kw))
+
+
+@pytest.mark.parametrize("b,win,heads,d", _WINDOW_SHAPES)
+def test_window_bias_prep(gen, b, win, heads, d):
+    """K-l's prep (qr_prep.cu, mode rows): bf16 rows from fp32 sums, so at
+    most one bf16 rounding apart from the plain version."""
+    qkv, rh, rw = _window_operands(gen, b, win, heads, d)
+    got = _launched("qr_prep[rows]", lambda: A.window_bias_prep(
+        qkv, rh, rw, heads=heads, win=win))
+    for g, w in zip(got, A.window_bias_prep_plain(qkv, rh, rw, heads=heads,
+                                                  win=win)):
+        _agree(g, w)
+
+
+def _global_operands(gen, b, gh, gw, heads):
+    return (_rnd(gen, b, gh * gw, 3 * heads * 64),
+            _rnd(gen, gh, gh, 64, std=0.3), _rnd(gen, gw, gw, 64, std=0.3))
+
+
+@pytest.mark.parametrize("b,gh,gw,heads", [(1, 16, 64, 2), (2, 8, 32, 3),
+                                           (6, 64, 64, 12)])
+def test_hpacked_prep(gen, b, gh, gw, heads):
+    """K-m's prep (qr_prep.cu, modes qk and v) against its plain version."""
+    qkv, rh, rw = _global_operands(gen, b, gh, gw, heads)
+    kw = dict(heads=heads, grid_w=gw, scale=0.125)
+    for mode in ("qk", "v"):
+        got = _launched(f"qr_prep[{mode}]", lambda: A.hpacked_prep(
+            qkv, rh, rw, modes=(mode,), **kw))
+        for g, w in zip(got, A.hpacked_prep_plain(qkv, rh, rw, modes=(mode,),
+                                                  **kw)):
+            _agree(g, w)
+
+
+@pytest.mark.parametrize("b,gh,gw,heads,bq,bk", [(1, 16, 64, 2, 1024, 512),
+                                                 (2, 8, 32, 3, 256, 128),
+                                                 (6, 64, 64, 12, 4096, 1024)])
+def test_flash_attention_relpos_hpacked_prepped(gen, b, gh, gw, heads, bq, bk):
+    """K-m: the prep, then K-h's fused form on strided views of the lane
+    blocks (the width table read out of v_aug). The kernel rounds p against
+    the running maximum of 64-key tiles, the plain version of block_k: on
+    rows this peaked (qkv N(0, 1)) that allows max|v| / 128, as
+    chip_smoke's K-m case states."""
+    from chip_smoke import REL_L2_TOL, agreement
+    qkv, rh, rw = _global_operands(gen, b, gh, gw, heads)
+    kw = dict(scale=0.125, grid_w=gw, heads=heads, block_q=bq, block_k=bk)
+    got = _launched(f"flash_attention_relpos_hpacked_prepped[{gh}x{gw}]",
+                    lambda: A.flash_attention_relpos_hpacked_prepped(
+                        qkv, rh, rw, **kw))
+    ok, err, rel = agreement(
+        got, A.flash_attention_relpos_hpacked_prepped_plain(qkv, rh, rw,
+                                                            **kw),
+        REL_L2_TOL, float(qkv[..., 2 * heads * 64:].abs().max()) / 128)
+    assert ok, (err, rel)
+
+
+def test_window_and_prep_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    qkv, rh, rw = _window_operands(gen, 2, 7, 2, 32)
+    with pytest.raises(ValueError):                   # head dim 32
+        A.window_attention_v3(qkv, rh, rw, scale=0.1, heads=2, win=7)
+    with pytest.raises(ValueError):                   # head dim 32
+        A.window_bias_prep(qkv, rh, rw, heads=2, win=7)
+    qkv, rh, rw = _window_operands(gen, 2, 7, 2, 64)
+    with pytest.raises(ValueError):                   # fp32 qkv
+        A.window_attention_v4(qkv.float(), rh, rw, scale=0.1, heads=2, win=7)
+    qkv, rh, rw = _window_operands(gen, 2, 16, 2, 128)
+    with pytest.raises(ValueError):                   # d + 2·win > 128
+        A.window_attention_fused(qkv, rh, rw, scale=0.1, heads=2, win=16)
+    qkv, rh, rw = _global_operands(gen, 1, 16, 64, 2)
+    with pytest.raises(ValueError):                   # grid_w does not divide
+        A.flash_attention_relpos_hpacked_prepped(
+            qkv, rh, rw, scale=0.1, grid_w=64, heads=2, block_q=1024,
+            block_k=96)
+    with pytest.raises(ValueError):                   # fp32 qkv
+        A.hpacked_prep(qkv.float(), rh, rw, heads=2, grid_w=64, scale=0.1)
