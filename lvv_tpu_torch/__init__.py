@@ -3,16 +3,23 @@
 The serving path of the VQA model (SAM-B -> CLIP-L -> projector -> adapter
 -> VATVision, VATLiDAR, Qwen2.5-0.5B prefill and KV-cached greedy decode,
 with bench.py's serving levers: W8A8 SAM/CLIP MLPs under `quant8` and the
-int8 decode trees) in plain PyTorch, with the JAX package's Pallas kernels
-replaced by kernels written by hand for sm_90a (`kernels/`). Entry points run on the card
-unless given `device="cpu"`, where every kernel wrapper computes its plain
-PyTorch version.
+int8 decode trees, and the rest of the JAX package's generate family with
+its uint8 preprocessing) in plain PyTorch, with the JAX package's Pallas
+kernels replaced by kernels written by hand for sm_90a (`kernels/`). Entry
+points run on the card unless given `device="cpu"`, where every kernel
+wrapper computes its plain PyTorch version.
 """
 from .config import VQAConfig, ModelConfig, default_config, tiny_config
 from .convert import from_jax_params
-from .models.vqa import (VQAModel, greedy_generate, prepare_serving_params,
-                         prepare_serving_params_fused)
+from .models.vqa import (VQAModel, encode_prefix_fn, generate_from_prefix,
+                         greedy_generate, greedy_generate_multi,
+                         pipelined_serving_step, prepare_serving_params,
+                         prepare_serving_params_fused, sample_generate)
+from .ops.image import preprocess_views
 
 __all__ = ["VQAConfig", "ModelConfig", "default_config", "tiny_config",
            "from_jax_params", "VQAModel", "greedy_generate",
-           "prepare_serving_params", "prepare_serving_params_fused"]
+           "greedy_generate_multi", "encode_prefix_fn",
+           "generate_from_prefix", "pipelined_serving_step",
+           "sample_generate", "preprocess_views", "prepare_serving_params",
+           "prepare_serving_params_fused"]

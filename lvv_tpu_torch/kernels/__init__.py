@@ -42,7 +42,7 @@ _ARGTYPES = {
     "lvv_w8a8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "lvv_relpos_attention_qk8": [_P] * 7 + [_I] * 4 + [_P],
     "lvv_flash_attention_relpos": [_P] * 9 + [_I] * 10 + [_F, _P],
-    "lvv_window_attention_rows": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "lvv_window_attention_rows": [_P] * 9 + [_I] * 6 + [_F, _P],
     "lvv_qr_prep": [_P] * 5 + [_I] * 8 + [_F, _P],
 }
 _libs: dict = {}

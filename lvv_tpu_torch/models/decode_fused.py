@@ -121,9 +121,12 @@ def fused_decode_step(cfg: LLMConfig, dtype, packed: Dict, token_ids,
 
 
 def fused_decode_loop(cfg: LLMConfig, dtype, packed: Dict, last_logits,
-                      cache: KVCache, *, max_new_tokens: int, eos_id: int):
-    """Greedy loop over fused_decode_step from the last prefill logits
-    (carried in `dtype`) -> (tokens [B, N] int32, lengths [B] int32)."""
+                      cache: KVCache, *, max_new_tokens: int, eos_id: int,
+                      pick=None):
+    """Decode loop over fused_decode_step from the last prefill logits
+    (carried in `dtype`) -> (tokens [B, N] int32, lengths [B] int32); each
+    token is `pick(logits)`, greedy by default (greedy_loop)."""
     return greedy_loop(
         lambda ids: fused_decode_step(cfg, dtype, packed, ids, cache),
-        last_logits.to(dtype), max_new_tokens=max_new_tokens, eos_id=eos_id)
+        last_logits.to(dtype), max_new_tokens=max_new_tokens, eos_id=eos_id,
+        pick=pick)

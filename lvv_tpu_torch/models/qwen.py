@@ -205,19 +205,22 @@ class QwenModel(nn.Module):
         return logits
 
 
-def greedy_loop(step, last_logits, *, max_new_tokens: int, eos_id: int):
-    """The greedy decode loop: `step(ids [B]) -> logits [B, V]` advances the
-    cache by one token. Runs all `max_new_tokens` steps, as the JAX
-    package's scan does: a sequence that has emitted eos keeps emitting eos.
-    Returns (tokens [B, N] int32, lengths [B] int32), the length counting
-    the tokens before the first eos. argmax takes the first index on a tie,
-    as jnp.argmax does."""
+def greedy_loop(step, last_logits, *, max_new_tokens: int, eos_id: int,
+                pick=None):
+    """The decode loop: `step(ids [B]) -> logits [B, V]` advances the cache
+    by one token. Runs all `max_new_tokens` steps, as the JAX package's scan
+    does: a sequence that has emitted eos keeps emitting eos. Returns
+    (tokens [B, N] int32, lengths [B] int32), the length counting the tokens
+    before the first eos. Each token is `pick(logits)` ([B] int32), by
+    default the greedy argmax, which takes the first index on a tie, as
+    jnp.argmax does."""
     logits = last_logits
     done = torch.zeros(logits.shape[0], dtype=torch.bool,
                        device=logits.device)
     tokens = []
     for _ in range(max_new_tokens):
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = (pick(logits) if pick else
+               torch.argmax(logits, dim=-1).to(torch.int32))
         nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
         logits = step(nxt.long())
         done = done | (nxt == eos_id)

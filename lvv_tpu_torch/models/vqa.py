@@ -8,7 +8,11 @@
 `greedy_generate` encodes the prefix, prefills the LLM with the prefix and
 the prompt, then decodes greedily through the KV cache. The decode loop is a
 Python loop that runs all `max_new_tokens` steps, as the JAX package's scan
-does, with the same done / eos / lengths rule.
+does, with the same done / eos / lengths rule. The rest of the JAX
+package's generate family sits beside it: `greedy_generate_multi` (G
+batches, uint8 frames preprocessed per group), `encode_prefix_fn`,
+`generate_from_prefix`, `pipelined_serving_step` and `sample_generate`
+(temperature / top-k / top-p over Gumbel noise from a torch.Generator).
 
 Serving: `prepare_serving_params` (weight-only int8 Qwen tree) and
 `prepare_serving_params_fused` (the packed int8 decode) make a
@@ -153,19 +157,46 @@ def prepare_serving_params_fused(model: VQAModel):
 
 
 def _decode_loop(model: VQAModel, params_decode, last_logits,
-                 cache: KVCache, *, max_new_tokens: int, eos_id: int):
-    """Greedy decode from the last prefill logits and the filled cache ->
-    (tokens [B, N], lengths [B]): over the pack when `params_decode` carries
-    "_fused_decode", else over its int8 tree ("llm") or the float model."""
+                 cache: KVCache, *, max_new_tokens: int, eos_id: int,
+                 pick=None):
+    """Decode from the last prefill logits and the filled cache -> (tokens
+    [B, N], lengths [B]): over the pack when `params_decode` carries
+    "_fused_decode", else over its int8 tree ("llm") or the float model.
+    Each token is `pick(logits)`, greedy by default (greedy_loop)."""
     if params_decode and "_fused_decode" in params_decode:
         from .decode_fused import fused_decode_loop
         return fused_decode_loop(
             model.cfg.llm, model.dtype, params_decode["_fused_decode"],
-            last_logits, cache, max_new_tokens=max_new_tokens, eos_id=eos_id)
+            last_logits, cache, max_new_tokens=max_new_tokens, eos_id=eos_id,
+            pick=pick)
     tree = (params_decode or {}).get("llm")
     return greedy_loop(lambda ids: model.decode_step(ids, cache, tree),
                        last_logits, max_new_tokens=max_new_tokens,
-                       eos_id=eos_id)
+                       eos_id=eos_id, pick=pick)
+
+
+def _on(model: VQAModel, *ts):
+    return (torch.as_tensor(t, device=model.device) for t in ts)
+
+
+def _cache_len(prefix_len: int, prompt_ids, max_new_tokens: int,
+               max_cache: Optional[int]) -> int:
+    """KV-cache length: the prefix, the prompt, the answer and 8 spare."""
+    return max_cache or (prefix_len + prompt_ids.shape[-1] + max_new_tokens
+                         + 8)
+
+
+def _generate(model: VQAModel, bev, images, view_valid, prompt_ids,
+              prompt_len, *, cache_len: int, max_new_tokens: int,
+              eos_id: int, params_decode, pick=None):
+    """Encode, prefill and decode one batch of device tensors."""
+    cache = init_cache(model.cfg.llm, prompt_ids.shape[0], cache_len,
+                       dtype=model.dtype, device=model.device)
+    logits = model.prefill(bev, images, view_valid, prompt_ids.long(),
+                           prompt_len.to(torch.int32), cache)
+    return _decode_loop(model, params_decode, logits, cache,
+                        max_new_tokens=max_new_tokens, eos_id=eos_id,
+                        pick=pick)
 
 
 @torch.inference_mode()
@@ -177,16 +208,167 @@ def greedy_generate(model: VQAModel, bev, images, view_valid, prompt_ids,
     first eos (later tokens are eos), and its length counts the tokens
     before it. `params_decode` (from prepare_serving_params or
     prepare_serving_params_fused) swaps what the decode loop reads."""
-    dev = model.device
-    bev, images, view_valid, prompt_ids, prompt_len = (
-        torch.as_tensor(t, device=dev)
-        for t in (bev, images, view_valid, prompt_ids, prompt_len))
-    b = prompt_ids.shape[0]
-    max_cache = max_cache or (_prefix_len(model.cfg) + prompt_ids.shape[1]
-                              + max_new_tokens + 8)
-    cache = init_cache(model.cfg.llm, b, max_cache, dtype=model.dtype,
-                       device=dev)
-    logits = model.prefill(bev, images, view_valid, prompt_ids.long(),
-                           prompt_len.to(torch.int32), cache)
+    args = tuple(_on(model, bev, images, view_valid, prompt_ids, prompt_len))
+    return _generate(model, *args, cache_len=_cache_len(
+        _prefix_len(model.cfg), args[3], max_new_tokens, max_cache),
+        max_new_tokens=max_new_tokens, eos_id=eos_id,
+        params_decode=params_decode)
+
+
+@torch.inference_mode()
+def greedy_generate_multi(model: VQAModel, bev, images, view_valid,
+                          prompt_ids, prompt_len, *, max_new_tokens: int,
+                          eos_id: int, max_cache: Optional[int] = None,
+                          params_decode=None):
+    """Greedy answers for G batches: every input carries a leading group
+    axis (bev [G, B, C, H, W], images [G, B, 6, 3, S, S] float or raw
+    uint8 frames [G, B, 6, H, W, 3], view_valid [G, B, 6], prompt_ids
+    [G, B, T], prompt_len [G, B]). Returns (tokens [G, B, N], lengths
+    [G, B]), each group's equal to a greedy_generate of that group.
+
+    The groups run one after the other in a Python loop, each with a fresh
+    cache; uint8 frames are preprocessed (`ops.image.preprocess_views`) one
+    group at a time, so the float images of one group only exist at once,
+    and bev is cast to float32 per group, as the JAX package does. JAX scans
+    the groups inside one resident device program; here each group is
+    issued from the host like a separate greedy_generate."""
+    from ..ops.image import preprocess_views
+    bev, images, view_valid, prompt_ids, prompt_len = _on(
+        model, bev, images, view_valid, prompt_ids, prompt_len)
+    cache_len = _cache_len(_prefix_len(model.cfg), prompt_ids,
+                           max_new_tokens, max_cache)
+    size = model.cfg.sam.img_size
+    tokens, lengths = [], []
+    for g in range(prompt_ids.shape[0]):
+        img = images[g]
+        if img.dtype == torch.uint8:
+            img = preprocess_views(img.flatten(0, 1), size).unflatten(
+                0, img.shape[:2])
+        toks, lens = _generate(model, bev[g].float(), img, view_valid[g],
+                               prompt_ids[g], prompt_len[g],
+                               cache_len=cache_len,
+                               max_new_tokens=max_new_tokens, eos_id=eos_id,
+                               params_decode=params_decode)
+        tokens.append(toks)
+        lengths.append(lens)
+    return torch.stack(tokens), torch.stack(lengths)
+
+
+def encode_prefix_fn(model: VQAModel):
+    """The prefix encoder as a function of the sensors alone:
+    (bev, images, view_valid) -> prefix embeddings [B, P, D] on the model's
+    device, for a serving layer that encodes a frame once and asks it
+    several questions (generate_from_prefix)."""
+    @torch.inference_mode()
+    def encode(bev, images, view_valid):
+        return model.encode_prefix(*_on(model, bev, images, view_valid))
+    return encode
+
+
+@torch.inference_mode()
+def generate_from_prefix(model: VQAModel, prefix, prompt_ids, prompt_len, *,
+                         max_new_tokens: int, eos_id: int,
+                         max_cache: Optional[int] = None,
+                         params_decode=None):
+    """Greedy answers from an encoded prefix [B, P, D]: prefill the prompt
+    after it, then decode; the cache is sized from P. Token-identical to
+    greedy_generate when the prefix is encode_prefix's."""
+    prefix, prompt_ids, prompt_len = _on(model, prefix, prompt_ids,
+                                         prompt_len)
+    cache = init_cache(model.cfg.llm, prompt_ids.shape[0], _cache_len(
+        prefix.shape[1], prompt_ids, max_new_tokens, max_cache),
+        dtype=model.dtype, device=model.device)
+    logits = model.prefill_from_prefix(prefix, prompt_ids.long(),
+                                       prompt_len.to(torch.int32), cache)
     return _decode_loop(model, params_decode, logits, cache,
                         max_new_tokens=max_new_tokens, eos_id=eos_id)
+
+
+@torch.inference_mode()
+def pipelined_serving_step(model: VQAModel, prefix_prev, prompt_ids,
+                           prompt_len, bev_next, images_next,
+                           view_valid_next, *, max_new_tokens: int,
+                           eos_id: int, max_cache: Optional[int] = None,
+                           params_decode=None):
+    """One stage of a serving pipeline: answer the batch whose prefix is
+    already encoded, then encode the next batch's sensors. Returns (tokens,
+    lengths, prefix_next). Steady state:
+
+        prefix = encode_prefix_fn(model)(bev0, img0, vv0)
+        for batch in stream:
+            toks, lens, prefix = pipelined_serving_step(
+                model, prefix, prompts, plens, batch.bev, batch.images,
+                batch.view_valid, ...)
+
+    The two halves run one after the other on one stream (JAX puts them in
+    one program for XLA to interleave)."""
+    tokens, lengths = generate_from_prefix(
+        model, prefix_prev, prompt_ids, prompt_len,
+        max_new_tokens=max_new_tokens, eos_id=eos_id, max_cache=max_cache,
+        params_decode=params_decode)
+    prefix_next = encode_prefix_fn(model)(bev_next, images_next,
+                                          view_valid_next)
+    return tokens, lengths, prefix_next
+
+
+# ---------------------------------------------------------------- sampling
+
+def _filter_logits(logits, temperature: float, top_k: int,
+                   top_p: float) -> torch.Tensor:
+    """JAX's `_sample_token` up to its draw: fp32 logits / max(temperature,
+    1e-5); with top_k > 0, logits under the k-th largest set to -1e30; with
+    top_p < 1, logits under the cutoff set to -1e30, where the cutoff is
+    the logit (in descending order) at the count of cumulative
+    probabilities under top_p."""
+    logits = logits.float() / max(temperature, 1e-5)
+    if top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, -1e30, logits)
+    if top_p < 1.0:
+        desc = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(desc, dim=-1), dim=-1)
+        idx = (cum < top_p).sum(-1, dtype=torch.int64)
+        # JAX reads past the end as NaN, which keeps every logit; so does
+        # the last (smallest) one
+        cutoff = desc.gather(-1, idx.clamp(max=desc.shape[-1] - 1)[:, None])
+        logits = torch.where(logits < cutoff, -1e30, logits)
+    return logits
+
+
+def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1), as
+    jax.random.gumbel draws it (from the generator's own stream)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def _sample_token(logits, temperature: float, top_k: int, top_p: float, *,
+                  gumbel: torch.Tensor) -> torch.Tensor:
+    """Temperature, top-k and nucleus sampling over [B, V] logits given the
+    Gumbel noise [B, V]: argmax(noise + filtered logits), the pick of
+    jax.random.categorical. -> [B] int32."""
+    return torch.argmax(gumbel + _filter_logits(logits, temperature, top_k,
+                                                top_p), dim=-1).to(torch.int32)
+
+
+@torch.inference_mode()
+def sample_generate(model: VQAModel, generator: torch.Generator, bev, images,
+                    view_valid, prompt_ids, prompt_len, *,
+                    max_new_tokens: int, eos_id: int,
+                    temperature: float = 0.7, top_k: int = 50,
+                    top_p: float = 0.9, max_cache: Optional[int] = None,
+                    params_decode=None):
+    """Sampled answers on the model's device: each step draws Gumbel noise
+    from `generator` (a torch.Generator on the model's device) and picks
+    `_sample_token`; the rest (the eos / lengths rule, `params_decode`) is
+    greedy_generate's. torch cannot draw jax.random's numbers, so the
+    tokens equal JAX's only given the same noise."""
+    args = tuple(_on(model, bev, images, view_valid, prompt_ids, prompt_len))
+
+    def pick(lg):
+        return _sample_token(lg, temperature, top_k, top_p, gumbel=_gumbel(
+            lg.shape, generator, model.device))
+    return _generate(model, *args, cache_len=_cache_len(
+        _prefix_len(model.cfg), args[3], max_new_tokens, max_cache),
+        max_new_tokens=max_new_tokens, eos_id=eos_id,
+        params_decode=params_decode, pick=pick)

@@ -10,10 +10,11 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
   `flash_attention_relpos_fused` (K-h, head-split q, k, v with the caller's
   q·R tables), the window alternates `window_attention_fused` / `_fused2` /
   `_v3` / `_v4` / `_phased` with `window_bias_prep` (K-l, no model path
-  runs them), and `hpacked_prep` with
-  `flash_attention_relpos_hpacked_prepped` (K-m, likewise) are the kernel
-  wrappers: on a CUDA tensor they launch their kernel or raise, on a CPU
-  tensor they compute their plain version.
+  runs them), `hpacked_prep` with `flash_attention_relpos_hpacked_prepped`
+  (K-m, likewise), and the benchmark scripts' bisect kernels
+  `window_attention_bisect` (B-1) and `window_attention_hmaj` (B-2) are
+  the kernel wrappers: on a CUDA tensor they launch their kernel or raise,
+  on a CPU tensor they compute their plain version.
 - `attention_reference` (= `flash_attention_plain`) and each wrapper's
   `*_plain` are the plain PyTorch versions. `quantize_v`, `qk8_operands`,
   `fused_operands` and the window variants' row glue are glue that the JAX
@@ -776,6 +777,54 @@ def _window_rows_plain(qkv, rh, rw, *, heads: int, win: int, scale: float,
     return out.transpose(1, 2).reshape(b, s, c3 // 3)
 
 
+# kernel modes of window_attention_rows.cu
+_WIN_MODES = {"rows_post": 0, "rows_pre": 1, "dots_qk": 2, "dots_qk_pv": 3,
+              "softmax": 4, "bias2": 5, "hmaj": 6}
+
+
+def _row_view(t):
+    """t itself when its rows can be read 16 bytes at a time (unit stride
+    over the last dim, 8-element strides, 16-byte aligned), else a copy."""
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in t.stride()[:-1])):
+        return t
+    return t.contiguous()
+
+
+def _unit_cols(t):
+    """t itself when its last dim has unit stride (the kernel reads table
+    entries one at a time), else a copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _win_launch(name: str, mode: str, q, out, *, cs: float, heads: int = 0,
+                k=None, v=None, win: int = 0, rh=None, rw=None, eh=None,
+                ew=None):
+    """One launch of window_attention_rows.cu, counted as `name`. Every mode
+    but `hmaj`: q is qkv [B, S, 3C] and out [B, S, C], both contiguous;
+    `hmaj`: q, k, v, out [B, H, S, d] views. rh / rw [B, H, S, cols]
+    views."""
+    if mode == "hmaj":
+        b, heads, s, d = q.shape
+        views = (q, k, v, out)
+    else:
+        b, s, c3 = q.shape
+        d, views = c3 // 3 // heads, ()
+    tabs = [t for t in (rh, rw) if t is not None]
+    strides = (ctypes.c_longlong * 18)(
+        *([st for t in views for st in t.stride()[:3]] or [0] * 12),
+        *(st for t in tabs for st in t.stride()[:3]),
+        *([0] * (6 - 3 * len(tabs))))
+    fn = kernels.lib("window_attention_rows").lvv_window_attention_rows
+    err = fn(*(None if t is None else t.data_ptr()
+               for t in (q, k, v, out, rh, rw, eh, ew)),
+             ctypes.cast(strides, ctypes.c_void_p), b, s, heads, d, win,
+             _WIN_MODES[mode], ctypes.c_float(cs),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "window_attention_rows")
+    kernels.launches[f"window_attention_rows[{name}]"] += 1
+
+
 def _window_rows_launch(kind: str, qkv, rh, rw, *, heads: int, win: int,
                         scale: float, prescale: bool):
     b, s, c3 = qkv.shape
@@ -786,14 +835,9 @@ def _window_rows_launch(kind: str, qkv, rh, rw, *, heads: int, win: int,
     _bf16_on_one_device(f"window_attention_{kind}", qkv, rh, rw)
     qkv = qkv.contiguous()
     out = torch.empty(b, s, c3 // 3, dtype=qkv.dtype, device=qkv.device)
-    strides = (ctypes.c_longlong * 6)(*rh.stride()[:3], *rw.stride()[:3])
-    fn = kernels.lib("window_attention_rows").lvv_window_attention_rows
-    err = fn(qkv.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-             ctypes.cast(strides, ctypes.c_void_p), b, s, heads, hd, win,
-             int(prescale), ctypes.c_float(scale * _LOG2E),
-             torch.cuda.current_stream(qkv.device).cuda_stream)
-    kernels.check(err, "window_attention_rows")
-    kernels.launches[f"window_attention_rows[{kind}]"] += 1
+    _win_launch(kind, "rows_pre" if prescale else "rows_post", qkv, out,
+                heads=heads, cs=scale * _LOG2E, win=win, rh=_unit_cols(rh),
+                rw=_unit_cols(rw))
     return out
 
 
@@ -896,6 +940,131 @@ def window_attention_v4_plain(qkv, rel_h, rel_w, **kw):
 
 def window_attention_phased_plain(qkv, rel_h, rel_w, **kw):
     return _window_attention("phased", qkv, rel_h, rel_w, plain=True, **kw)
+
+
+# ------------------------------------------------------------ B-1, B-2 ----
+# The cost-bisect kernels of two benchmark scripts of the JAX package, which
+# time the parts of SAM's window attention one by one (`main.make(variant)`
+# in benchmarks/winattn_bisect2.py, `main.make_hmaj(batched)` in
+# benchmarks/winattn_bisect3.py). Per (window, head), with s = (q·k in
+# fp32)·scale: `dots_qk` keeps bf16(s[:, :d]·1e-3), `dots_qk_pv` takes
+# bf16(bf16(s·1e-3) @ v), `softmax` bf16(bf16(p) @ v) with p = exp(s − max)
+# / Σ in base e, `bias2` first adds qrh @ eh + qrw @ ew (dense [16, S]
+# expanders: products, not a gather); B-2 is `softmax` on head-major q, k,
+# v. They are modes of `window_attention_rows.cu`; no model path runs them.
+
+BISECT_VARIANTS = ("dots_qk", "dots_qk_pv", "softmax", "bias2")
+_EXP_K = 16                # depth of bias2's expander products
+
+
+def _bisect_heads(variant: str, q, k, v, qrh, qrw, eh, ew, *, scale: float):
+    """The bisect function on q, k, v [B, H, S, d] -> [B, H, S, d] in q's
+    dtype (bias2: qrh, qrw [B, H, S, 16], eh, ew [16, S])."""
+    st = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if variant == "bias2":
+        st = st + torch.matmul(qrh.float(), eh.float())
+        st = st + torch.matmul(qrw.float(), ew.float())
+    if variant == "dots_qk":
+        return (st[..., :q.shape[-1]] * 1e-3).to(q.dtype)
+    if variant == "dots_qk_pv":
+        p = st * 1e-3
+    else:
+        p = torch.exp(st - st.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _bisect_shape(variant: str, qkv, heads: int, qrh, qrw, eh, ew):
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads if heads > 0 else 0
+    ok = (variant in BISECT_VARIANTS and d > 0 and c3 == 3 * c
+          and d * heads == c)
+    if variant == "dots_qk":
+        ok = ok and s >= d
+    if variant == "bias2":
+        ok = ok and all(t is not None for t in (qrh, qrw, eh, ew)) and (
+            qrh.shape == qrw.shape == (b, heads, s, _EXP_K)
+            and eh.shape == ew.shape == (_EXP_K, s))
+    if not ok:
+        tables = [None if t is None else tuple(t.shape)
+                  for t in (qrh, qrw, eh, ew)]
+        raise ValueError(f"window_attention_bisect[{variant}]: qkv "
+                         f"{tuple(qkv.shape)}, {heads} heads, tables {tables}")
+    return b, s, c, d
+
+
+def window_attention_bisect_plain(qkv, *, variant: str, heads: int,
+                                  scale: float, qrh=None, qrw=None, eh=None,
+                                  ew=None) -> torch.Tensor:
+    """`window_attention_bisect`'s function in plain PyTorch."""
+    b, s, c, _ = _bisect_shape(variant, qkv, heads, qrh, qrw, eh, ew)
+    q, k, v = _split_qkv(qkv, heads)
+    out = _bisect_heads(variant, q, k, v, qrh, qrw, eh, ew, scale=scale)
+    return out.transpose(1, 2).reshape(b, s, c)
+
+
+def window_attention_bisect(qkv, *, variant: str, heads: int, scale: float,
+                            qrh=None, qrw=None, eh=None,
+                            ew=None) -> torch.Tensor:
+    """Kernel B-1 (benchmarks/winattn_bisect2.py::main.make(variant)): one
+    of the bisect variants over packed qkv [B, S, 3C] (S <= 256 tokens a
+    window, head dim 64; dots_qk needs S >= 64) -> [B, S, C]. bias2 also
+    takes the expander rows qrh, qrw [B, H, S, 16] and the expanders eh, ew
+    [16, S]."""
+    b, s, c, d = _bisect_shape(variant, qkv, heads, qrh, qrw, eh, ew)
+    if not qkv.is_cuda:
+        return window_attention_bisect_plain(qkv, variant=variant,
+                                             heads=heads, scale=scale,
+                                             qrh=qrh, qrw=qrw, eh=eh, ew=ew)
+    if d != 64 or s > 256:
+        raise ValueError(f"window_attention_bisect[{variant}]: head dim {d}, "
+                         f"{s} tokens (the kernel takes d 64, S <= 256)")
+    tables = [t for t in (qrh, qrw, eh, ew) if t is not None]
+    _bf16_on_one_device(f"window_attention_bisect[{variant}]", qkv, *tables)
+    qkv = qkv.contiguous()
+    out = torch.empty(b, s, c, dtype=qkv.dtype, device=qkv.device)
+    bias = {}
+    if variant == "bias2":
+        bias = dict(rh=_unit_cols(qrh), rw=_unit_cols(qrw),
+                    eh=eh.contiguous(), ew=ew.contiguous())
+    _win_launch(variant, variant, qkv, out, heads=heads, cs=scale, **bias)
+    return out
+
+
+def _hmaj_shape(q, k, v):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"window_attention_hmaj: q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} are not one "
+                         f"[B, H, S, d] shape")
+
+
+def window_attention_hmaj_plain(q, k, v, *, scale: float) -> torch.Tensor:
+    """`window_attention_hmaj`'s function in plain PyTorch."""
+    _hmaj_shape(q, k, v)
+    return _bisect_heads("softmax", q, k, v, None, None, None, None,
+                         scale=scale)
+
+
+def window_attention_hmaj(q, k, v, *, scale: float) -> torch.Tensor:
+    """Kernel B-2 (benchmarks/winattn_bisect3.py::main.make_hmaj(batched)):
+    window attention on head-major q, k, v [B, H, S, d] (three tensors, no
+    bias): softmax in base e, p divided by its row sum and rounded before
+    p@v; -> [B, H, S, d]. The script's two schedules (`batched`: one
+    batched product over the heads, or a loop over them) compute this one
+    function. S <= 256, head dim 64."""
+    _hmaj_shape(q, k, v)
+    if not q.is_cuda:
+        return window_attention_hmaj_plain(q, k, v, scale=scale)
+    b, heads, s, d = q.shape
+    if d != 64 or s > 256:
+        raise ValueError(f"window_attention_hmaj: head dim {d}, {s} tokens "
+                         f"(the kernel takes d 64, S <= 256)")
+    _bf16_on_one_device("window_attention_hmaj", q, k, v)
+    out = torch.empty(b, heads, s, d, dtype=q.dtype, device=q.device)
+    q, k, v = (_row_view(t) for t in (q, k, v))
+    _win_launch("hmaj", "hmaj", q, out, k=k, v=v, cs=scale)
+    return out
 
 
 # --------------------------------------------------------------- K-m ------

@@ -534,3 +534,132 @@ def test_window_and_prep_wrappers_refuse_what_the_kernels_do_not_take(gen):
             block_k=96)
     with pytest.raises(ValueError):                   # fp32 qkv
         A.hpacked_prep(qkv.float(), rh, rw, heads=2, grid_w=64, scale=0.1)
+
+
+_BISECT_SHAPES = [(5, 8, 3), (150, 14, 12)]          # (windows, win, heads)
+
+
+def _bisect_operands(gen, b, win, heads):
+    """qkv N(0, 1) and bias2's rows and expanders, as the B-1 script draws
+    them (qrh 0.3·N(0, 1), eh 0.1·N(0, 1)), distinct qrw / ew."""
+    s = win * win
+    return (_rnd(gen, b, s, 3 * heads * 64),
+            _rnd(gen, b, heads, s, 16, std=0.3),
+            _rnd(gen, b, heads, s, 16, std=0.3),
+            _rnd(gen, 16, s, std=0.1), _rnd(gen, 16, s, std=0.1))
+
+
+@pytest.mark.parametrize("b,win,heads", _BISECT_SHAPES)
+@pytest.mark.parametrize("variant", A.BISECT_VARIANTS)
+def test_window_attention_bisect(gen, variant, b, win, heads):
+    """B-1's four modes of window_attention_rows.cu against their plain
+    versions with chip_smoke's rule (the softmax modes allow max|v| / 128 on
+    these peaked rows); bias2 also fails its one-hot trap."""
+    from chip_smoke import REL_L2_TOL, agreement, bias2_gather_trap
+    qkv, qrh, qrw, eh, ew = _bisect_operands(gen, b, win, heads)
+    kw = dict(variant=variant, heads=heads, scale=0.125, qrh=qrh, qrw=qrw,
+              eh=eh, ew=ew)
+    got = _launched(f"window_attention_rows[{variant}]",
+                    lambda: A.window_attention_bisect(qkv, **kw))
+    extra = (float(qkv[..., 2 * heads * 64:].abs().max()) / 128
+             if variant in ("softmax", "bias2") else 0.0)
+    ok, err, rel = agreement(got, A.window_attention_bisect_plain(qkv, **kw),
+                             REL_L2_TOL, extra)
+    assert ok, (err, rel)
+    if variant == "bias2":
+        trap_ok, _, trap_rel = agreement(got, bias2_gather_trap(qkv, **kw),
+                                         REL_L2_TOL, extra)
+        assert not trap_ok, trap_rel
+
+
+@pytest.mark.parametrize("b,win,heads", _BISECT_SHAPES)
+def test_window_attention_hmaj(gen, b, win, heads):
+    """B-2 (the kHmaj mode: softmax on head-major q, k, v) against its plain
+    version, on strided views of a packed projection and on head-major
+    copies (the same output)."""
+    from chip_smoke import REL_L2_TOL, agreement
+    qkv = _rnd(gen, b, win * win, 3 * heads * 64)
+    views = A._split_qkv(qkv, heads)
+    kw = dict(scale=0.125)
+    got = _launched("window_attention_rows[hmaj]",
+                    lambda: A.window_attention_hmaj(*views, **kw))
+    ok, err, rel = agreement(got, A.window_attention_hmaj_plain(*views, **kw),
+                             REL_L2_TOL, float(views[2].abs().max()) / 128)
+    assert ok, (err, rel)
+    copies = [t.contiguous() for t in views]
+    assert torch.equal(A.window_attention_hmaj(*copies, **kw), got)
+
+
+def test_bisect_wrappers_refuse_what_the_kernel_does_not_take(gen):
+    qkv = _rnd(gen, 2, 49, 3 * 2 * 32)
+    with pytest.raises(ValueError):                   # head dim 32
+        A.window_attention_bisect(qkv, variant="softmax", heads=2,
+                                  scale=0.1)
+    qkv = _rnd(gen, 2, 289, 3 * 2 * 64)
+    with pytest.raises(ValueError):                   # S 289 > 256
+        A.window_attention_bisect(qkv, variant="softmax", heads=2,
+                                  scale=0.1)
+    q = _rnd(gen, 2, 2, 49, 64)
+    with pytest.raises(ValueError):                   # fp32
+        A.window_attention_hmaj(q.float(), q.float(), q.float(), scale=0.1)
+
+
+def test_greedy_generate_multi_on_card(gen, monkeypatch):
+    """The tiny model on the card (fp32): greedy_generate_multi over G = 2
+    groups of B = 2 (a right-padded prompt) equals two greedy_generate
+    calls, on float images and on uint8 frames preprocessed on the card."""
+    from lvv_tpu_torch import (VQAModel, greedy_generate,
+                               greedy_generate_multi, preprocess_views,
+                               tiny_config)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = tiny_config().model
+    card = VQAModel(cfg, dtype=torch.float32, device="cuda", seed=3)
+    g = torch.Generator().manual_seed(2)
+    args = [torch.randn(2, 2, 32, 24, 24, generator=g),
+            torch.rand(2, 2, 6, 3, 64, 64, generator=g) * 2 - 1,
+            torch.ones(2, 2, 6, dtype=torch.bool),
+            torch.randint(0, 500, (2, 2, 6), generator=g),
+            torch.tensor([[6, 4], [5, 6]])]
+    frames = torch.randint(0, 256, (2, 2, 6, 45, 80, 3), generator=g,
+                           dtype=torch.uint8)
+    for images in (args[1], frames):
+        toks, lens = greedy_generate_multi(card, args[0], images, *args[2:],
+                                           max_new_tokens=6, eos_id=2)
+        for i in range(2):
+            img = images[i]
+            if img.dtype == torch.uint8:
+                img = preprocess_views(img.flatten(0, 1).cuda(), 64).unflatten(
+                    0, (2, 6))
+            want, wlen = greedy_generate(card, args[0][i], img,
+                                         *(a[i] for a in args[2:]),
+                                         max_new_tokens=6, eos_id=2)
+            assert torch.equal(toks[i], want) and torch.equal(lens[i], wlen)
+
+
+def test_serving_batch_with_ragged_prompts_against_plain_kernels(gen):
+    """bench.py's serving model at full width, B = 4 frames of
+    serving_bench.py's inputs with two prompts cut short (17 and 9 of 24
+    tokens): the launch counts of one generate are those of batch 1, and
+    every row's prefill and first-step logits are within chip_smoke's
+    LOGITS_REL_TOL of the same batch with every kernel swapped for its plain
+    version."""
+    import chip_smoke as C
+    from lvv_tpu_torch import (VQAModel, greedy_generate,
+                               prepare_serving_params_fused)
+    cfg = C.config(1024, quant8=True)
+    model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    packed = prepare_serving_params_fused(model)
+    args = [torch.as_tensor(a, device="cuda") for a in
+            C.serving_batch_inputs(cfg, 4, ragged=((1, 17), (3, 9)))]
+    with C.q8_scope_env("mlp"):
+        kernels.launches.clear()
+        greedy_generate(model, *args, max_new_tokens=C.NEW_TOKENS,
+                        eos_id=C.EOS_ID, params_decode=packed)
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        assert counts == C.expected_launches(cfg, serving=True)
+        report, _ = C.against_plain_kernels(torch, model, args, packed)
+    for key in ("logits_rel_l2_vs_plain_by_row",
+                "step_logits_rel_l2_vs_plain_by_row"):
+        assert len(report[key]) == 4
+        assert max(report[key]) <= C.LOGITS_REL_TOL, report
