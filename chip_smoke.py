@@ -426,7 +426,11 @@ def kernel_cases(torch):
             # of p, the p of a row summing to 1), which moves such an output
             # by up to max|v| / 128 where |out| may be near 0
             extra = float(v.abs().max()) / 128 if causal else 0.0
+            # the kv splits of the kernel's grid, and the blocks they give
+            splits = A.flash_splits(b, hq, sq, sk)
             return dict(
+                notes=dict(kv_splits=splits,
+                           blocks=-(-sq // 128) * hq * b * splits),
                 kernel=lambda: A.flash_attention(q, k, v, causal=causal,
                                                  kv_len=kl),
                 plain=lambda: A.flash_attention_plain(q, k, v, causal=causal,
@@ -1042,7 +1046,7 @@ def check_case(torch, row, label, count, setup) -> tuple:
                     + (f" + {extra:.4g}" if extra else "")
                     + f"; rel L2 1/{round(1 / rel_tol)}",
                 bytes_ms=bytes_ms, ops_ms=ops_ms,
-                bound_ms=max(bytes_ms, ops_ms))
+                bound_ms=max(bytes_ms, ops_ms), **case.get("notes", {}))
     # the tolerance has to see a wrong function: each trap must fail it
     for name, trap in case.get("traps", {}).items():
         trap_ok, _, trap_l2 = agreement(got, trap(), rel_tol, extra)
@@ -1619,9 +1623,12 @@ def main() -> int:
     reports = kernels.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
+        entry = ""       # the kernel that ptxas reports on next
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  ptxas {name}: {ln.strip()}")
+            if "Compiling entry function" in ln and "'" in ln:
+                entry = " " + ln.split("'")[1]
+            elif "registers" in ln or "spill" in ln:
+                print(f"  ptxas {name}{entry}: {ln.strip()}")
     sys.stdout.flush()
 
     clock, phase_s = [time.perf_counter()], {}

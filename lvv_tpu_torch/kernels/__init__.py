@@ -34,7 +34,7 @@ launches: collections.Counter = collections.Counter()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "lvv_ln_mlp_residual": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
-    "lvv_flash_attention": [_P] * 5 + [_I] * 7 + [_F, _P, _P],
+    "lvv_flash_attention": [_P] * 7 + [_I] * 8 + [_F, _P, _P],
     "lvv_relpos_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
     "lvv_ln_mlp_residual_q8": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
     "lvv_int8_matmul": [_P] * 4 + [_I] * 4 + [_P],

@@ -46,6 +46,20 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
 
 
+def _keep(q, sk: int, causal: bool, kv_len: Optional[torch.Tensor]):
+    """Which keys each query may see, [B or 1, 1, Sq, Sk]: causal with the
+    sk - sq offset, keys below the row's kv_len; None where all are."""
+    sq, keep = q.shape[2], None
+    ki = torch.arange(sk, device=q.device)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        keep = (ki[None, :] <= qi)[None, None]
+    if kv_len is not None:
+        row = (ki[None, :] < kv_len.to(q.device)[:, None])[:, None, None, :]
+        keep = row if keep is None else keep & row
+    return keep
+
+
 def attention_reference(q, k, v, *, causal: bool = False,
                         kv_len: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
@@ -58,15 +72,9 @@ def attention_reference(q, k, v, *, causal: bool = False,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()
-    sq, sk = q.shape[2], k.shape[2]
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        ki = torch.arange(sk, device=q.device)[None, :]
-        logits = logits.masked_fill(ki > qi, _NEG_INF)
-    if kv_len is not None:
-        ki = torch.arange(sk, device=q.device)
-        keep = ki[None, :] < kv_len.to(q.device)[:, None]      # [B, Sk]
-        logits = logits.masked_fill(~keep[:, None, None, :], _NEG_INF)
+    keep = _keep(q, k.shape[2], causal, kv_len)
+    if keep is not None:
+        logits = logits.masked_fill(~keep, _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
@@ -74,12 +82,74 @@ def attention_reference(q, k, v, *, causal: bool = False,
 
 flash_attention_plain = attention_reference
 
+_SMS = 132               # the H100's streaming multiprocessors
+_FLASH_BQ = 128          # q rows a block of the flash kernel
+_SPLIT_MIN_KV = 512      # keys a kv split holds at least
+_SPLIT_COST = 0.02       # each split's partials cost ~2% of the kernel
+
+
+def flash_splits(b: int, hq: int, sq: int, sk: int) -> int:
+    """How many kv splits the flash kernel runs, from the shapes alone (so
+    results repeat run to run): 1 where the q tiles, heads and batch give a
+    block per SM; otherwise the count n (each split at least 512 keys) that
+    minimises the waves of blocks per unit of work, ceil(blocks·n / SMs) / n,
+    times 1 + 2% per split for the partials' round trip (ties: fewer)."""
+    blocks = -(-sq // _FLASH_BQ) * hq * b
+    most = max(1, sk // _SPLIT_MIN_KV)
+    if blocks >= _SMS:
+        return 1
+    return min(range(1, most + 1), key=lambda n: (
+        -(-blocks * n // _SMS) / n * (1 + _SPLIT_COST * n), n))
+
+
+def flash_attention_split_plain(q, k, v, *, n_split: int,
+                                causal: bool = False,
+                                kv_len: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """The flash kernel's split-kv arithmetic in plain PyTorch (for the
+    tests): the kv axis cut where the kernel cuts it (whole tiles, the
+    same number in each split), per split the base-2 softmax state of each
+    row (m, l and o = p·v with p rounded to v's dtype, unnormalised), then
+    the combine: weights 2^(m - M) over the splits that hold one of the
+    row's keys, out = sum w·o / max(sum w·l, 1e-30)."""
+    n_rep = q.shape[1] // k.shape[1]
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    sk = k.shape[2]
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        scale * _LOG2E)
+    keep = _keep(q, sk, causal, kv_len)
+    if keep is None:
+        keep = torch.ones_like(s2, dtype=torch.bool)
+    s2 = s2.masked_fill(~keep, _NEG_INF)
+    bn = 64 if q.shape[-1] > 128 else 128     # the kernel's kv tile
+    step = -(-(-(-sk // bn)) // n_split) * bn
+    parts = []
+    for c0 in range(0, sk, step):      # a split past sk holds no key
+        sl = slice(c0, c0 + step)
+        m = s2[..., sl].amax(-1, keepdim=True)
+        p = torch.exp2(s2[..., sl] - m)
+        has = keep[..., sl].any(-1, keepdim=True)
+        l = torch.where(has, p.sum(-1, keepdim=True), torch.zeros_like(m))
+        o = torch.matmul(p.to(v.dtype).float(), v[:, :, sl].float())
+        parts.append((m, l, o))
+    big = torch.stack([torch.where(l > 0, m, torch.full_like(m, _NEG_INF))
+                       for m, l, _ in parts]).amax(0)
+    num, den = 0.0, 0.0
+    for m, l, o in parts:
+        w = torch.where(l > 0, torch.exp2(m - big), torch.zeros_like(m))
+        num = num + w * o
+        den = den + w * l
+    return (num / torch.clamp_min(den, 1e-30)).to(q.dtype)
+
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     kv_len: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Kernel K-e: flash attention forward (causal with the sk - sq offset,
-    per-batch kv_len, GQA by head index)."""
+    per-batch kv_len, GQA by head index; the kv axis split across blocks
+    as `flash_splits` says)."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      scale=scale)
@@ -92,9 +162,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ops = (q, k, v)
     if any(t.dtype != torch.bfloat16 or t.device != q.device for t in ops):
         raise ValueError("flash_attention: q, k, v must be bf16 on one device")
-    # rows are read 16 bytes at a time: unit stride on D, aligned rows
+    # TMA reads the views where they lie: unit stride on D, 16-byte aligned
+    # base and strides (size-1 axes aside)
     ops = tuple(t if t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-                and all(st % 8 == 0 for st in t.stride()[:3])
+                and all(st > 0 and st % 8 == 0
+                        for st, n in zip(t.stride()[:3], t.shape) if n > 1)
                 else t.contiguous() for t in ops)
     if kv_len is not None:
         kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
@@ -104,13 +176,24 @@ def flash_attention(q, k, v, *, causal: bool = False,
     out = torch.empty(b, sq, hq, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    n_split = flash_splits(b, hq, sq, sk)
+    part_o = part_ml = None
+    if n_split > 1:
+        part_o = torch.empty(n_split * b * hq * sq * d, dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty(n_split * b * hq * sq * 2,
+                              dtype=torch.float32, device=q.device)
+    # a size-1 axis may carry any stride; TMA wants a multiple of 16 bytes
     strides = (ctypes.c_longlong * 12)(*(
-        s for t in (*ops, out) for s in t.stride()[:3]))
+        st if n > 1 else 8 for t in (*ops, out)
+        for st, n in zip(t.stride()[:3], t.shape)))
     fn = kernels.lib("flash_attention").lvv_flash_attention
     err = fn(*(t.data_ptr() for t in ops),
              None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
-             b, hq, hkv, sq, sk, d, int(causal), ctypes.c_float(scale),
-             ctypes.cast(strides, ctypes.c_void_p),
+             None if part_o is None else part_o.data_ptr(),
+             None if part_ml is None else part_ml.data_ptr(),
+             b, hq, hkv, sq, sk, d, int(causal), n_split,
+             ctypes.c_float(scale), ctypes.cast(strides, ctypes.c_void_p),
              torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, "flash_attention")
     kernels.launches["flash_attention"] += 1

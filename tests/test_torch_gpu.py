@@ -108,6 +108,51 @@ def test_relpos_attention(gen, b, gh, gw, heads):
                                          scale=0.125))
 
 
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,causal,short", [
+    # 8 splits of 512 keys; row 1's 700 keys leave six splits without one
+    (40, 4096, 2, 2, 112, False, 700),
+    # causal with GQA over 2 splits; row 1 cut to 1500 keys
+    (2048, 2048, 2, 1, 64, True, 1500),
+])
+def test_flash_attention_split(gen, sq, sk, hq, hkv, d, causal, short):
+    """The split-kv path against the plain version and against the split
+    arithmetic in plain PyTorch, with chip_smoke's causal allowance: a
+    causal row over few keys moves by up to max|v| / 128 where the two
+    round p to bf16 at different points (chip_smoke.py's flash_case)."""
+    from chip_smoke import agreement
+    assert A.flash_splits(2, hq, sq, sk) > 1
+    q = _rnd(gen, 2, sq, hq * d).view(2, sq, hq, d).transpose(1, 2)
+    k = _rnd(gen, 2, hkv, sk, d)
+    v = _rnd(gen, 2, hkv, sk, d)
+    kv_len = torch.tensor([sk, short], dtype=torch.int32, device="cuda")
+    got = _launched("flash_attention", lambda: A.flash_attention(
+        q, k, v, causal=causal, kv_len=kv_len))
+    extra = float(v.abs().max()) / 128 if causal else 0.0
+    for want in (A.flash_attention_plain(q, k, v, causal=causal,
+                                         kv_len=kv_len),
+                 A.flash_attention_split_plain(
+                     q, k, v, n_split=A.flash_splits(2, hq, sq, sk),
+                     causal=causal, kv_len=kv_len)):
+        ok, err, rel = agreement(got, want, abs_extra=extra)
+        assert ok, (err, rel)
+
+
+@pytest.mark.parametrize("b,gh,gw,heads,d", [
+    (1, 64, 64, 2, 64),      # SAM's global grid: 8 x 16 patches of q rows
+    (1, 64, 64, 2, 128),
+    (1, 16, 64, 2, 64),
+    (2, 14, 14, 2, 128),     # a window resident at head dim 128
+    (3, 7, 7, 2, 64),        # a window of 49: kv padded to 64, q to 64
+])
+def test_relpos_attention_regimes(gen, b, gh, gw, heads, d):
+    qkv = _rnd(gen, b, gh * gw, 3 * heads * d, std=0.5)
+    rh, rw = _rnd(gen, gh, gh, d, std=0.1), _rnd(gen, gw, gw, d, std=0.1)
+    kw = dict(heads=heads, scale=d ** -0.5)
+    got = _launched(f"relpos_attention[{gh}x{gw}]",
+                    lambda: A.relpos_attention(qkv, rh, rw, **kw))
+    _agree(got, A.relpos_attention_plain(qkv, rh, rw, **kw))
+
+
 def _mlp_params(gen, c, h):
     return (1 + _rnd(gen, c, std=0.1), _rnd(gen, c, std=0.1),
             _rnd(gen, c, h, std=c ** -0.5), _rnd(gen, h, std=0.1),
