@@ -1,7 +1,10 @@
-"""Time the flash attention kernel (K-e, `flash_attention`) and the rel-pos
-attention kernel (K-c / K-d, the float arm of `relpos_attention`) in
-several checkouts of this repository on one H100, alternating the
-checkouts:
+"""Time the port's attention kernels in several checkouts of this
+repository on one H100, alternating the checkouts: the flash attention
+kernel (K-e, `flash_attention`) and the rel-pos attention kernel (K-c /
+K-d, the float arm of `relpos_attention`) at every main-path shape, and
+the window kernel (K-l's five bodies, B-1's four variants, B-2) and the
+float forms of K-h (`flash_attention_relpos`: streaming, fused, small; K-m
+on the fused form) at their benchmarks' shapes:
 
     python3 attention_ab.py PATH [PATH ...] [--rounds 2]
 
@@ -13,12 +16,17 @@ each checkout in turn runs in a process of its own
 - `ms`: per-call ms of each wrapper (its glue included) at every shape that
   chip_smoke.py's main paths give it: SAM at 1024² and 1280², and the
   serving model at batch 8 (the prompt of row 5 cut to 17 of 24 tokens);
+  and at the shapes of the benchmarks that time the window and K-h forms
+  (labels "bench ...", K-h's 80x80 streaming form "1280 ...");
 - `out_abs_sum`: the sum of |output| at each shape, so that the checkouts
   can be seen to compute the same thing.
 
 Inputs are drawn once per shape from torch's generator on the card (seed
-0; q, k, v N(0, 1) as views of [B, S, H·d] projections; qkv 0.5·N(0, 1),
-rel_h and rel_w 0.1·N(0, 1)), the same in every checkout. Times are
+0), the same in every checkout: q, k, v N(0, 1) as views of [B, S, H·d]
+projections (K-h's too, its tables 0.5·N(0, 1)); the window bodies' and
+bisect variants' qkv N(0, 1), rel_h and rel_w 0.3·N(0, 1), bias2's rows
+0.5·N(0, 1) and expanders 0.1·N(0, 1); K-c / K-d's and K-m's qkv
+0.5·N(0, 1), rel_h and rel_w 0.1·N(0, 1). Times are
 CUDA-event means over 20 calls after a warm-up, the stream first held busy
 so that the host has queued every call. After the last round the first
 process prints one `attention-ab-summary` line: per shape, each
@@ -62,6 +70,19 @@ SHAPES = [
      (8, PRE, PRE, 14, 2, 64, True, SHORT_8)),
     ("batch8 windows [1200,196,2304]", "relpos", (1200, 14, 12, 64)),
     ("batch8 global [48,4096,2304]", "relpos", (48, 64, 12, 64)),
+] + [(f"bench window {k} [150,196,2304]", "window", (k, 150, 14, 12, 64))
+     for k in ("fused", "fused2", "v3", "v4", "phased")] + [
+    (f"bench bisect {v} [150,196,2304]", "bisect", (v, 150, 14, 12, 64))
+    for v in ("dots_qk", "dots_qk_pv", "softmax", "bias2")] + [
+    ("bench hmaj [150,12,196,64]", "hmaj", (150, 14, 12, 64)),
+    # K-h (b, grid side, heads, d, block_q, block_k, launch name)
+    ("1280 K-h streaming [6,12,6400,64]", "kh",
+     (6, 80, 12, 64, 4096, 1024, "flash_attention_relpos[80x80]")),
+    ("bench K-h fused [6,12,4096,64]", "kh",
+     (6, 64, 12, 64, 4096, 1024, "flash_attention_relpos_fused[64x64]")),
+    ("bench K-h small [150,12,196,64]", "kh",
+     (150, 14, 12, 64, 256, 256, "flash_attention_relpos_mh[14x14]")),
+    ("bench K-m prepped [6,4096,2304]", "prepped", (6, 64, 12, 64)),
 ]
 
 
@@ -98,9 +119,41 @@ def case(torch, A, kind, shape):
                 kv_len[short[0]] = short[1]
         return (lambda: A.flash_attention(q, k, v, causal=causal,
                                           kv_len=kv_len)), "flash_attention"
+    if kind == "kh":
+        b, g, heads, d, bq, bk, name = shape
+        s = g * g
+        q, k, v = rnd(b, s, 3 * heads * d).view(b, s, 3, heads, d).permute(
+            2, 0, 3, 1, 4)
+        ops = (q, k, v, rnd(b, heads, s, g, std=0.5),
+               rnd(b, heads, s, g, std=0.5))
+        return (lambda: A.flash_attention_relpos(
+            *ops, scale=d ** -0.5, grid_w=g, block_q=bq, block_k=bk)), name
+    if kind == "hmaj":
+        b, g, heads, d = shape
+        q, k, v = (rnd(b, heads, g * g, d) for _ in range(3))
+        return (lambda: A.window_attention_hmaj(q, k, v, scale=d ** -0.5)), \
+            "window_attention_rows[hmaj]"
+    if kind in ("window", "bisect"):
+        variant, b, g, heads, d = shape
+        s = g * g
+        qkv = rnd(b, s, 3 * heads * d)
+        if kind == "window":
+            rh, rw = rnd(g, g, d, std=0.3), rnd(g, g, d, std=0.3)
+            fn = getattr(A, f"window_attention_{variant}")
+            return (lambda: fn(qkv, rh, rw, scale=d ** -0.5, heads=heads,
+                               win=g)), f"window_attention_rows[{variant}]"
+        qrh, qrw = (rnd(b, heads, s, 16, std=0.5) for _ in range(2))
+        eh, ew = (rnd(16, s, std=0.1) for _ in range(2))
+        return (lambda: A.window_attention_bisect(
+            qkv, variant=variant, heads=heads, scale=d ** -0.5, qrh=qrh,
+            qrw=qrw, eh=eh, ew=ew)), f"window_attention_rows[{variant}]"
     b, g, heads, d = shape
     qkv = rnd(b, g * g, 3 * heads * d, std=0.5)
     rh, rw = rnd(g, g, d, std=0.1), rnd(g, g, d, std=0.1)
+    if kind == "prepped":
+        return (lambda: A.flash_attention_relpos_hpacked_prepped(
+            qkv, rh, rw, scale=d ** -0.5, grid_w=g, heads=heads)), \
+            f"flash_attention_relpos_hpacked_prepped[{g}x{g}]"
     return (lambda: A.relpos_attention(qkv, rh, rw, heads=heads,
                                        scale=d ** -0.5)), \
         f"relpos_attention[{g}x{g}]"
@@ -115,7 +168,9 @@ def one(root: pathlib.Path, build_only: bool) -> int:
     from lvv_tpu_torch import kernels
     from lvv_tpu_torch.ops import attention as A
     if build_only:
-        kernels.build_all(("flash_attention", "relpos_attention"))
+        kernels.build_all(("flash_attention", "relpos_attention",
+                           "flash_attention_relpos", "window_attention_rows",
+                           "qr_prep"))
         return 0
     ms, sums = {}, {}
     for label, kind, shape in SHAPES:

@@ -12,7 +12,9 @@
    B-2, at the shapes and inputs of the benchmarks that time them), in
    bf16 on the card, and times kernel, plain version and (where one
    PyTorch call computes the same function) the library call with CUDA
-   events. A disagreement beyond the stated tolerance, a trap that the
+   events; K-l's five rows and K-h's fused form also print
+   `kernel_only_ms`, the launch alone on operands their wrapper's glue
+   made beforehand. A disagreement beyond the stated tolerance, a trap that the
    tolerance passes, or a wrapper that did not launch its kernel, fails
    the run. Then one line per A/B benchmark of the JAX package that times
    K-l, K-m, B-1 or B-2 (`winattn-ab[...]`, `gattn-prep-ab`): per-call ms
@@ -70,6 +72,7 @@ import contextlib
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -542,6 +545,14 @@ def kernel_cases(torch):
                 plain=lambda: A.flash_attention_relpos_plain(*ops, **kw),
                 library=None, bytes=2 * b * heads * s * (4 * d + 2 * g),
                 flops=2 * pair, peak=BF16_FLOPS)
+            if A.kh_form(s, d, g, bq, bk)[0] == "fused" and not quant8:
+                # the launch alone, on the operands its glue made
+                fo = A.fused_operands(q, k, ops[3], ops[4], scale=kw["scale"],
+                                      grid_w=g)
+                case["kernel_only"] = lambda: A._kh_launch(
+                    A._KH_MODES["fused"], f"flash_attention_relpos_fused"
+                    f"[{g}x{g}]", fo[0], fo[1], v, None, fo[2],
+                    scale=kw["scale"], grid_w=g, d=d, kv_end=s, group=0)
             if quant8:
                 case.update(ops_ms=(pair / BF16_FLOPS + pair / INT8_OPS) * 1e3,
                             abs_extra=float(v.abs().max()) / 127,
@@ -577,11 +588,16 @@ def kernel_cases(torch):
             qkv, rh, rw = benchmark_inputs(torch, *WINDOWS)
             kw = dict(scale=d ** -0.5, heads=heads, win=g, **opts)
             s, c = g * g, heads * d
+            # the launch alone, on the rows its glue made (kernel_only_ms)
+            rows = A._window_glue(kind, qkv, rh, rw, heads, g, False)
             return dict(
                 kernel=lambda: getattr(A, f"window_attention_{kind}")(
                     qkv, rh, rw, **kw),
                 plain=lambda: getattr(A, f"window_attention_{kind}_plain")(
                     qkv, rh, rw, **kw),
+                kernel_only=lambda: A._window_rows_launch(
+                    kind, qkv, *rows, heads=heads, win=g, scale=d ** -0.5,
+                    prescale=kind in ("fused", "fused2")),
                 library=sdpa_bias(qkv, rh, rw, heads, g),
                 also=("qr_prep[rows]",) if kind == "v4" else (),
                 flops=b * heads * (4 * s * s * d + 2 * s * 2 * g * d),
@@ -1061,6 +1077,8 @@ def check_case(torch, row, label, count, setup) -> tuple:
                           if case["library"] else None)
     if "info" in case:                 # a yardstick of another function
         line[case["info"][0]] = timed_ms(case["info"][1], 10)
+    if "kernel_only" in case:          # the launch without the wrapper's glue
+        line["kernel_only_ms"] = timed_ms(case["kernel_only"], 20)
     print("kernel-check", json.dumps(line), flush=True)
     if not ok:
         raise AssertionError(f"{row} {label}: kernel disagrees with its "
@@ -1596,6 +1614,10 @@ def device_busy(torch, generate) -> dict:
 # SAM's MLPs) through ~70 layers of random weights; 5% relative L2 on the
 # last prefill logits leaves room for that and catches a wrong layer.
 LOGITS_REL_TOL = 0.05
+# the sm_90a window and K-h float kernels whose v is 64 deep (mangled
+# win_sm90<64, ...> and kh_stream_sm90<DQ, 64, ...>): ptxas must report no
+# spill for them
+NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E")
 
 
 def main() -> int:
@@ -1622,6 +1644,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = kernels.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, log in reports.items():
         entry = ""       # the kernel that ptxas reports on next
         for ln in log.splitlines():
@@ -1629,7 +1652,13 @@ def main() -> int:
                 entry = " " + ln.split("'")[1]
             elif "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}{entry}: {ln.strip()}")
+                if (NO_SPILL.search(entry) and "spill stores" in ln
+                        and not ln.strip().endswith(
+                            "0 bytes spill stores, 0 bytes spill loads")):
+                    spills.append(f"{name}{entry}")
     sys.stdout.flush()
+    if spills:
+        raise AssertionError(f"d-64 instances spill: {spills}")
 
     clock, phase_s = [time.perf_counter()], {}
 

@@ -6,52 +6,69 @@
 // rounded to bf16 by the caller, as SAM's third branch (lvv_tpu/models/
 // sam.py:202-231) does.
 //
-// Replaces TPU kernel K-h, lvv_tpu/ops/attention.py, in its three bodies,
-// which are three modes of one template here (each walks the kv tiles of
-// common.cuh; none is the TPU's block structure):
+// Replaces TPU kernel K-h, lvv_tpu/ops/attention.py, in its three bodies
+// (none is the TPU's block structure):
 //   kStream  _flash_relpos_kernel (via flash_attention_relpos): SAM's
 //            global layers at grids that fail the head-packed test (80x80
 //            at 1280²). The TPU picks the bias columns of each kv tile with
 //            one-hot matmuls; here each score reads its two table entries
-//            by index (kv / gw, kv % gw, from a per-tile column table), for
-//            any gw. Columns at or past kv_end are masked: the wrapper
-//            passes the TPU grid's kv extent, so nothing is padded (the TPU
-//            pads S = 6400 to 8192). Int8 arm (PV8): pv8_loop.cuh with
-//            groups of the TPU's kv tile (1024 columns from column 0).
+//            through a column table (kv / gw, kv % gw), for any gw. Columns
+//            at or past kv_end are masked: the wrapper passes the TPU grid's
+//            kv extent, so nothing is padded (the TPU pads S = 6400 to
+//            8192).
 //   kFused   _flash_relpos_fused_kernel (via flash_attention_relpos_fused):
 //            scores from the augmented operands q_aug = [q·scale·log2e |
 //            q_rh·log2e | 0] and k_aug = [k | onehot(kv / gw) | 0] at depth
 //            128 (so the height bias comes out of the product), plus the
-//            width table q_rw·log2e; base 2 as on the TPU. Same int8 arm.
-//            It also runs K-m's attention, _flash_hpacked_kernel with
-//            qrw_off = d (via flash_attention_relpos_hpacked_prepped): q_aug,
-//            k_aug and v are strided views of qr_prep.cu's [B, S, H·128]
-//            lane blocks, and the width table is read where it lies, in
-//            v_aug's lanes d .. d + gw of the query rows.
+//            width table q_rw·log2e; base 2 as on the TPU. It also runs K-m's
+//            attention, _flash_hpacked_kernel with qrw_off = d (via
+//            flash_attention_relpos_hpacked_prepped): q_aug, k_aug and v are
+//            strided views of qr_prep.cu's [B, S, H·128] lane blocks, read
+//            by TMA where they lie, and the width table is read where it
+//            lies, in v_aug's lanes d .. d + gw of the query rows.
 //   kSmall   _relpos_mh_kernel (S padded to 512 or less): one softmax over
-//            all kv with p divided by its row sum BEFORE it is rounded to
-//            bf16 for p@v, as the TPU's single-tile kernel does; so each
-//            block walks kv twice (row maxima and sums, then p@v).
+//   kSmall2  all kv with p divided by its row sum BEFORE it is rounded to
+//            bf16 for p@v, as the TPU's single-tile kernel does. S <= 256
+//            and gh, gw <= 16 (kSmall): window_sm90.cuh's resident
+//            whole-row kernel, the bias from the tables times a one-hot
+//            expander on the tensor cores. Otherwise (kSmall2, S <= 512):
+//            the streaming kernel walks kv twice, row maxima and sums
+//            first, then p@v with each p divided before rounding.
+// The int8 p@v arm of kStream and kFused (PV8, kh_pv8_kernel) keeps the
+// first version's mma.sync loop (pv8_loop.cuh) with groups of the TPU's kv
+// tile (1024 columns from column 0).
 //
 // What bounds it on the H100: the two products, 4·S²·d operations per
 // (view, head), against reading q, k, v and the tables once: far above the
 // card's ~295 operations per byte, so the bf16 tensor-core rate bounds it
 // (0.76 ms for the 4·6·12·6400²·64 operations of one 1280² global layer).
-// The int8 arm computes q·k twice (pv8_loop). This first version runs
-// mma.sync from shared memory with 64-row tiles and one warp per 16 rows,
-// as the port's other attention kernels do; wgmma and TMA are later work.
 //
-// Design: one block per (64-row q tile, head, view). It copies its q rows
-// and its rows of both tables (as fp32, odd row pitch against bank
-// conflicts) into shared memory, then runs the loop of its mode; each kv
-// tile's load also writes the tile's 64 (kv / gw, kv % gw) pairs, so the
-// score epilogue does no integer division.
+// Design of the float streaming forms (kh_stream_sm90, on the sm_90a core of
+// attn_sm90.cuh, as relpos_attention.cu's streaming regime): one block per
+// (128 q rows, head, view); two consumer warpgroups of 64 rows each and a
+// producer warp that streams K / V tiles through a TMA ring (tensor maps
+// over each view's own strides, so no operand is copied). The block's 128
+// rows of the caller's tables go to shared memory once, as fp32 times
+// log2(e) (kFused: already log2-domain), the height table at an odd pitch
+// and the width table at a pitch 8 mod 16 words (float2 reads of kw pairs
+// for even gw). A column table gives each key its (kv / gw, kv % gw) (on
+// the H100 the table read beat carrying the pair in registers), except in
+// the streaming form at d 64 on 80-wide grids (SAM's 80x80 at 1280²) and
+// the fused form on 64-wide grids: there a tile is two whole grid rows
+// (160 or 128 keys), so kh and kw are known at compile time up to the
+// tile's row and the lane, as in relpos_attention.cu's 64-wide grids, and
+// keys past kv_end (whole grid rows) are masked through the height bias.
+// The int8 arm's design: one block per (64-row q tile, head, view) copies
+// its q rows and table rows (fp32, odd pitch) into shared memory, then runs
+// pv8_loop; each kv tile's load writes the tile's 64 (kv / gw, kv % gw).
 #include <string.h>
 
-#include "common.cuh"
 #include "pv8_loop.cuh"
+#include "window_sm90.cuh"
 
-enum { kStream = 0, kFused = 1, kSmall = 2 };
+enum { kStream = 0, kFused = 1, kSmall = 2, kSmall2 = 3 };
+
+// ------------------------------------------------------------- int8 arm
 
 struct KhArgs {
   const bf16 *q, *k, *v, *qrh, *qrw;
@@ -64,62 +81,9 @@ struct KhArgs {
   float scale;
 };
 
-// kSmall's softmax: pass 1 takes each row's maximum m and sum l over kv
-// [0, kv_end), pass 2 recomputes the scores and accumulates
-// bf16(exp2(s - m) / l) @ V into o (normalised already).
-template <int D, class LoadK, class LoadKV, class Scores>
-__device__ __forceinline__ void normed_loop(const bf16* v_s, int kv_end,
-                                            LoadK load_k, LoadKV load_kv,
-                                            Scores scores,
-                                            float (&o)[D / 8][4]) {
-  float m0 = LVV_NEG_BIG, m1 = LVV_NEG_BIG, l0 = 0.f, l1 = 0.f;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();
-    load_k(k0);
-    __syncthreads();
-    float s[kBK / 8][4];
-    scores(k0, s);
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      ps0 += exp2f(s[j][0] - mx0) + exp2f(s[j][1] - mx0);
-      ps1 += exp2f(s[j][2] - mx1) + exp2f(s[j][3] - mx1);
-    }
-    l0 = l0 * exp2f(m0 - mx0) + quad_sum(ps0);
-    l1 = l1 * exp2f(m1 - mx1) + quad_sum(ps1);
-    m0 = mx0;
-    m1 = mx1;
-  }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();
-    load_kv(k0);
-    __syncthreads();
-    float s[kBK / 8][4];
-    scores(k0, s);
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = __fdiv_rn(exp2f(s[j][0] - m0), l0);
-      s[j][1] = __fdiv_rn(exp2f(s[j][1] - m0), l0);
-      s[j][2] = __fdiv_rn(exp2f(s[j][2] - m1), l1);
-      s[j][3] = __fdiv_rn(exp2f(s[j][3] - m1), l1);
-    }
-    pv_bf16<D>(o, s, v_s);
-  }
-}
-
 // DQ: depth of the score product (d, or 128 in kFused); DV: head dim of v.
-template <int DQ, int DV, int MODE, bool PV8>
-__global__ void __launch_bounds__(kAttnThreads) kh_kernel(const KhArgs a) {
+template <int DQ, int DV, int MODE>
+__global__ void __launch_bounds__(kAttnThreads) kh_pv8_kernel(const KhArgs a) {
   constexpr int LDQ = DQ + 8, LDV = DV + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* colh_s = reinterpret_cast<int*>(smem_raw);      // [kBK] kv / gw
@@ -133,7 +97,6 @@ __global__ void __launch_bounds__(kAttnThreads) kh_kernel(const KhArgs a) {
   const int q_start = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const bf16* qb = a.q + b * a.st[0] + h * a.st[1];
   const bf16* kb = a.k + b * a.st[3] + h * a.st[4];
-  const bf16* vb = a.v + b * a.st[6] + h * a.st[7];
 
   for (int i = threadIdx.x; i < kBQ * DQ / 8; i += kAttnThreads) {
     const int r = i / (DQ / 8), c = (i % (DQ / 8)) * 8;
@@ -157,7 +120,7 @@ __global__ void __launch_bounds__(kAttnThreads) kh_kernel(const KhArgs a) {
           q_start + r < a.s ? bf(rhb[(q_start + r) * a.st[14] + j]) : 0.f;
     }
   }
-  // (each loop synchronises before its first read of shared memory)
+  // (pv8_loop synchronises before its first read of shared memory)
 
   auto load_k = [&](int k0) {
     load_rows<DQ>(k_s, kb + k0 * a.st[5], a.st[5], a.kv_end - k0);
@@ -166,10 +129,6 @@ __global__ void __launch_bounds__(kAttnThreads) kh_kernel(const KhArgs a) {
       colh_s[c] = kh;
       colw_s[c] = k0 + c - kh * a.gw;
     }
-  };
-  auto load_kv = [&](int k0) {
-    load_k(k0);
-    load_rows<DV>(v_s, vb + k0 * a.st[8], a.st[8], a.kv_end - k0);
   };
   // log2-domain logit of tile row r at kv column col (k0 is a multiple of
   // kBK, so col % kBK indexes the tile's column table)
@@ -188,27 +147,20 @@ __global__ void __launch_bounds__(kAttnThreads) kh_kernel(const KhArgs a) {
   };
 
   float o[DV / 8][4];
-  float l0 = 1.f, l1 = 1.f;
-  if constexpr (MODE == kSmall) {
-    normed_loop<DV>(v_s, a.kv_end, load_k, load_kv, scores, o);
-  } else if constexpr (PV8) {
-    // the v region holds the int8 v tile instead (it is large enough)
-    signed char* v8_s = reinterpret_cast<signed char*>(v_s);
-    const signed char* v8b =
-        a.v8t + ((long long)b * a.heads + h) * DV * a.s_pad8;
-    auto load_v8 = [&](int k0) {
-      for (int i = threadIdx.x; i < DV * kBK / 16; i += kAttnThreads) {
-        const int n = i / (kBK / 16), cc = (i % (kBK / 16)) * 16;
-        *reinterpret_cast<uint4*>(v8_s + n * kLDV8 + cc) =
-            *reinterpret_cast<const uint4*>(v8b + (long long)n * a.s_pad8 +
-                                            k0 + cc);
-      }
-    };
-    pv8_loop<DV>(v8_s, a.kv_end, a.group, load_k, load_v8, scores,
-                 a.sv + ((long long)b * a.heads + h) * DV, o, l0, l1);
-  } else {
-    flash_loop<DV>(v_s, a.kv_end, load_kv, scores, o, l0, l1);
-  }
+  float l0, l1;
+  // the v region holds the int8 v tile instead (it is large enough)
+  signed char* v8_s = reinterpret_cast<signed char*>(v_s);
+  const signed char* v8b = a.v8t + ((long long)b * a.heads + h) * DV * a.s_pad8;
+  auto load_v8 = [&](int k0) {
+    for (int i = threadIdx.x; i < DV * kBK / 16; i += kAttnThreads) {
+      const int n = i / (kBK / 16), cc = (i % (kBK / 16)) * 16;
+      *reinterpret_cast<uint4*>(v8_s + n * kLDV8 + cc) =
+          *reinterpret_cast<const uint4*>(v8b + (long long)n * a.s_pad8 +
+                                          k0 + cc);
+    }
+  };
+  pv8_loop<DV>(v8_s, a.kv_end, a.group, load_k, load_v8, scores,
+               a.sv + ((long long)b * a.heads + h) * DV, o, l0, l1);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = q_start + warp * 16 + (lane >> 2);
@@ -225,8 +177,8 @@ __global__ void __launch_bounds__(kAttnThreads) kh_kernel(const KhArgs a) {
   }
 }
 
-template <int DQ, int DV, int MODE, bool PV8>
-static int launch(const KhArgs& a, int b, cudaStream_t stream) {
+template <int DQ, int DV, int MODE>
+static int launch_pv8(const KhArgs& a, int b, cudaStream_t stream) {
   static_assert(DV * kLDV8 <= kBK * (DV + 8) * (int)sizeof(bf16),
                 "the int8 v tile must fit the bf16 v region");
   const size_t smem = 2 * kBK * sizeof(int) +
@@ -235,39 +187,501 @@ static int launch(const KhArgs& a, int b, cudaStream_t stream) {
                       (size_t)kBQ * (a.ldw + (MODE == kFused ? 0 : a.ldh)) *
                           sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(kh_kernel<DQ, DV, MODE, PV8>, smem);
+  cudaError_t e = allow_smem(kh_pv8_kernel<DQ, DV, MODE>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.s + kBQ - 1) / kBQ, a.heads, b);
-  kh_kernel<DQ, DV, MODE, PV8><<<grid, kAttnThreads, smem, stream>>>(a);
+  kh_pv8_kernel<DQ, DV, MODE><<<grid, kAttnThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ float arm
+
+using namespace sm90;
+
+struct KhSm90Args {
+  bf16* out;
+  const bf16 *qrh, *qrw;
+  long long ost[3];   // out (view, head, token) strides
+  long long tst[6];   // qrh, qrw (view, head, token) strides
+  int s, gh, gw, ldh, ldw, kv_end;
+  float sl;           // scale·log2e (not kFused)
+};
+
+// The key tile: two grid rows on a grid GW wide (80: the streaming form at
+// d 64, SAM's 1280² grid; 64: the fused form); otherwise 128 keys where v is 64 deep, 64
+// at d 128 and where the form walks kv twice (a thread's registers within
+// 168).
 template <int DQ, int DV, int MODE>
-static int launch_arm(const KhArgs& a, int b, cudaStream_t stream) {
-  if (a.group) return launch<DQ, DV, MODE, true>(a, b, stream);
-  return launch<DQ, DV, MODE, false>(a, b, stream);
+__host__ __device__ constexpr int kh_tile(int gw_rows) {
+  return gw_rows ? 2 * gw_rows : DV == 64 && MODE != kSmall2 ? 128 : 64;
+}
+
+namespace sm90 {
+// wgmma m64n160k16 (A and B from shared memory, both K-major): the
+// 160-key tiles of the streaming form on a grid 80 wide.
+template <> struct Wgmma<160> {
+  // d[80] += A (smem, K-major) · B (smem, K-major)
+  static __device__ __forceinline__ void ss(float* d, uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+}  // namespace sm90
+
+// fp32 loads from a 32-bit shared-memory address
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float2 lds2(uint32_t addr) {
+  float2 v;
+  asm("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+template <int DQ, int DV, int MODE, int BN_>
+struct KhCfg {
+  static constexpr int BQ = 128;
+  static constexpr int BN = BN_;
+  static constexpr int STAGES = 2;
+  static constexpr int QP = DQ / 64, VP = DV / 64;
+  static constexpr int Q_PB = BQ * 128, KV_PB = BN * 128;
+  static constexpr int Q_BYTES = QP * Q_PB, K_BYTES = QP * KV_PB;
+  static constexpr int STAGE_BYTES = K_BYTES + VP * KV_PB;
+  static constexpr int TAB_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int THREADS = 3 * 128;   // 2 consumer warpgroups, producer
+};
+
+// Shared memory past the tiles: the height table (not kFused) and the width
+// table, BQ rows of ldh / ldw floats, the column table of n_col keys (kv /
+// gw | kv % gw << 8, 8 bits each), the barriers.
+struct KhTail {
+  int bw, ctab, bar, total;
+};
+
+__host__ __device__ inline KhTail kh_tail(int tab_off, bool fused, int ldh,
+                                          int ldw, int n_col) {
+  KhTail t;
+  t.bw = (tab_off + (fused ? 0 : 128 * ldh * 4) + 7) & ~7;
+  t.ctab = t.bw + 128 * ldw * 4;
+  t.bar = (t.ctab + n_col * 2 + 7) & ~7;
+  t.total = t.bar + 8 * 8;
+  return t;
+}
+
+// kStream / kFused: the online softmax over kv [0, kv_end) in BN-key tiles,
+// p rounded to bf16 against the running maximum (as the TPU's flash loop).
+// kSmall2: two passes over the tiles (the producer streams them twice, V
+// only the second time): the exact row maxima and sums, then p@v with each
+// p divided by its row sum before it is rounded.
+// GW > 0 (the grid GW wide, kv_end a whole number of grid rows; kFused:
+// of tiles): a tile of BN = 2·GW keys is two whole grid rows, so a score's
+// kh is the tile's first row (or the next) and its kw a compile-time
+// column plus 2·(lane % 4): no column table.
+template <int DQ, int DV, int MODE, int GW>
+__global__ void __launch_bounds__(
+    KhCfg<DQ, DV, MODE, kh_tile<DQ, DV, MODE>(GW)>::THREADS, 1)
+kh_stream_sm90(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const KhSm90Args a) {
+  constexpr int BN = kh_tile<DQ, DV, MODE>(GW);
+  using C = KhCfg<DQ, DV, MODE, BN>;
+  constexpr bool FUSED = MODE == kFused, NORMED = MODE == kSmall2;
+  constexpr bool ROWTILE = GW > 0;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int n_t = (a.kv_end + BN - 1) / BN;
+  const KhTail tl =
+      kh_tail(C::TAB_OFF, FUSED, a.ldh, a.ldw, ROWTILE ? 0 : n_t * BN);
+  unsigned char* ring = smem + C::Q_BYTES;   // stage i: K then V
+  float* bh_s = reinterpret_cast<float*>(smem + C::TAB_OFF);
+  float* bw_s = reinterpret_cast<float*>(smem + tl.bw);
+  uint16_t* ctab = reinterpret_cast<uint16_t*>(smem + tl.ctab);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + tl.bar);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* q_bar = empty + C::STAGES;
+
+  const int q_start = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::STAGES; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], 8);   // one arrival per consumer warp
+    }
+    bar_init(q_bar, 1);
+    bar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      bar_expect_tx(q_bar, C::Q_BYTES);
+      for (int p = 0; p < C::QP; ++p)
+        tma_load(smem + p * C::Q_PB, &qmap, q_bar, p * 64, q_start, h, b);
+      const int total = (NORMED ? 2 : 1) * n_t;
+      for (int i = 0; i < total; ++i) {
+        const int st = i % C::STAGES, row = (i % n_t) * BN;
+        const bool with_v = !NORMED || i >= n_t;
+        if (i >= C::STAGES) bar_wait(&empty[st], ((i / C::STAGES) - 1) & 1);
+        bar_expect_tx(&full[st], with_v ? C::STAGE_BYTES : C::K_BYTES);
+        unsigned char* kt = ring + st * C::STAGE_BYTES;
+        for (int p = 0; p < C::QP; ++p)
+          tma_load(kt + p * C::KV_PB, &kmap, &full[st], p * 64, row, h, b);
+        if (with_v)
+          for (int p = 0; p < C::VP; ++p)
+            tma_load(kt + C::K_BYTES + p * C::KV_PB, &vmap, &full[st],
+                     p * 64, row, h, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each
+    regs_inc<232>();
+    const int tid = threadIdx.x, lane = tid & 31, warp = (tid & 127) >> 5;
+    const int t = lane & 3;
+    const int rr0 = wg * 64 + warp * 16 + (lane >> 2), rr1 = rr0 + 8;
+    const int s = a.s, gh = a.gh, gw = a.gw;
+    if constexpr (!ROWTILE)
+      for (int i = tid; i < n_t * BN; i += 256)
+        ctab[i] = i < s ? (uint16_t)((i / gw) | (i % gw) << 8) : 0;
+    // the block's rows of the tables, log2-domain (0 past S)
+    const float ts = FUSED ? 1.f : LVV_LOG2E;
+    const bf16* rwb = a.qrw + b * a.tst[3] + h * a.tst[4];
+    for (int i = tid; i < C::BQ * gw; i += 256) {
+      const int r = i / gw, j = i - r * gw, tok = q_start + r;
+      bw_s[r * a.ldw + j] = tok < s ? bf(rwb[tok * a.tst[5] + j]) * ts : 0.f;
+    }
+    if constexpr (!FUSED) {
+      const bf16* rhb = a.qrh + b * a.tst[0] + h * a.tst[1];
+      for (int i = tid; i < C::BQ * gh; i += 256) {
+        const int r = i / gh, j = i - r * gh, tok = q_start + r;
+        bh_s[r * a.ldh + j] =
+            tok < s ? bf(rhb[tok * a.tst[2] + j]) * LVV_LOG2E : 0.f;
+      }
+    }
+    named_sync(1, 256);   // both warpgroups' tables and the column table
+    bar_wait(q_bar, 0);
+
+    const uint32_t q_addr = smem_u32(smem) + wg * 64 * 128;
+    const float* bh0 = bh_s + rr0 * a.ldh;
+    const float* bh1 = bh_s + rr1 * a.ldh;
+    const float* bw0 = bw_s + rr0 * a.ldw;
+    const float* bw1 = bw_s + rr1 * a.ldw;
+    // kv 2i, 2i + 1 share kh
+    const bool pairs = (gw & 1) == 0;
+    auto tile = [&](int i) {
+      const int st = i % C::STAGES;
+      bar_wait(&full[st], (i / C::STAGES) & 1);
+      return smem_u32(ring + st * C::STAGE_BYTES);
+    };
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[i % C::STAGES]);
+    };
+    // log2-domain logits of tile i (the i-th load: kv tile i % n_t)
+    auto scores = [&](int i, float (&sc)[BN / 2]) {
+      const int ti = NORMED ? i % n_t : i;
+      const int k0 = ti * BN;
+      if constexpr (ROWTILE) {
+        // the tile's grid rows; kv_end is a whole number of rows, so a
+        // second row at or past it masks its keys through its bias
+        // (the rows' 32-bit shared addresses: no 64-bit pointer is held)
+        const int kh = 2 * ti;
+        const bool in = (kh + 1) * GW < a.kv_end;
+        const uint32_t ah0 = smem_u32(bh0) + 4 * kh;
+        const uint32_t ah1 = smem_u32(bh1) + 4 * kh;
+        const uint32_t aw0 = smem_u32(bw0) + 8 * t;
+        const uint32_t aw1 = smem_u32(bw1) + 8 * t;
+        float h00 = 0.f, h01 = 0.f, h10 = 0.f, h11 = 0.f;
+        if constexpr (!FUSED) {
+          h00 = lds(ah0);
+          h01 = in ? lds(ah0 + 4) : LVV_NEG_BIG;
+          h10 = lds(ah1);
+          h11 = in ? lds(ah1 + 4) : LVV_NEG_BIG;
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int kw = (8 * j) % GW;
+          const float h0 = j < GW / 8 ? h00 : h01;
+          const float h1 = j < GW / 8 ? h10 : h11;
+          const float2 w0 = lds2(aw0 + 4 * kw), w1 = lds2(aw1 + 4 * kw);
+          float* e = sc + 4 * j;
+          if constexpr (FUSED) {   // q_aug carries the scale
+            e[0] += w0.x;
+            e[1] += w0.y;
+            e[2] += w1.x;
+            e[3] += w1.y;
+          } else {
+            e[0] = fmaf(e[0], a.sl, h0 + w0.x);
+            e[1] = fmaf(e[1], a.sl, h0 + w0.y);
+            e[2] = fmaf(e[2], a.sl, h1 + w1.x);
+            e[3] = fmaf(e[3], a.sl, h1 + w1.y);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = k0 + 8 * j + 2 * t;
+          float* e = sc + 4 * j;
+          float b00, b01, b10, b11;
+          const uint32_t hw = ctab[col], kh = hw & 255, kw = hw >> 8;
+          if (pairs) {
+            const float2 w0 = *reinterpret_cast<const float2*>(bw0 + kw);
+            const float2 w1 = *reinterpret_cast<const float2*>(bw1 + kw);
+            const float h0 = FUSED ? 0.f : bh0[kh];
+            const float h1 = FUSED ? 0.f : bh1[kh];
+            b00 = h0 + w0.x;
+            b01 = h0 + w0.y;
+            b10 = h1 + w1.x;
+            b11 = h1 + w1.y;
+          } else {
+            const uint32_t hw1 = ctab[col + 1], kh1 = hw1 & 255,
+                           kw1 = hw1 >> 8;
+            b00 = (FUSED ? 0.f : bh0[kh]) + bw0[kw];
+            b01 = (FUSED ? 0.f : bh0[kh1]) + bw0[kw1];
+            b10 = (FUSED ? 0.f : bh1[kh]) + bw1[kw];
+            b11 = (FUSED ? 0.f : bh1[kh1]) + bw1[kw1];
+          }
+          if constexpr (FUSED) {
+            e[0] += b00;
+            e[1] += b01;
+            e[2] += b10;
+            e[3] += b11;
+          } else {
+            e[0] = fmaf(e[0], a.sl, b00);
+            e[1] = fmaf(e[1], a.sl, b01);
+            e[2] = fmaf(e[2], a.sl, b10);
+            e[3] = fmaf(e[3], a.sl, b11);
+          }
+          if (col >= a.kv_end) e[0] = e[2] = LVV_NEG_BIG;
+          if (col + 1 >= a.kv_end) e[1] = e[3] = LVV_NEG_BIG;
+        }
+      }
+    };
+    float o[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    float m0 = LVV_NEG_BIG, m1 = LVV_NEG_BIG, l0 = 0.f, l1 = 0.f;
+    if constexpr (!NORMED) {
+      // attn_mainloop's loop, with q's address taken anew each tile (the
+      // q descriptors, 8 at depth 128, are not held across the loop) and
+      // the scores declared in it (the first k-step overwrites them, so no
+      // tile's scores stay live into the next)
+      for (int i = 0; i < n_t; ++i) {
+        float sc[BN / 2];
+        const uint32_t kt = tile(i);
+        uint32_t qa;
+        asm volatile("mov.b32 %0, %1;" : "=r"(qa) : "r"(q_addr));
+        qk_sm90<DQ, BN>(sc, qa, C::Q_PB, kt, C::KV_PB);
+        scores(i, sc);
+        softmax_tile<BN, DV>(sc, o, m0, m1, l0, l1);
+        pv_sm90<DV, BN>(o, sc, kt + C::K_BYTES, C::KV_PB);
+        release(i);
+      }
+      l0 = fmaxf(l0, 1e-30f);   // guard, as the JAX kernel's finalize does
+      l1 = fmaxf(l1, 1e-30f);
+    } else {
+      for (int i = 0; i < n_t; ++i) {   // pass 1: row maxima and sums
+        float sc[BN / 2];
+        qk_sm90<DQ, BN>(sc, q_addr, C::Q_PB, tile(i), C::KV_PB);
+        scores(i, sc);
+        release(i);
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        mx0 = quad_max(mx0);
+        mx1 = quad_max(mx1);
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          ps0 += exp2_approx(sc[4 * j] - mx0) +
+                 exp2_approx(sc[4 * j + 1] - mx0);
+          ps1 += exp2_approx(sc[4 * j + 2] - mx1) +
+                 exp2_approx(sc[4 * j + 3] - mx1);
+        }
+        l0 = l0 * exp2_approx(m0 - mx0) + quad_sum(ps0);
+        l1 = l1 * exp2_approx(m1 - mx1) + quad_sum(ps1);
+        m0 = mx0;
+        m1 = mx1;
+      }
+      const float r0 = rcp_refined(l0), r1 = rcp_refined(l1);
+      for (int i = n_t; i < 2 * n_t; ++i) {   // pass 2: normalised p@v
+        float sc[BN / 2];
+        const uint32_t kt = tile(i);
+        qk_sm90<DQ, BN>(sc, q_addr, C::Q_PB, kt, C::KV_PB);
+        scores(i, sc);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          sc[4 * j] = div_rn(exp2_approx(sc[4 * j] - m0), l0, r0);
+          sc[4 * j + 1] = div_rn(exp2_approx(sc[4 * j + 1] - m0), l0, r0);
+          sc[4 * j + 2] = div_rn(exp2_approx(sc[4 * j + 2] - m1), l1, r1);
+          sc[4 * j + 3] = div_rn(exp2_approx(sc[4 * j + 3] - m1), l1, r1);
+        }
+        pv_sm90<DV, BN>(o, sc, kt + C::K_BYTES, C::KV_PB);
+        release(i);
+      }
+      l0 = l1 = 1.f;   // o is normalised already
+    }
+    bf16* ob = a.out + b * a.ost[0] + h * a.ost[1];
+    const int tok0 = q_start + rr0, tok1 = q_start + rr1;
+    store_rows<DV>(o, tok0 < s ? ob + tok0 * a.ost[2] : nullptr,
+                   tok1 < s ? ob + tok1 * a.ost[2] : nullptr, l0, l1);
+  }
+}
+
+template <int DQ, int DV, int MODE, int GW = 0>
+static int launch_stream(const CUtensorMap* maps, const KhSm90Args& a, int b,
+                         int heads, cudaStream_t stream) {
+  constexpr int BN = kh_tile<DQ, DV, MODE>(GW);
+  using C = KhCfg<DQ, DV, MODE, BN>;
+  const int n_col = GW ? 0 : (a.kv_end + BN - 1) / BN * BN;
+  const int smem =
+      kh_tail(C::TAB_OFF, MODE == kFused, a.ldh, a.ldw, n_col).total +
+      kSmemAlign;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(kh_stream_sm90<DQ, DV, MODE, GW>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.s + C::BQ - 1) / C::BQ, heads, b);
+  kh_stream_sm90<DQ, DV, MODE, GW><<<grid, C::THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], a);
+  return (int)cudaGetLastError();
+}
+
+// The float arm: maps over the views of q, k, v (boxes of the kernel's q
+// rows and kv rows), then the form's kernel.
+static int launch_float(const void* q, const void* k, const void* v,
+                        const long long* st, const KhArgs& ka, int b, int d,
+                        int mode, cudaStream_t stream) {
+  const int s = ka.s, heads = ka.heads;
+  CUtensorMap maps[3];
+  cudaError_t e;
+  if (mode == kSmall) {
+    WinArgs w;
+    memset(&w, 0, sizeof(w));
+    w.out = ka.out;
+    w.rh = ka.qrh;
+    w.rw = ka.qrw;
+    memcpy(w.ost, st + 9, sizeof(w.ost));
+    memcpy(w.tst, st + 12, sizeof(w.tst));
+    w.s = s;
+    w.heads = heads;
+    w.gh = ka.gh;
+    w.gw = ka.gw;
+    w.cs = ka.scale;
+    e = win_split_maps(maps, q, k, v, st, b, heads, s, d);
+    if (e != cudaSuccess) return (int)e;
+    return d == 64 ? launch_win<64, kKhSmall>(maps, w, b, stream)
+                   : launch_win<128, kKhSmall>(maps, w, b, stream);
+  }
+  KhSm90Args a;
+  memset(&a, 0, sizeof(a));
+  a.out = ka.out;
+  a.qrh = ka.qrh;
+  a.qrw = ka.qrw;
+  memcpy(a.ost, st + 9, sizeof(a.ost));
+  memcpy(a.tst, st + 12, sizeof(a.tst));
+  a.s = s;
+  a.gh = ka.gh;
+  a.gw = ka.gw;
+  a.ldh = ka.gh | 1;
+  // even gw: 8 times an odd number of floats, so that the float2 reads of
+  // a half-warp's 4 rows land on distinct 8-bank groups
+  a.ldw = ka.gw % 2 ? ka.gw : ((ka.gw + 7) / 8 | 1) * 8;
+  a.kv_end = ka.kv_end;
+  a.sl = ka.scale * LVV_LOG2E;
+  const int dq = mode == kFused ? 128 : d;
+  // whole-row tiles: the streaming form at d 64 on grids 80 wide (kv_end
+  // whole rows), the fused form on grids 64 wide (whole tiles)
+  const int gw_rows =
+      (mode == kStream && d == 64 && ka.gw == 80 && ka.kv_end % 80 == 0) ||
+              (mode == kFused && ka.gw == 64 && ka.kv_end % 128 == 0)
+          ? ka.gw
+          : 0;
+  const int bn = gw_rows ? 2 * gw_rows : d == 64 && mode != kSmall2 ? 128 : 64;
+  e = split_map(&maps[0], q, st, dq, s, heads, b, 128);
+  if (e == cudaSuccess) e = split_map(&maps[1], k, st + 3, dq, s, heads, b, bn);
+  if (e == cudaSuccess) e = split_map(&maps[2], v, st + 6, d, s, heads, b, bn);
+  if (e != cudaSuccess) return (int)e;
+  if (mode == kFused)
+    return gw_rows ? launch_stream<128, 64, kFused, 64>(maps, a, b, heads,
+                                                        stream)
+                   : launch_stream<128, 64, kFused>(maps, a, b, heads,
+                                                    stream);
+  if (mode == kStream && d == 128)
+    return launch_stream<128, 128, kStream>(maps, a, b, heads, stream);
+  if (mode == kStream)
+    return gw_rows
+               ? launch_stream<64, 64, kStream, 80>(maps, a, b, heads, stream)
+               : launch_stream<64, 64, kStream>(maps, a, b, heads, stream);
+  return d == 64 ? launch_stream<64, 64, kSmall2>(maps, a, b, heads, stream)
+                 : launch_stream<128, 128, kSmall2>(maps, a, b, heads, stream);
 }
 
 // q, k, v [B, H, S, *] bf16 with unit stride on the last axis and the
 // (view, head, token) strides in `strides` (18 int64: q, k, v, out, qrh,
-// qrw), rows of q, k, v 16-byte aligned; q / k of depth d (128 in mode
-// kFused, where q, k are q_aug, k_aug and d = 64 is v's depth); qrh
-// [B, H, S, gh] (not read in mode kFused) and qrw [B, H, S, gw] bf16 with
-// unit stride on the last axis; out [B, H, S, d].
-// Keys at or past kv_end (<= S) are masked. group 0: the float arm;
-// otherwise the int8 p@v arm with p quantized per `group` kv columns (a
-// multiple of 64): v8t [B, H, d, s_pad8] int8 (zero past S; s_pad8 a
-// multiple of 64 and >= S) and sv [B, H, d] fp32. mode kSmall has no int8
-// arm. Returns a cudaError_t (0 on success).
+// qrw), those of q, k, v multiples of 8 elements and their bases 16-byte
+// aligned; q / k of depth d (128 in mode kFused, where q, k are q_aug, k_aug
+// and d = 64 is v's depth); qrh [B, H, S, gh] (not read in mode kFused) and
+// qrw [B, H, S, gw] bf16 with unit stride on the last axis; out [B, H, S,
+// d]. Keys at or past kv_end (<= S) are masked. group 0: the float arm
+// (gh, gw < 256); otherwise the int8 p@v arm (kStream, kFused) with p
+// quantized per `group` kv columns (a multiple of 64): v8t [B, H, d, s_pad8]
+// int8 (zero past S; s_pad8 a multiple of 64 and >= S) and sv [B, H, d]
+// fp32. kSmall
+// takes S <= 256 and gh, gw <= 16, kSmall2 S <= 512, both kv_end = S and
+// no int8 arm.
+// Returns a cudaError_t (0 on success).
 extern "C" int lvv_flash_attention_relpos(
     const void* q, const void* k, const void* v, const void* qrh,
     const void* qrw, const void* v8t, const void* sv, void* out,
     const void* strides, int b, int heads, int s, int d, int gh, int gw,
     int kv_end, int group, int s_pad8, int mode, float scale, void* stream) {
-  if (gh <= 0 || gw <= 0 || gh * gw != s || kv_end <= 0 || kv_end > s ||
-      group < 0 || group % kBK || !qrw || (mode != kFused && !qrh))
+  const bool small = mode == kSmall || mode == kSmall2;
+  if (gh <= 0 || gw <= 0 || (!group && (gh > 255 || gw > 255)) ||
+      gh * gw != s || kv_end <= 0 || kv_end > s || group < 0 ||
+      group % kBK || !qrw || (mode != kFused && !qrh) || mode < kStream || mode > kSmall2 ||
+      !(d == 64 || (d == 128 && mode != kFused)) ||
+      (small && (kv_end != s || s > (mode == kSmall ? 256 : 512))) ||
+      (mode == kSmall && (gh > 16 || gw > 16)))
     return (int)cudaErrorInvalidValue;
-  if (group && (mode == kSmall || !v8t || !sv || s_pad8 < s || s_pad8 % kBK))
+  if (group && (small || !v8t || !sv || s_pad8 < s || s_pad8 % kBK))
     return (int)cudaErrorInvalidValue;
   KhArgs a;
   a.q = (const bf16*)q;
@@ -290,13 +704,8 @@ extern "C" int lvv_flash_attention_relpos(
   a.ldw = gw | 1;
   a.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == kStream && d == 64) return launch_arm<64, 64, kStream>(a, b, st);
-  if (mode == kStream && d == 128)
-    return launch_arm<128, 128, kStream>(a, b, st);
-  if (mode == kFused && d == 64) return launch_arm<128, 64, kFused>(a, b, st);
-  if (mode == kSmall && d == 64)
-    return launch<64, 64, kSmall, false>(a, b, st);
-  if (mode == kSmall && d == 128)
-    return launch<128, 128, kSmall, false>(a, b, st);
-  return (int)cudaErrorInvalidValue;
+  if (!group) return launch_float(q, k, v, a.st, a, b, d, mode, st);
+  if (mode == kFused) return launch_pv8<128, 64, kFused>(a, b, st);
+  return d == 64 ? launch_pv8<64, 64, kStream>(a, b, st)
+                 : launch_pv8<128, 128, kStream>(a, b, st);
 }

@@ -452,6 +452,38 @@ def kh_tiles(s: int, block_q: int, block_k: int):
     return s_pad, block_k, min(s, s_pad // block_k * block_k)
 
 
+def kh_form(s: int, d: int, grid_w: int, block_q: int, block_k: int,
+            fused: bool = True):
+    """The form of K-h's kernel that `flash_attention_relpos` launches on
+    the card -> (form, kv extent, kv tile), by the JAX wrapper's dispatch
+    (attention.py:424-438): "fused" where the fused test holds; the small
+    form where S pads to 512 or less, "small" (the resident whole-row
+    kernel, its bias on the tensor cores) for S <= 256 with both grid sides
+    at most 16, else "small2" (two passes over kv); else "stream" with
+    `kh_tiles`' kv extent."""
+    gh = s // grid_w
+    if fused and _fused_ok(s, d, gh, grid_w, block_q, block_k):
+        return "fused", s, block_k
+    s_pad, tile, kv_end = kh_tiles(s, block_q, block_k)
+    if s_pad <= 512:
+        resident = s <= 256 and gh <= 16 and grid_w <= 16
+        return ("small" if resident else "small2"), s, tile
+    return "stream", kv_end, tile
+
+
+def _kh_tables_fit(s: int, gh: int, grid_w: int, pv8: bool) -> bool:
+    """Whether K-h's tables fit the kernel's shared memory. The float
+    forms: a block's 128 rows of both tables (fp32, at the kernel's
+    pitches) and its column table of S keys (kv // gw and kv % gw in 8 bits
+    each) beside its tiles (96 KB at head dim 128). The int8 arm (pv8): a
+    64-row slice of both tables at odd pitches."""
+    if pv8:
+        return 64 * 4 * ((gh | 1) + (grid_w | 1)) <= 160 * 1024
+    ldw = grid_w if grid_w % 2 else (-(-grid_w // 8) | 1) * 8
+    return (gh < 256 and grid_w < 256
+            and 512 * ((gh | 1) + ldw) + 2 * _pad_to(s, 128) <= 130 * 1024)
+
+
 def _grid_cols(s: int, grid_w: int, device):
     cols = torch.arange(s, device=device)
     return cols // grid_w, cols % grid_w
@@ -587,7 +619,7 @@ def flash_attention_relpos_fused_plain(q, k, v, q_rh, q_rw, *, scale: float,
 
 
 # kernel modes of flash_attention_relpos.cu
-_KH_STREAM, _KH_FUSED, _KH_SMALL = 0, 1, 2
+_KH_MODES = {"stream": 0, "fused": 1, "small": 2, "small2": 3}
 
 
 def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
@@ -632,15 +664,14 @@ def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
     return out
 
 
-def _kh_check(fn: str, q, k, v, tables, grid_w: int):
+def _kh_check(fn: str, q, k, v, tables, grid_w: int, pv8: bool):
     b, heads, s, d = q.shape
     gh = s // grid_w if grid_w > 0 else 0
     ok = (d in (64, 128) and grid_w > 0 and gh * grid_w == s
           and k.shape == q.shape and v.shape == q.shape
           and tables[0].shape == (b, heads, s, gh)
           and tables[1].shape == (b, heads, s, grid_w)
-          # the kernel keeps a 64-row slice of both tables in shared memory
-          and 64 * 4 * ((gh | 1) + (grid_w | 1)) <= 160 * 1024)
+          and _kh_tables_fit(s, gh, grid_w, pv8))
     if not ok:
         raise ValueError(f"{fn}: unsupported q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} tables "
@@ -667,15 +698,18 @@ def flash_attention_relpos(q, k, v, q_rh, q_rw, *, scale: float,
             q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
             block_k=block_k, quant8=quant8, fused=fused)
     b, heads, s, d = q.shape
-    _kh_check("flash_attention_relpos", q, k, v, (q_rh, q_rw), grid_w)
+    pv8 = quant8 and grid_w > 0 and kh_form(
+        s, d, grid_w, block_q, block_k, fused)[0] in ("stream", "fused")
+    _kh_check("flash_attention_relpos", q, k, v, (q_rh, q_rw), grid_w, pv8)
     gh = s // grid_w
     if fused and _fused_ok(s, d, gh, grid_w, block_q, block_k):
         return flash_attention_relpos_fused(
             q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
             block_k=block_k, quant8=quant8)
-    s_pad, tile, kv_end = kh_tiles(s, block_q, block_k)
-    if s_pad <= 512:
-        return _kh_launch(_KH_SMALL,
+    form, kv_end, tile = kh_form(s, d, grid_w, block_q, block_k,
+                                 fused=False)
+    if form != "stream":
+        return _kh_launch(_KH_MODES[form],
                           f"flash_attention_relpos_mh[{gh}x{grid_w}]", q, k,
                           v, q_rh, q_rw, scale=scale, grid_w=grid_w, d=d,
                           kv_end=s, group=0)
@@ -683,9 +717,9 @@ def flash_attention_relpos(q, k, v, q_rh, q_rw, *, scale: float,
         raise ValueError(f"flash_attention_relpos: int8 group {tile} is not "
                          "a multiple of 64")
     name = "flash_attention_relpos" + ("_pv8" if quant8 else "")
-    return _kh_launch(_KH_STREAM, f"{name}[{gh}x{grid_w}]", q, k, v, q_rh,
-                      q_rw, scale=scale, grid_w=grid_w, d=d, kv_end=kv_end,
-                      group=tile if quant8 else 0)
+    return _kh_launch(_KH_MODES["stream"], f"{name}[{gh}x{grid_w}]", q, k, v,
+                      q_rh, q_rw, scale=scale, grid_w=grid_w, d=d,
+                      kv_end=kv_end, group=tile if quant8 else 0)
 
 
 def flash_attention_relpos_fused(q, k, v, q_rh, q_rw, *, scale: float,
@@ -700,7 +734,8 @@ def flash_attention_relpos_fused(q, k, v, q_rh, q_rw, *, scale: float,
             q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
             block_k=block_k, quant8=quant8)
     b, heads, s, d = q.shape
-    _kh_check("flash_attention_relpos_fused", q, k, v, (q_rh, q_rw), grid_w)
+    _kh_check("flash_attention_relpos_fused", q, k, v, (q_rh, q_rw), grid_w,
+              quant8)
     gh = s // grid_w
     if d != 64 or not _fused_ok(s, d, gh, grid_w, block_q, block_k):
         raise ValueError(f"flash_attention_relpos_fused: S={s}, d={d}, "
@@ -712,9 +747,9 @@ def flash_attention_relpos_fused(q, k, v, q_rh, q_rw, *, scale: float,
     q_aug, k_aug, qrw = fused_operands(q, k, q_rh, q_rw, scale=scale,
                                        grid_w=grid_w)
     name = "flash_attention_relpos_fused" + ("_pv8" if quant8 else "")
-    return _kh_launch(_KH_FUSED, f"{name}[{gh}x{grid_w}]", q_aug, k_aug, v,
-                      None, qrw, scale=scale, grid_w=grid_w, d=d, kv_end=s,
-                      group=block_k if quant8 else 0)
+    return _kh_launch(_KH_MODES["fused"], f"{name}[{gh}x{grid_w}]", q_aug,
+                      k_aug, v, None, qrw, scale=scale, grid_w=grid_w, d=d,
+                      kv_end=s, group=block_k if quant8 else 0)
 
 
 # --------------------------------------------------------------- K-l ------
@@ -941,22 +976,30 @@ def _window_attention(kind: str, qkv, rel_h, rel_w, *, scale: float,
                          f"wchunk={wchunk}, gwin={gwin}, "
                          f"bias_mode={bias_mode!r}")
     plain = plain or not qkv.is_cuda
-    if kind in ("fused", "fused2"):
-        rh, rw = _rows_fp32(qkv, rel_h, rel_w, heads, win)
-        if kind == "fused2":                  # JAX's qrhw [B, H, S, 2·win]
-            rhw = torch.cat([rh, rw], -1)
-            rh, rw = rhw[..., :win], rhw[..., win:]
-    elif kind == "v4":
-        prep = window_bias_prep_plain if plain else window_bias_prep
-        rh, rw = (t.view(b, s, heads, -1).transpose(1, 2) for t in prep(
-            qkv, rel_h, rel_w, heads=heads, win=win))
-    else:
-        rh, rw = _rows_grouped(qkv, rel_h, rel_w, heads, win)
+    rh, rw = _window_glue(kind, qkv, rel_h, rel_w, heads, win, plain)
     args = dict(heads=heads, win=win, scale=scale,
                 prescale=kind in ("fused", "fused2"))
     if plain:
         return _window_rows_plain(qkv, rh, rw, **args)
     return _window_rows_launch(kind, qkv, rh, rw, **args)
+
+
+def _window_glue(kind: str, qkv, rel_h, rel_w, heads: int, win: int,
+                 plain: bool):
+    """A variant's bias rows (rh, rw) [B, H, S, >= win] as its JAX glue
+    makes and lays them out (v4: through its prep kernel unless plain)."""
+    b, s, _ = qkv.shape
+    if kind in ("fused", "fused2"):
+        rh, rw = _rows_fp32(qkv, rel_h, rel_w, heads, win)
+        if kind == "fused2":                  # JAX's qrhw [B, H, S, 2·win]
+            rhw = torch.cat([rh, rw], -1)
+            rh, rw = rhw[..., :win], rhw[..., win:]
+        return rh, rw
+    if kind == "v4":
+        prep = window_bias_prep_plain if plain else window_bias_prep
+        return tuple(t.view(b, s, heads, -1).transpose(1, 2) for t in prep(
+            qkv, rel_h, rel_w, heads=heads, win=win))
+    return _rows_grouped(qkv, rel_h, rel_w, heads, win)
 
 
 def window_attention_fused(qkv, rel_h, rel_w, *, scale: float, heads: int,
@@ -1296,7 +1339,7 @@ def flash_attention_relpos_hpacked_prepped(
     qa, ka, va = (t.view(b, s, heads, _LANE).transpose(1, 2)
                   for t in hpacked_prep(qkv, rel_h, rel_w, heads=heads,
                                         grid_w=grid_w, scale=scale))
-    out = _kh_launch(_KH_FUSED,
+    out = _kh_launch(_KH_MODES["fused"],
                      f"flash_attention_relpos_hpacked_prepped[{gh}x{grid_w}]",
                      qa, ka, va[..., :d], None, va[..., d:d + grid_w],
                      scale=scale, grid_w=grid_w, d=d, kv_end=s, group=0)

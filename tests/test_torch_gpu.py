@@ -392,13 +392,18 @@ def _kh_operands(gen, b, heads, gh, gw, d, std=1.0):
 
 @pytest.mark.parametrize("b,heads,gh,gw,d,bq,bk", [
     (1, 2, 80, 80, 64, 4096, 1024),     # SAM's global grid at 1280²
+    (1, 2, 80, 80, 128, 4096, 1024),
     (2, 2, 24, 40, 64, 4096, 1024),     # ragged: one partial kv tile
     (1, 2, 40, 40, 64, 4096, 1024),     # keys past 1024 dropped, as in JAX
+    (1, 2, 40, 40, 128, 4096, 1024),
+    (2, 2, 48, 64, 64, 4096, 1024),     # ragged, 64 wide: column table
+    (2, 2, 48, 64, 128, 4096, 1024),
     (1, 2, 16, 100, 128, 1024, 1024)])  # head dim 128
 def test_flash_attention_relpos(gen, b, heads, gh, gw, d, bq, bk):
     """K-h's streaming form (float arm) against its plain version."""
     ops = _kh_operands(gen, b, heads, gh, gw, d, std=0.5)
     kw = dict(scale=d ** -0.5, grid_w=gw, block_q=bq, block_k=bk)
+    assert A.kh_form(gh * gw, d, gw, bq, bk)[0] == "stream"
     got = _launched(f"flash_attention_relpos[{gh}x{gw}]",
                     lambda: A.flash_attention_relpos(*ops, **kw))
     _agree(got, A.flash_attention_relpos_plain(*ops, **kw))
@@ -406,11 +411,13 @@ def test_flash_attention_relpos(gen, b, heads, gh, gw, d, bq, bk):
 
 @pytest.mark.parametrize("b,heads,gh,gw,d", [(1, 2, 80, 80, 64),
                                              (2, 2, 24, 40, 64),
-                                             (1, 2, 32, 64, 128)])
+                                             (1, 2, 32, 64, 128),
+                                             (1, 2, 8, 256, 64)])
 def test_flash_attention_relpos_pv8(gen, b, heads, gh, gw, d):
     """K-h's int8 p@v arm (p per row of each 1024-column kv tile) with
     chip_smoke's rule, and the trap (one p scale for the whole row) that the
-    rule must fail."""
+    rule must fail. A grid 256 wide, which the float forms refuse, is the
+    int8 arm's still."""
     from chip_smoke import REL_L2_TOL, agreement, kh_whole_row_trap
     ops = _kh_operands(gen, b, heads, gh, gw, d)
     kw = dict(scale=d ** -0.5, grid_w=gw, block_q=4096, block_k=1024,
@@ -445,16 +452,22 @@ def test_flash_attention_relpos_fused(gen, quant8, b, heads, g, bk):
 
 
 @pytest.mark.parametrize("b,heads,gh,gw,d", [(150, 2, 14, 14, 64),
+                                             (5, 2, 14, 14, 128),
+                                             (5, 2, 20, 20, 64),
+                                             (5, 2, 20, 20, 128),
                                              (3, 2, 16, 20, 128)])
 def test_flash_attention_relpos_small(gen, b, heads, gh, gw, d):
     """K-h's small form (S padded to 512 or less: 196 tokens in 256, a
-    16x20 grid in 384), which has no int8 arm."""
+    16x20 grid in 384), which has no int8 arm: resident whole-row at 14x14,
+    two passes over kv above 256 keys."""
     ops = _kh_operands(gen, b, heads, gh, gw, d, std=0.5)
     s = gh * gw
     bq = bk = 256 if s <= 256 else 1024
     for quant8 in (False, True):
         kw = dict(scale=d ** -0.5, grid_w=gw, block_q=bq, block_k=bk,
                   quant8=quant8)
+        assert A.kh_form(s, d, gw, bq, bk)[0] == (
+            "small" if s <= 256 else "small2")
         got = _launched(f"flash_attention_relpos_mh[{gh}x{gw}]",
                         lambda: A.flash_attention_relpos(*ops, **kw))
         _agree(got, A.flash_attention_relpos_plain(*ops, **kw))
@@ -487,11 +500,15 @@ def _window_operands(gen, b, win, heads, d):
 
 
 _WINDOW_SHAPES = [(5, 7, 3, 64), (3, 16, 2, 128), (150, 14, 12, 64)]
+# the resident whole-row kernel at every kv-row count it instantiates (S =
+# 49, 64, 196, 256 keys in 64, 64, 208, 256 rows), head dims 64 and 128
+_WHOLE_ROW_SHAPES = [(3, win, 2, d) for win in (7, 8, 14, 16)
+                     for d in (64, 128) if (3, win, 2, d) not in _WINDOW_SHAPES]
 
 
 @pytest.mark.parametrize("kind,opts,b,win,heads,d", [
     (kind, opts, *shape) for kind, opts in _WINDOW_KINDS
-    for shape in _WINDOW_SHAPES
+    for shape in _WINDOW_SHAPES + _WHOLE_ROW_SHAPES
     # the fused variant needs d + 2·win <= 128, as in JAX
     if kind != "fused" or shape[3] + 2 * shape[1] <= 128])
 def test_window_attention_rows(gen, kind, opts, b, win, heads, d):
@@ -582,6 +599,8 @@ def test_window_and_prep_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 _BISECT_SHAPES = [(5, 8, 3), (150, 14, 12)]          # (windows, win, heads)
+# the whole-row kernel's other kv-row counts (S = 49 and 256)
+_BISECT_WHOLE_ROW = [(3, 7, 2), (3, 16, 2)]
 
 
 def _bisect_operands(gen, b, win, heads):
@@ -594,8 +613,11 @@ def _bisect_operands(gen, b, win, heads):
             _rnd(gen, 16, s, std=0.1), _rnd(gen, 16, s, std=0.1))
 
 
-@pytest.mark.parametrize("b,win,heads", _BISECT_SHAPES)
-@pytest.mark.parametrize("variant", A.BISECT_VARIANTS)
+@pytest.mark.parametrize("variant,b,win,heads", [
+    (variant, *shape) for variant in A.BISECT_VARIANTS
+    for shape in _BISECT_SHAPES + _BISECT_WHOLE_ROW
+    # dots_qk keeps the first 64 key columns: S >= 64
+    if variant != "dots_qk" or shape[1] ** 2 >= 64])
 def test_window_attention_bisect(gen, variant, b, win, heads):
     """B-1's four modes of window_attention_rows.cu against their plain
     versions with chip_smoke's rule (the softmax modes allow max|v| / 128 on
@@ -617,22 +639,27 @@ def test_window_attention_bisect(gen, variant, b, win, heads):
         assert not trap_ok, trap_rel
 
 
-@pytest.mark.parametrize("b,win,heads", _BISECT_SHAPES)
+@pytest.mark.parametrize("b,win,heads", _BISECT_SHAPES + _BISECT_WHOLE_ROW)
 def test_window_attention_hmaj(gen, b, win, heads):
-    """B-2 (the kHmaj mode: softmax on head-major q, k, v) against its plain
-    version, on strided views of a packed projection and on head-major
-    copies (the same output)."""
+    """B-2 (the kHmaj mode: softmax on head-major q, k, v, read by TMA
+    through the views' own strides) against its plain version, on strided
+    views of a packed projection and on every other head of a head-major
+    tensor, and on contiguous copies of both (the same output)."""
     from chip_smoke import REL_L2_TOL, agreement
-    qkv = _rnd(gen, b, win * win, 3 * heads * 64)
-    views = A._split_qkv(qkv, heads)
+    s = win * win
+    qkv = _rnd(gen, b, s, 3 * heads * 64)
+    every_other = tuple(_rnd(gen, b, 2 * heads, s, 64)[:, ::2]
+                        for _ in range(3))
     kw = dict(scale=0.125)
-    got = _launched("window_attention_rows[hmaj]",
-                    lambda: A.window_attention_hmaj(*views, **kw))
-    ok, err, rel = agreement(got, A.window_attention_hmaj_plain(*views, **kw),
-                             REL_L2_TOL, float(views[2].abs().max()) / 128)
-    assert ok, (err, rel)
-    copies = [t.contiguous() for t in views]
-    assert torch.equal(A.window_attention_hmaj(*copies, **kw), got)
+    for views in (A._split_qkv(qkv, heads), every_other):
+        got = _launched("window_attention_rows[hmaj]",
+                        lambda: A.window_attention_hmaj(*views, **kw))
+        ok, err, rel = agreement(
+            got, A.window_attention_hmaj_plain(*views, **kw), REL_L2_TOL,
+            float(views[2].abs().max()) / 128)
+        assert ok, (err, rel)
+        copies = [t.contiguous() for t in views]
+        assert torch.equal(A.window_attention_hmaj(*copies, **kw), got)
 
 
 def test_bisect_wrappers_refuse_what_the_kernel_does_not_take(gen):
