@@ -199,13 +199,23 @@ def main() -> int:
     roots = [p.resolve() for p in args.paths]
     if args.one:
         return one(roots[0], args.build)
-    me = [sys.executable, str(pathlib.Path(__file__).resolve())]
+    return alternate(__file__, roots, args.rounds, "attention-ab",
+                     [label for label, _, _ in SHAPES])
+
+
+def alternate(script, roots, rounds: int, tag: str, labels) -> int:
+    """Build every checkout (`script --one --build PATH`, all at once), then
+    run `script --one PATH` for each checkout in turn, `rounds` times in
+    alternating order; each prints a line `tag {..., "ms": {label: ms}}`.
+    Prints `tag-summary`: per label, each checkout's mean ms over the
+    rounds and its ratio to the first checkout's."""
+    me = [sys.executable, str(pathlib.Path(script).resolve())]
     builds = [subprocess.Popen(me + ["--one", "--build", str(r)])
               for r in roots]
     if any(p.wait() for p in builds):
         return 1
     runs = {str(r): [] for r in roots}
-    for i in range(args.rounds):
+    for i in range(rounds):
         # alternate the order: A B .. then .. B A
         for r in (roots if i % 2 == 0 else roots[::-1]):
             proc = subprocess.run(me + ["--one", str(r)], capture_output=True,
@@ -215,16 +225,16 @@ def main() -> int:
             if proc.returncode:
                 return 1
             line = next(ln for ln in proc.stdout.splitlines()
-                        if ln.startswith("attention-ab "))
+                        if ln.startswith(f"{tag} "))
             runs[str(r)].append(json.loads(line.split(" ", 1)[1])["ms"])
     first = str(roots[0])
     summary = {}
-    for label, _, _ in SHAPES:
+    for label in labels:
         mean = {t: sum(m[label] for m in ms) / len(ms)
                 for t, ms in runs.items()}
         summary[label] = {t: dict(ms=v, vs_first=v / mean[first])
                           for t, v in mean.items()}
-    print("attention-ab-summary", json.dumps(summary), flush=True)
+    print(f"{tag}-summary", json.dumps(summary), flush=True)
     return 0
 
 

@@ -12,16 +12,20 @@
    B-2, at the shapes and inputs of the benchmarks that time them), in
    bf16 on the card, and times kernel, plain version and (where one
    PyTorch call computes the same function) the library call with CUDA
-   events; K-l's five rows and K-h's fused form also print
+   events; K-l's five rows, K-h's fused form and K-f also print
    `kernel_only_ms`, the launch alone on operands their wrapper's glue
-   made beforehand. A disagreement beyond the stated tolerance, a trap that the
-   tolerance passes, or a wrapper that did not launch its kernel, fails
-   the run. Then one line per A/B benchmark of the JAX package that times
-   K-l, K-m, B-1 or B-2 (`winattn-ab[...]`, `gattn-prep-ab`): per-call ms
-   of each variant beside the kernel SAM runs for that function (K-c for
-   the windows, K-d for the 64x64 grid) on the benchmark's inputs, and
-   the benchmark's numcheck, the max |diff| against that kernel, where
-   the variant computes that function.
+   made beforehand (K-f: the weights quantized), and K-b prints
+   `unfused_ms`, the unfused bf16 sequence (F.layer_norm, F.linear, GELU,
+   F.linear, add) on its inputs, a reference the port never calls. A
+   disagreement beyond the stated tolerance, a trap that the tolerance
+   passes, or a wrapper that did not launch its kernel, fails the run; so
+   does a spill that ptxas reports for the d-64 window and K-h kernels or
+   for any of the MLP kernels. Then one line per A/B benchmark of the JAX
+   package that times K-l, K-m, B-1 or B-2 (`winattn-ab[...]`,
+   `gattn-prep-ab`): per-call ms of each variant beside the kernel SAM
+   runs for that function (K-c for the windows, K-d for the 64x64 grid) on
+   the benchmark's inputs, and the benchmark's numcheck, the max |diff|
+   against that kernel, where the variant computes that function.
 3. Drives the float main path: `greedy_generate` of
    VQAModel(default_config()) in bf16 with seeded random weights on
    bench.py's inputs (6 views at 1024², BEV [1, 128, 180, 180], 24 prompt
@@ -347,12 +351,22 @@ def kernel_cases(torch):
             p = (1 + rnd(c, std=0.1), rnd(c, std=0.1),
                  rnd(c, h, std=c ** -0.5), rnd(h, std=0.1),
                  rnd(h, c, std=h ** -0.5), rnd(c, std=0.1))
+            ls, lb, w1, b1, w2, b2 = p
+            w1t, w2t = w1.t(), w2.t()       # F.linear's [out, in] views
+
+            def unfused():                  # a reference of several calls
+                y = F.layer_norm(x, (c,), ls, lb, 1e-6)
+                z = F.linear(y, w1t, b1)
+                z = (F.gelu(z, approximate="tanh") if act == "gelu"
+                     else z * torch.sigmoid(1.702 * z))
+                return x + F.linear(z, w2t, b2)
             return dict(
                 kernel=lambda: M.ln_mlp_residual(x, *p, eps=1e-6, act=act),
                 plain=lambda: M.ln_mlp_residual_plain(x, *p, eps=1e-6,
                                                       act=act),
                 library=None, flops=4 * n * c * h, peak=BF16_FLOPS,
-                bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h))
+                bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h),
+                info=("unfused_ms", unfused))
         return setup
 
     def q8_case(n, c, h, act):
@@ -363,14 +377,20 @@ def kernel_cases(torch):
             p = (1 + rnd(c, std=0.1), rnd(c, std=0.1),
                  rnd(c, h, std=c ** -0.5), rnd(h, std=0.1),
                  rnd(h, c, std=h ** -0.5), rnd(c, std=0.1))
+            block_h = M.q8_block_h(c, h, 2)
+            w1t, s1 = M.quantize_weight_t(p[2])
+            w2t, s2 = M.quantize_weight_t(p[4])
             case = dict(
                 kernel=lambda: M.ln_mlp_residual_q8(x, *p, eps=1e-6, act=act),
                 plain=lambda: M.ln_mlp_residual_q8_plain(x, *p, eps=1e-6,
                                                          act=act),
                 library=None, flops=4 * n * c * h, peak=INT8_OPS,
                 bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h),
-                rel_l2_tol=Q8_REL_L2_TOL)
-            if M.q8_block_h(c, h, 2) < h:      # h has per-chunk row scales
+                rel_l2_tol=Q8_REL_L2_TOL,
+                kernel_only=lambda: M.ln_mlp_residual_q8_launch(
+                    x, p[0], p[1], w1t, s1, p[3], w2t, s2, p[5],
+                    block_h=block_h, eps=1e-6, act=act))
+            if block_h < h:                    # h has per-chunk row scales
                 case["traps"] = {"whole_row_h_scale":
                                  lambda: M.ln_mlp_residual_q8_plain(
                                      x, *p, eps=1e-6, act=act, block_h=h)}
@@ -1615,9 +1635,10 @@ def device_busy(torch, generate) -> dict:
 # last prefill logits leaves room for that and catches a wrong layer.
 LOGITS_REL_TOL = 0.05
 # the sm_90a window and K-h float kernels whose v is 64 deep (mangled
-# win_sm90<64, ...> and kh_stream_sm90<DQ, 64, ...>): ptxas must report no
-# spill for them
-NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E")
+# win_sm90<64, ...> and kh_stream_sm90<DQ, 64, ...>) and every kernel of the
+# two MLP sources (mlp_gemm_sm90, mlp_ln_*, mlp_quant_h, mlp_combine,
+# mlp_wmax, mlp_wquant): ptxas must report no spill for them
+NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_")
 
 
 def main() -> int:
@@ -1658,7 +1679,7 @@ def main() -> int:
                     spills.append(f"{name}{entry}")
     sys.stdout.flush()
     if spills:
-        raise AssertionError(f"d-64 instances spill: {spills}")
+        raise AssertionError(f"kernels that must not spill do: {spills}")
 
     clock, phase_s = [time.perf_counter()], {}
 

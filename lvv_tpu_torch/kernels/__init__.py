@@ -33,10 +33,11 @@ launches: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "lvv_ln_mlp_residual": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    "lvv_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _P],
     "lvv_flash_attention": [_P] * 7 + [_I] * 8 + [_F, _P, _P],
     "lvv_relpos_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
-    "lvv_ln_mlp_residual_q8": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+    "lvv_ln_mlp_residual_q8": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
+    "lvv_ln_mlp_residual_q8_weight": [_P] * 4 + [_I] * 2 + [_P],
     "lvv_int8_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 4 + [_P],
     "lvv_w8a8_matmul": [_P] * 5 + [_I] * 4 + [_P],
@@ -45,6 +46,8 @@ _ARGTYPES = {
     "lvv_window_attention_rows": [_P] * 9 + [_I] * 6 + [_F, _P],
     "lvv_qr_prep": [_P] * 5 + [_I] * 8 + [_F, _P],
 }
+# C entry points beside a library's own `lvv_{name}`
+_ENTRIES = {"ln_mlp_residual_q8": ("lvv_ln_mlp_residual_q8_weight",)}
 _libs: dict = {}
 _lock = threading.Lock()
 
@@ -105,9 +108,10 @@ def lib(name: str) -> ctypes.CDLL:
         if name not in _libs:
             build_all((name,))
             handle = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(handle, f"lvv_{name}")
-            fn.argtypes = _ARGTYPES[f"lvv_{name}"]
-            fn.restype = ctypes.c_int
+            for entry in (f"lvv_{name}", *_ENTRIES.get(name, ())):
+                fn = getattr(handle, entry)
+                fn.argtypes = _ARGTYPES[entry]
+                fn.restype = ctypes.c_int
             _libs[name] = handle
         return _libs[name]
 

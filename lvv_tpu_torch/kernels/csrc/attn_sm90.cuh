@@ -408,16 +408,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// A 4-d bf16 tensor map over `base`: dims innermost first (dims[0]
-// contiguous), the byte strides of dims 1..3 (multiples of 16), read in
-// boxes of 64 columns by box_rows of dim 1 by box_rows2 of dim 2 (rows of
-// the tile in that order) with the 128-byte swizzle; zero past the bounds.
-// The driver's encoder comes through the runtime (the libraries are not
-// linked against libcuda).
-static cudaError_t tensor_map(CUtensorMap* map, const void* base,
-                              const cuuint64_t (&dims)[4],
-                              const cuuint64_t (&strides)[3],
-                              uint32_t box_rows, uint32_t box_rows2 = 1) {
+// cuTensorMapEncodeTiled, fetched through the runtime (the libraries are
+// not linked against libcuda).
+static cudaError_t tiled_encoder(EncodeTiledFn* out) {
   static EncodeTiledFn encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -429,6 +422,21 @@ static cudaError_t tensor_map(CUtensorMap* map, const void* base,
       return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A 4-d bf16 tensor map over `base`: dims innermost first (dims[0]
+// contiguous), the byte strides of dims 1..3 (multiples of 16), read in
+// boxes of 64 columns by box_rows of dim 1 by box_rows2 of dim 2 (rows of
+// the tile in that order) with the 128-byte swizzle; zero past the bounds.
+static cudaError_t tensor_map(CUtensorMap* map, const void* base,
+                              const cuuint64_t (&dims)[4],
+                              const cuuint64_t (&strides)[3],
+                              uint32_t box_rows, uint32_t box_rows2 = 1) {
+  EncodeTiledFn encode;
+  const cudaError_t e = tiled_encoder(&encode);
+  if (e != cudaSuccess) return e;
   const cuuint32_t box[4] = {64, box_rows, box_rows2, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(

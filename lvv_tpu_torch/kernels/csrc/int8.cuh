@@ -50,15 +50,7 @@ __device__ __forceinline__ void load_a8(uint32_t* a, const signed char* base,
 }
 
 // B fragment (k 32 x n 8) from a matrix stored n-major, w[n * ld + k], in
-// device memory (read through the read-only cache).
-__device__ __forceinline__ void load_b8(uint32_t* b, const signed char* w,
-                                        long long ld, int lane) {
-  const signed char* p = w + (long long)(lane >> 2) * ld + 4 * (lane & 3);
-  b[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-  b[1] = __ldg(reinterpret_cast<const unsigned int*>(p + 16));
-}
-
-// The same from shared memory.
+// shared memory.
 __device__ __forceinline__ void load_b8_s(uint32_t* b, const signed char* w,
                                           int ld, int lane) {
   const signed char* p = w + (lane >> 2) * ld + 4 * (lane & 3);

@@ -9,6 +9,8 @@
   held to on the card.
 - `norm_fast` and `kernel_ok` keep the JAX package's dispatch: the kernel
   for lane-aligned widths (multiples of 128), the plain path otherwise.
+- `mlp_plan` is the MLP kernels' schedule (tile widths, tiles, blocks,
+  K-f's chunk slices), from the shapes alone.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from . import quant
 
 _LANE = 128
 _ACTS = {"gelu": 0, "quick_gelu": 1}
+_SMS = 132                  # streaming multiprocessors of an H100 SXM
+_TILE = 128                 # rows and columns of a GEMM tile (gemm_sm90.cuh)
 
 
 def kernel_ok(x: torch.Tensor, c: int, hidden: int) -> bool:
@@ -97,6 +101,26 @@ def ln_mlp_residual_plain(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
     return (x.float() + o).to(x.dtype)
 
 
+def mlp_plan(n: int, c: int, h: int, block_h=None) -> dict:
+    """The MLP kernels' schedule for x [n, c] and a hidden width h, from the
+    shapes alone (gemm_sm90.cuh). Each product runs [128, 128] output tiles
+    on persistent blocks, two an SM, except K-b's second product: [128,
+    256] tiles (`bn2`), one block an SM, where C divides by 256 and that
+    leaves at least two waves of tiles. `tiles` counts each product's
+    tiles, the second's over `slices` hidden slices: one a `block_h` chunk
+    for K-f, whose parts are added in chunk order afterwards, none for K-b
+    (1). `blocks` is what each launch takes."""
+    rows = -(-n // _TILE)
+    slices = 1 if block_h is None else h // block_h
+    wide = (block_h is None and c % 256 == 0
+            and rows * (c // 256) >= 2 * _SMS)
+    bn2 = 256 if wide else _TILE
+    tiles = (rows * -(-h // _TILE), rows * -(-c // bn2) * slices)
+    blocks = (min(tiles[0], 2 * _SMS),
+              min(tiles[1], (1 if wide else 2) * _SMS))
+    return dict(tiles=tiles, bn2=bn2, slices=slices, blocks=blocks)
+
+
 def ln_mlp_residual(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
                     act: str = "gelu", quant8: bool = False):
     """Kernel K-b: x [..., C] -> x + act(LN(x) @ w1 + b1) @ w2 + b2 with
@@ -125,12 +149,15 @@ def ln_mlp_residual(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
         raise ValueError(f"ln_mlp_residual: unsupported C={c} H={h} "
                          f"act={act!r}")
     x2 = x.reshape(-1, c).contiguous()
+    n = x2.shape[0]
     out = torch.empty_like(x2)
-    if x2.shape[0]:
+    if n:
+        # scratch: LN(x) and the hidden activation, both bf16
+        y, hb = x2.new_empty(n, c), x2.new_empty(n, h)
         args = [t.contiguous() for t in (x2, ls, lb, w1, b1, w2, b2)]
         fn = kernels.lib("ln_mlp_residual").lvv_ln_mlp_residual
-        err = fn(*(t.data_ptr() for t in args), out.data_ptr(), x2.shape[0],
-                 c, h, ctypes.c_float(eps), _ACTS[act],
+        err = fn(*(t.data_ptr() for t in args + [out, y, hb]), n, c, h,
+                 ctypes.c_float(eps), _ACTS[act], mlp_plan(n, c, h)["bn2"],
                  torch.cuda.current_stream(x.device).cuda_stream)
         kernels.check(err, "ln_mlp_residual")
         kernels.launches["ln_mlp_residual"] += 1
@@ -215,19 +242,54 @@ def ln_mlp_residual_q8(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
             or act not in _ACTS):
         raise ValueError(f"ln_mlp_residual_q8: unsupported C={c} H={h} "
                          f"(chunk {block_h}) act={act!r}")
-    # the kernel reads each B fragment as 4 consecutive k of one column:
-    # the quantized weights are handed over transposed ([H, C], [C, H])
-    w1q, s1 = quant.quantize_weight(w1)
-    w2q, s2 = quant.quantize_weight(w2)
-    w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()
+    w1t, s1 = quantize_weight_t(w1)
+    w2t, s2 = quantize_weight_t(w2)
+    return ln_mlp_residual_q8_launch(x, ls, lb, w1t, s1, b1, w2t, s2, b2,
+                                     block_h=block_h, eps=eps, act=act)
+
+
+def quantize_weight_t(w):
+    """quant.quantize_weight of a bf16 weight w [K, N] on the card, the int8
+    matrix transposed ([N, K]: int8 wgmma reads both operands K-major) ->
+    (int8 [N, K], scale [N] fp32). Part of K-f's wrapper: its launch is not
+    counted apart."""
+    k, n = w.shape
+    wt = torch.empty(n, k, dtype=torch.int8, device=w.device)
+    s = torch.empty(n, dtype=torch.float32, device=w.device)
+    pm = torch.empty(-(-k // 128), n, dtype=torch.float32, device=w.device)
+    fn = kernels.lib("ln_mlp_residual_q8").lvv_ln_mlp_residual_q8_weight
+    err = fn(w.contiguous().data_ptr(), wt.data_ptr(), s.data_ptr(),
+             pm.data_ptr(), k, n,
+             torch.cuda.current_stream(w.device).cuda_stream)
+    kernels.check(err, "ln_mlp_residual_q8 weights")
+    return wt, s
+
+
+def ln_mlp_residual_q8_launch(x, ls, lb, w1t, s1, b1, w2t, s2, b2, *,
+                              block_h: int, eps: float, act: str):
+    """K-f's launch on weights already quantized and transposed (w1t [H, C],
+    w2t [C, H] int8, s1 [H], s2 [C] fp32), as ln_mlp_residual_q8 hands them
+    over after checking its operands; b1 / b2 bf16."""
+    c, h = x.shape[-1], w1t.shape[0]
     x2 = x.reshape(-1, c).contiguous()
+    n = x2.shape[0]
     out = torch.empty_like(x2)
-    if x2.shape[0]:
+    if n:
+        chunks = mlp_plan(n, c, h, block_h)["slices"]
+        i8, f32 = torch.int8, torch.float32
+        # scratch: y8, sy, h, the |h| maxima of each 64-column panel, h8,
+        # sh and, with more than one chunk, the chunks' fp32 parts
+        scratch = [x2.new_empty(n, c, dtype=i8), x2.new_empty(n, dtype=f32),
+                   x2.new_empty(n, h), x2.new_empty(n, h // 64, dtype=f32),
+                   x2.new_empty(n, h, dtype=i8),
+                   x2.new_empty(n, chunks, dtype=f32)]
+        part = x2.new_empty(chunks, n, c, dtype=f32) if chunks > 1 else None
         args = (x2, ls.contiguous(), lb.contiguous(), w1t, s1,
-                b1.contiguous(), w2t, s2, b2.contiguous())
+                b1.contiguous(), w2t, s2, b2.contiguous(), out, *scratch)
         fn = kernels.lib("ln_mlp_residual_q8").lvv_ln_mlp_residual_q8
-        err = fn(*(t.data_ptr() for t in args), out.data_ptr(), x2.shape[0],
-                 c, h, block_h, ctypes.c_float(eps), _ACTS[act],
+        err = fn(*(t.data_ptr() for t in args),
+                 None if part is None else part.data_ptr(), n, c, h, block_h,
+                 ctypes.c_float(eps), _ACTS[act],
                  torch.cuda.current_stream(x.device).cuda_stream)
         kernels.check(err, "ln_mlp_residual_q8")
         kernels.launches["ln_mlp_residual_q8"] += 1

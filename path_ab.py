@@ -3,6 +3,7 @@ on one H100, alternating the checkouts, so that their batch-1 latencies are
 compared on one host:
 
     python3 path_ab.py PATH [PATH ...] [--rounds 2] [--runs 5]
+                       [--sizes 1024,1280]
 
 PATH is the root of a checkout (e.g. a commit unpacked with `git archive`).
 The checkouts' kernels are built first, all at once; then, for each round,
@@ -22,13 +23,16 @@ tokens):
 - "serving 1280 mlp,dense,attn": the serving model at 1280² under that
   scope ("serving-path[sam1280,mlp,dense,attn]").
 
-Each path is warmed up once, then timed `--runs` times on the host's clock
-(synchronised); the process prints one JSON line with every time, the p50
-and the first row's tokens. After the last round the first process prints
-one `path-ab-summary` line: per path, each checkout's p50 over all its runs,
-its per-round p50s, its ratio to the first checkout's, and whether every
-run of every checkout gave the same tokens. Exits non-zero without a CUDA
-device.
+`--sizes 1024` drives the first three only. Each path is warmed up once,
+then timed `--runs` times on the host's clock (synchronised), and so is its
+encode alone (`encode_prefix` of the views and BEV grid, as chip_smoke.py
+times it: device-bound at batch 8, less at the host's mercy than the p50);
+the process prints one JSON line with every time, the p50s and the first
+row's tokens. After the last round the first process prints one
+`path-ab-summary` line: per path, each checkout's p50 over all its runs,
+its per-round p50s, its ratio to the first checkout's, the same three for
+the encode, and whether every run of every checkout gave the same tokens.
+Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -53,17 +57,25 @@ def drive(torch, cs, model, args, packed, runs: int) -> dict:
         torch.cuda.synchronize()
         return toks
 
+    def encode():
+        with torch.inference_mode():
+            model.encode_prefix(*args[:3]).float().sum().item()
+        torch.cuda.synchronize()
+
     toks = generate()                            # warm-up
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        generate()
-        times.append(time.perf_counter() - t0)
+    encode()
+    times, enc = [], []
+    for fn, out in ((generate, times), (encode, enc)):
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
     return dict(times_s=times, p50_s=statistics.median(times),
+                encode_s=enc, encode_p50_s=statistics.median(enc),
                 tokens=toks[0].tolist())
 
 
-def one(root: pathlib.Path, build_only: bool, runs: int) -> int:
+def one(root: pathlib.Path, build_only: bool, runs: int, sizes) -> int:
     import torch
     if not torch.cuda.is_available():
         print("path_ab: no CUDA device", file=sys.stderr)
@@ -81,7 +93,7 @@ def one(root: pathlib.Path, build_only: bool, runs: int) -> int:
         return [torch.as_tensor(a, device="cuda") for a in arrays]
 
     out = {}
-    for size in (1024, cs.LARGE):
+    for size in sizes:
         cfg = cs.config(size, quant8=False)
         model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
         out[f"float {size}"] = drive(torch, cs, model,
@@ -109,14 +121,17 @@ def main() -> int:
     ap.add_argument("paths", nargs="+", type=pathlib.Path)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--sizes", default="1024,1280",
+                    help="SAM resolutions whose paths to drive")
     ap.add_argument("--one", action="store_true",
                     help="time the one checkout PATH in this process")
     ap.add_argument("--build", action="store_true",
                     help="with --one: only build its kernels")
     args = ap.parse_args()
     roots = [p.resolve() for p in args.paths]
+    sizes = [int(v) for v in args.sizes.split(",")]
     if args.one:
-        return one(roots[0], args.build, args.runs)
+        return one(roots[0], args.build, args.runs, sizes)
     me = [sys.executable, str(pathlib.Path(__file__).resolve())]
     builds = [subprocess.Popen(me + ["--one", "--build", str(r)])
               for r in roots]
@@ -127,8 +142,8 @@ def main() -> int:
         # alternate the order: A B .. then .. B A
         for r in (roots if i % 2 == 0 else roots[::-1]):
             proc = subprocess.run(me + ["--one", "--runs", str(args.runs),
-                                        str(r)], capture_output=True,
-                                  text=True)
+                                        "--sizes", args.sizes, str(r)],
+                                  capture_output=True, text=True)
             sys.stdout.write(proc.stdout)
             sys.stderr.write(proc.stderr)
             if proc.returncode:
@@ -138,13 +153,17 @@ def main() -> int:
             runs[str(r)].append(json.loads(line.split(" ", 1)[1])["paths"])
     first = str(roots[0])
     summary = {}
-    for name in PATHS:
-        p50 = {t: statistics.median([x for p in rs for x in p[name]["times_s"]])
-               for t, rs in runs.items()}
-        summary[name] = {t: dict(
-            p50_s=v, vs_first=v / p50[first],
-            round_p50s=[p[name]["p50_s"] for p in runs[t]])
-            for t, v in p50.items()}
+    for name in (n for n in PATHS if n in runs[first][0]):
+        summary[name] = {t: {} for t in runs}
+        for key, samples in (("", "times_s"), ("encode_", "encode_s")):
+            p50 = {t: statistics.median([x for p in rs
+                                         for x in p[name][samples]])
+                   for t, rs in runs.items()}
+            for t, v in p50.items():
+                summary[name][t].update({
+                    f"{key}p50_s": v, f"{key}vs_first": v / p50[first],
+                    f"{key}round_p50s": [p[name][f"{key}p50_s"]
+                                         for p in runs[t]]})
         summary[name]["tokens_equal"] = len({
             json.dumps(p[name]["tokens"]) for rs in runs.values()
             for p in rs}) == 1

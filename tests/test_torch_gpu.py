@@ -68,8 +68,13 @@ def test_norm(gen, rms, n, c):
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 @pytest.mark.parametrize("n,c,h", [(50, 128, 256), (77, 768, 3072),
-                                   (33, 1024, 4096)])
+                                   (33, 1024, 4096), (1, 768, 3072),
+                                   (130, 256, 384), (3, 128, 192),
+                                   (33920, 256, 128)])
 def test_ln_mlp_residual(gen, act, n, c, h):
+    """K-b at SAM's and CLIP's widths, one token, a ragged last token tile
+    over three column tiles, H = 192 (a column tile half outside), and
+    265 token tiles (the second product on 256-wide tiles)."""
     x = _rnd(gen, n, c)
     p = (1 + _rnd(gen, c, std=0.1), _rnd(gen, c, std=0.1),
          _rnd(gen, c, h, std=c ** -0.5), _rnd(gen, h, std=0.1),
@@ -161,10 +166,15 @@ def _mlp_params(gen, c, h):
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 @pytest.mark.parametrize("n,c,h", [(77, 768, 3072), (33, 1024, 4096),
-                                   (3, 128, 192), (130, 256, 1024)])
+                                   (3, 128, 192), (130, 256, 1024),
+                                   (1, 1024, 4096), (300, 1024, 4096),
+                                   (1, 768, 3072)])
 def test_ln_mlp_residual_q8(gen, act, n, c, h):
-    """K-f at SAM's and CLIP's widths (one 3072 chunk; two 2048 chunks) and
-    odd shapes: 3 tokens with 64-wide chunks, 130 tokens (a ragged tile)."""
+    """K-f at SAM's and CLIP's widths (one 3072 chunk; two 2048 chunks,
+    each a slice of the second product, added by the combine pass) and odd
+    shapes: 3 tokens with 64-wide chunks, 130 tokens (a ragged tile), one
+    token, and 300 tokens of CLIP (a ragged last tile across the chunk
+    boundary)."""
     from chip_smoke import Q8_REL_L2_TOL, agreement
     x = _rnd(gen, n, c)
     p = _mlp_params(gen, c, h)
@@ -173,6 +183,19 @@ def test_ln_mlp_residual_q8(gen, act, n, c, h):
     ok, err, rel = agreement(got, M.ln_mlp_residual_q8_plain(
         x, *p, eps=1e-6, act=act), Q8_REL_L2_TOL)
     assert ok, (err, rel)
+
+
+@pytest.mark.parametrize("k,n", [(768, 3072), (3072, 768), (1024, 4096),
+                                 (4096, 1024), (192, 128), (128, 192)])
+def test_quantize_weight_t_is_quantize_weight(gen, k, n):
+    """K-f's per-call weight quantization on the card is quant.
+    quantize_weight bit for bit (there: max|w| times the reciprocal of 127),
+    transposed."""
+    w = _rnd(gen, k, n, std=0.05)
+    w[:, 5] = 0                                        # the 1e-8 floor
+    wt, s = M.quantize_weight_t(w)
+    q, s0 = Q.quantize_weight(w)
+    assert torch.equal(wt, q.t().contiguous()) and torch.equal(s, s0)
 
 
 def test_q8_tolerance_sees_a_wrong_h_scale(gen):
