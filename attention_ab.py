@@ -1,10 +1,12 @@
 """Time the port's attention kernels in several checkouts of this
 repository on one H100, alternating the checkouts: the flash attention
 kernel (K-e, `flash_attention`) and the rel-pos attention kernel (K-c /
-K-d, the float arm of `relpos_attention`) at every main-path shape, and
-the window kernel (K-l's five bodies, B-1's four variants, B-2) and the
-float forms of K-h (`flash_attention_relpos`: streaming, fused, small; K-m
-on the fused form) at their benchmarks' shapes:
+K-d, the float arm of `relpos_attention`) at every main-path shape, the
+three int8 p@v launches (K-d8, `relpos_attention(..., pv_int8=True)`, at
+1024²; K-h's int8 arm at 1280² and its fused form at its benchmark's
+shape), and the window kernel (K-l's five bodies, B-1's four variants,
+B-2) and the float forms of K-h (`flash_attention_relpos`: streaming,
+fused, small; K-m on the fused form) at their benchmarks' shapes:
 
     python3 attention_ab.py PATH [PATH ...] [--rounds 2]
 
@@ -26,7 +28,8 @@ Inputs are drawn once per shape from torch's generator on the card (seed
 projections (K-h's too, its tables 0.5·N(0, 1)); the window bodies' and
 bisect variants' qkv N(0, 1), rel_h and rel_w 0.3·N(0, 1), bias2's rows
 0.5·N(0, 1) and expanders 0.1·N(0, 1); K-c / K-d's and K-m's qkv
-0.5·N(0, 1), rel_h and rel_w 0.1·N(0, 1). Times are
+0.5·N(0, 1) (K-d8's N(0, 1), as chip_smoke.py draws it: peaked rows),
+rel_h and rel_w 0.1·N(0, 1). Times are
 CUDA-event means over 20 calls after a warm-up, the stream first held busy
 so that the host has queued every call. After the last round the first
 process prints one `attention-ab-summary` line: per shape, each
@@ -43,7 +46,8 @@ import subprocess
 import sys
 
 # (label, kind, shape): flash (b, sq, sk, hq, hkv, d, causal, short row
-# (row, kv_len) or None); relpos (b, g, heads, d)
+# (row, kv_len) or None); relpos, relpos8 (b, g, heads, d); kh (b, g,
+# heads, d, block_q, block_k, launch name[, quant8])
 PRE = 1564                           # the 1024² prefill's tokens
 SHORT_8 = (5, PRE - 24 + 17)         # (row, kv_len) cut short at batch 8
 SHAPES = [
@@ -55,6 +59,8 @@ SHAPES = [
      (1, PRE, PRE, 14, 2, 64, True, None)),
     ("1024 windows [150,196,2304]", "relpos", (150, 14, 12, 64)),
     ("1024 global [6,4096,2304]", "relpos", (6, 64, 12, 64)),
+    ("1024 K-d8 int8 global [6,4096,2304] groups 1024", "relpos8",
+     (6, 64, 12, 64)),
     ("1280 VATVision self q1200 kv1200 8h d256", "flash",
      (1, 1200, 1200, 8, 8, 256, False, None)),
     ("1280 VATVision cross q1200 kv2400 8h d256", "flash",
@@ -78,8 +84,13 @@ SHAPES = [
     # K-h (b, grid side, heads, d, block_q, block_k, launch name)
     ("1280 K-h streaming [6,12,6400,64]", "kh",
      (6, 80, 12, 64, 4096, 1024, "flash_attention_relpos[80x80]")),
+    ("1280 K-h int8 [6,12,6400,64] groups 1024", "kh",
+     (6, 80, 12, 64, 4096, 1024, "flash_attention_relpos_pv8[80x80]", True)),
     ("bench K-h fused [6,12,4096,64]", "kh",
      (6, 64, 12, 64, 4096, 1024, "flash_attention_relpos_fused[64x64]")),
+    ("bench K-h fused int8 [6,12,4096,64] groups 1024", "kh",
+     (6, 64, 12, 64, 4096, 1024, "flash_attention_relpos_fused_pv8[64x64]",
+      True)),
     ("bench K-h small [150,12,196,64]", "kh",
      (150, 14, 12, 64, 256, 256, "flash_attention_relpos_mh[14x14]")),
     ("bench K-m prepped [6,4096,2304]", "prepped", (6, 64, 12, 64)),
@@ -120,14 +131,15 @@ def case(torch, A, kind, shape):
         return (lambda: A.flash_attention(q, k, v, causal=causal,
                                           kv_len=kv_len)), "flash_attention"
     if kind == "kh":
-        b, g, heads, d, bq, bk, name = shape
+        b, g, heads, d, bq, bk, name, *quant8 = shape
         s = g * g
         q, k, v = rnd(b, s, 3 * heads * d).view(b, s, 3, heads, d).permute(
             2, 0, 3, 1, 4)
         ops = (q, k, v, rnd(b, heads, s, g, std=0.5),
                rnd(b, heads, s, g, std=0.5))
         return (lambda: A.flash_attention_relpos(
-            *ops, scale=d ** -0.5, grid_w=g, block_q=bq, block_k=bk)), name
+            *ops, scale=d ** -0.5, grid_w=g, block_q=bq, block_k=bk,
+            quant8=bool(quant8))), name
     if kind == "hmaj":
         b, g, heads, d = shape
         q, k, v = (rnd(b, heads, g * g, d) for _ in range(3))
@@ -148,8 +160,12 @@ def case(torch, A, kind, shape):
             qkv, variant=variant, heads=heads, scale=d ** -0.5, qrh=qrh,
             qrw=qrw, eh=eh, ew=ew)), f"window_attention_rows[{variant}]"
     b, g, heads, d = shape
-    qkv = rnd(b, g * g, 3 * heads * d, std=0.5)
+    qkv = rnd(b, g * g, 3 * heads * d, std=1.0 if kind == "relpos8" else 0.5)
     rh, rw = rnd(g, g, d, std=0.1), rnd(g, g, d, std=0.1)
+    if kind == "relpos8":
+        return (lambda: A.relpos_attention(
+            qkv, rh, rw, heads=heads, scale=d ** -0.5, pv_int8=True,
+            pv_group=1024)), f"relpos_attention_pv8[{g}x{g}]"
     if kind == "prepped":
         return (lambda: A.flash_attention_relpos_hpacked_prepped(
             qkv, rh, rw, scale=d ** -0.5, grid_w=g, heads=heads)), \

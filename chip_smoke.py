@@ -20,7 +20,7 @@
    disagreement beyond the stated tolerance, a trap that the tolerance
    passes, or a wrapper that did not launch its kernel, fails the run; so
    does a spill that ptxas reports for the d-64 window and K-h kernels or
-   for any of the MLP kernels. Then one line per A/B benchmark of the JAX
+   for any of the MLP or int8 p@v kernels. Then one line per A/B benchmark of the JAX
    package that times K-l, K-m, B-1 or B-2 (`winattn-ab[...]`,
    `gattn-prep-ab`): per-call ms of each variant beside the kernel SAM
    runs for that function (K-c for the windows, K-d for the 64x64 grid) on
@@ -545,6 +545,11 @@ def kernel_cases(torch):
                     abs_extra=float(qkv[..., 2 * c:].abs().max()) / 127,
                     traps={"whole_row_p_scale": lambda: A.relpos_attention_plain(
                         qkv, rh, rw, pv_int8=True, pv_group=s, **kw)})
+                # the launch alone, on v's int8 operands made beforehand
+                pv8 = A.pv8_v_operands(qkv[..., 2 * c:].view(b, s, heads, d),
+                                       1)
+                case["kernel_only"] = lambda: A._relpos_launch(
+                    qkv, rh, rw, pv_group=1024, pv8=pv8, **kw)
             return case
         return setup
 
@@ -565,14 +570,23 @@ def kernel_cases(torch):
                 plain=lambda: A.flash_attention_relpos_plain(*ops, **kw),
                 library=None, bytes=2 * b * heads * s * (4 * d + 2 * g),
                 flops=2 * pair, peak=BF16_FLOPS)
-            if A.kh_form(s, d, g, bq, bk)[0] == "fused" and not quant8:
-                # the launch alone, on the operands its glue made
+            form, kv_end, tile = A.kh_form(s, d, g, bq, bk)
+            # the launch alone, on the operands its glue made (the fused
+            # form's q_aug, k_aug, width table; the int8 arm's v8t, sv)
+            pv8 = A.pv8_v_operands(v, 2) if quant8 else None
+            name = (f"flash_attention_relpos{'_fused' * (form == 'fused')}"
+                    f"{'_pv8' * quant8}[{g}x{g}]")
+            if form == "fused":
                 fo = A.fused_operands(q, k, ops[3], ops[4], scale=kw["scale"],
                                       grid_w=g)
                 case["kernel_only"] = lambda: A._kh_launch(
-                    A._KH_MODES["fused"], f"flash_attention_relpos_fused"
-                    f"[{g}x{g}]", fo[0], fo[1], v, None, fo[2],
-                    scale=kw["scale"], grid_w=g, d=d, kv_end=s, group=0)
+                    A._KH_MODES["fused"], name, fo[0], fo[1], v, None, fo[2],
+                    scale=kw["scale"], grid_w=g, d=d, kv_end=s,
+                    group=bk if quant8 else 0, pv8=pv8)
+            elif quant8:
+                case["kernel_only"] = lambda: A._kh_launch(
+                    A._KH_MODES["stream"], name, *ops, scale=kw["scale"],
+                    grid_w=g, d=d, kv_end=kv_end, group=tile, pv8=pv8)
             if quant8:
                 case.update(ops_ms=(pair / BF16_FLOPS + pair / INT8_OPS) * 1e3,
                             abs_extra=float(v.abs().max()) / 127,
@@ -803,6 +817,10 @@ def kernel_cases(torch):
         ("flash_attention_relpos_fused[64x64]",
          "[6,12,4096,64] tiles 4096/1024 (benchmarks/gattn_fused_micro.py)",
          0, kh_case(6, 64, 12, 64)),
+        ("flash_attention_relpos_fused_pv8[64x64]",
+         "[6,12,4096,64] tiles 4096/1024, int8 groups of 1024 "
+         "(benchmarks/gattn_fused_micro.py)", 0,
+         kh_case(6, 64, 12, 64, quant8=True)),
         ("flash_attention_relpos_mh[14x14]",
          "[150,12,196,64] tiles 256 (benchmarks/sam_block_bisect.py)", 0,
          kh_case(150, 14, 12, 64, bq=256, bk=256)),
@@ -975,6 +993,9 @@ ROWS = {
     "flash_attention_relpos_fused[64x64]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
         "lvv_tpu/ops/attention.py:553"),
+    "flash_attention_relpos_fused_pv8[64x64]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
+        "lvv_tpu/ops/attention.py:592"),
     "flash_attention_relpos_mh[14x14]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
         "lvv_tpu/ops/attention.py:363"),
@@ -1638,7 +1659,8 @@ LOGITS_REL_TOL = 0.05
 # win_sm90<64, ...> and kh_stream_sm90<DQ, 64, ...>) and every kernel of the
 # two MLP sources (mlp_gemm_sm90, mlp_ln_*, mlp_quant_h, mlp_combine,
 # mlp_wmax, mlp_wquant): ptxas must report no spill for them
-NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_")
+NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
+                      r"pv8_sm90|pv8_v_")
 
 
 def main() -> int:

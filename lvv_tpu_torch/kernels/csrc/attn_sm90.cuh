@@ -451,6 +451,9 @@ static cudaError_t tensor_map(CUtensorMap* map, const void* base,
 // plus the slack to align the dynamic base.
 constexpr int kSmemAlign = 1024;
 
+// the most dynamic shared memory a block may take (H100: 227 KB)
+constexpr int kMaxSmem = 232448;
+
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + kSmemAlign - 1) &

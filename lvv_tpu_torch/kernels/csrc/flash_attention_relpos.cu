@@ -34,9 +34,9 @@
 //            expander on the tensor cores. Otherwise (kSmall2, S <= 512):
 //            the streaming kernel walks kv twice, row maxima and sums
 //            first, then p@v with each p divided before rounding.
-// The int8 p@v arm of kStream and kFused (PV8, kh_pv8_kernel) keeps the
-// first version's mma.sync loop (pv8_loop.cuh) with groups of the TPU's kv
-// tile (1024 columns from column 0).
+// The int8 p@v arm of kStream and kFused (kh_pv8_sm90) runs on
+// pv8_sm90.cuh's core, with groups of the TPU's kv tile (1024 columns from
+// column 0).
 //
 // What bounds it on the H100: the two products, 4·S²·d operations per
 // (view, head), against reading q, k, v and the tables once: far above the
@@ -58,18 +58,26 @@
 // (160 or 128 keys), so kh and kw are known at compile time up to the
 // tile's row and the lane, as in relpos_attention.cu's 64-wide grids, and
 // keys past kv_end (whole grid rows) are masked through the height bias.
-// The int8 arm's design: one block per (64-row q tile, head, view) copies
-// its q rows and table rows (fp32, odd pitch) into shared memory, then runs
-// pv8_loop; each kv tile's load writes the tile's 64 (kv / gw, kv % gw).
+// The int8 arm's design (kh_pv8_sm90): the two passes a group of
+// pv8_sm90.cuh with K (and v8t's int8 tiles) through the TMA ring, on the
+// plan of ops/attention.py `pv8_plan`. The block's rows of the tables lie
+// in shared memory as fp32 times log2(e) where they fit beside two stages,
+// else they are read from the caller's bf16 tables where they lie (any
+// grid the wrapper admits, those 600 wide among them). On SAM's 80x80
+// grid (rule "wide") the 128-key tiles do not follow grid rows, so a
+// 64-key step spans two of them and each 8-column block picks its row's
+// height bias, while the width rows, extended past gw, are read at the
+// step's kw plus a compile-time offset; the fused form's 64-wide grid has
+// kw at compile time ("g64"); other grids step each lane's (kv / gw,
+// kv % gw) by 8 keys ("any").
 #include <string.h>
 
-#include "pv8_loop.cuh"
+#include "pv8_sm90.cuh"
 #include "window_sm90.cuh"
 
 enum { kStream = 0, kFused = 1, kSmall = 2, kSmall2 = 3 };
 
-// ------------------------------------------------------------- int8 arm
-
+// The C entry's arguments.
 struct KhArgs {
   const bf16 *q, *k, *v, *qrh, *qrw;
   const signed char* v8t;  // [B, H, d, s_pad8] int8 v (int8 arm)
@@ -77,122 +85,9 @@ struct KhArgs {
   bf16* out;
   long long st[18];        // (view, head, token) strides of q, k, v, out,
                            // qrh, qrw
-  int heads, s, gh, gw, kv_end, group, s_pad8, ldh, ldw;
+  int heads, s, gh, gw, kv_end, group, s_pad8;
   float scale;
 };
-
-// DQ: depth of the score product (d, or 128 in kFused); DV: head dim of v.
-template <int DQ, int DV, int MODE>
-__global__ void __launch_bounds__(kAttnThreads) kh_pv8_kernel(const KhArgs a) {
-  constexpr int LDQ = DQ + 8, LDV = DV + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* colh_s = reinterpret_cast<int*>(smem_raw);      // [kBK] kv / gw
-  int* colw_s = colh_s + kBK;                          // [kBK] kv % gw
-  bf16* q_s = reinterpret_cast<bf16*>(colw_s + kBK);   // [kBQ][LDQ]
-  bf16* k_s = q_s + kBQ * LDQ;                         // [kBK][LDQ]
-  bf16* v_s = k_s + kBK * LDQ;                         // [kBK][LDV]
-  float* bw_s = reinterpret_cast<float*>(v_s + kBK * LDV);  // [kBQ][ldw]
-  float* bh_s = bw_s + kBQ * a.ldw;                    // [kBQ][ldh]
-
-  const int q_start = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = a.q + b * a.st[0] + h * a.st[1];
-  const bf16* kb = a.k + b * a.st[3] + h * a.st[4];
-
-  for (int i = threadIdx.x; i < kBQ * DQ / 8; i += kAttnThreads) {
-    const int r = i / (DQ / 8), c = (i % (DQ / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q_start + r < a.s)
-      val = *reinterpret_cast<const uint4*>(qb + (q_start + r) * a.st[2] + c);
-    *reinterpret_cast<uint4*>(q_s + r * LDQ + c) = val;
-  }
-  // this q tile's rows of the tables (0 past S: those rows are not written)
-  const bf16* rwb = a.qrw + b * a.st[15] + h * a.st[16];
-  for (int i = threadIdx.x; i < kBQ * a.gw; i += kAttnThreads) {
-    const int r = i / a.gw, j = i - r * a.gw;
-    bw_s[r * a.ldw + j] =
-        q_start + r < a.s ? bf(rwb[(q_start + r) * a.st[17] + j]) : 0.f;
-  }
-  if constexpr (MODE != kFused) {
-    const bf16* rhb = a.qrh + b * a.st[12] + h * a.st[13];
-    for (int i = threadIdx.x; i < kBQ * a.gh; i += kAttnThreads) {
-      const int r = i / a.gh, j = i - r * a.gh;
-      bh_s[r * a.ldh + j] =
-          q_start + r < a.s ? bf(rhb[(q_start + r) * a.st[14] + j]) : 0.f;
-    }
-  }
-  // (pv8_loop synchronises before its first read of shared memory)
-
-  auto load_k = [&](int k0) {
-    load_rows<DQ>(k_s, kb + k0 * a.st[5], a.st[5], a.kv_end - k0);
-    for (int c = threadIdx.x; c < kBK; c += kAttnThreads) {
-      const int kh = (k0 + c) / a.gw;
-      colh_s[c] = kh;
-      colw_s[c] = k0 + c - kh * a.gw;
-    }
-  };
-  // log2-domain logit of tile row r at kv column col (k0 is a multiple of
-  // kBK, so col % kBK indexes the tile's column table)
-  auto score = [&](float acc, int r, int col) {
-    if (col >= a.kv_end) return LVV_NEG_BIG;
-    const int c = col & (kBK - 1);
-    if constexpr (MODE == kFused) {
-      return acc + bw_s[r * a.ldw + colw_s[c]];
-    } else {
-      return ((acc * a.scale + bh_s[r * a.ldh + colh_s[c]]) +
-              bw_s[r * a.ldw + colw_s[c]]) * LVV_LOG2E;
-    }
-  };
-  auto scores = [&](int k0, float (&sc)[kBK / 8][4]) {
-    qk_scores<DQ>(sc, q_s, k_s, k0, score);
-  };
-
-  float o[DV / 8][4];
-  float l0, l1;
-  // the v region holds the int8 v tile instead (it is large enough)
-  signed char* v8_s = reinterpret_cast<signed char*>(v_s);
-  const signed char* v8b = a.v8t + ((long long)b * a.heads + h) * DV * a.s_pad8;
-  auto load_v8 = [&](int k0) {
-    for (int i = threadIdx.x; i < DV * kBK / 16; i += kAttnThreads) {
-      const int n = i / (kBK / 16), cc = (i % (kBK / 16)) * 16;
-      *reinterpret_cast<uint4*>(v8_s + n * kLDV8 + cc) =
-          *reinterpret_cast<const uint4*>(v8b + (long long)n * a.s_pad8 +
-                                          k0 + cc);
-    }
-  };
-  pv8_loop<DV>(v8_s, a.kv_end, a.group, load_k, load_v8, scores,
-               a.sv + ((long long)b * a.heads + h) * DV, o, l0, l1);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = q_start + warp * 16 + (lane >> 2);
-  bf16* ob = a.out + b * a.st[9] + h * a.st[10];
-#pragma unroll
-  for (int j = 0; j < DV / 8; ++j) {
-    const int col = j * 8 + 2 * (lane & 3);
-    if (r0 < a.s)
-      *reinterpret_cast<uint32_t*>(ob + r0 * a.st[11] + col) =
-          pack_f32(o[j][0] / l0, o[j][1] / l0);
-    if (r0 + 8 < a.s)
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * a.st[11] + col) =
-          pack_f32(o[j][2] / l1, o[j][3] / l1);
-  }
-}
-
-template <int DQ, int DV, int MODE>
-static int launch_pv8(const KhArgs& a, int b, cudaStream_t stream) {
-  static_assert(DV * kLDV8 <= kBK * (DV + 8) * (int)sizeof(bf16),
-                "the int8 v tile must fit the bf16 v region");
-  const size_t smem = 2 * kBK * sizeof(int) +
-                      (size_t)(kBQ + kBK) * (DQ + 8) * sizeof(bf16) +
-                      (size_t)kBK * (DV + 8) * sizeof(bf16) +
-                      (size_t)kBQ * (a.ldw + (MODE == kFused ? 0 : a.ldh)) *
-                          sizeof(float);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(kh_pv8_kernel<DQ, DV, MODE>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.s + kBQ - 1) / kBQ, a.heads, b);
-  kh_pv8_kernel<DQ, DV, MODE><<<grid, kAttnThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------------ float arm
 
@@ -654,6 +549,198 @@ static int launch_float(const void* q, const void* k, const void* v,
                  : launch_stream<128, 128, kSmall2>(maps, a, b, heads, stream);
 }
 
+// ------------------------------------------------------------- int8 arm
+
+struct KhPv8Args {
+  bf16* out;
+  const bf16 *qrh, *qrw;
+  const float* sv;    // [B, H, DV] per-channel scales of v
+  long long ost[3];   // out (view, head, token) strides
+  long long tst[6];   // qrh, qrw (view, head, token) strides
+  int s, heads, gh, gw, ldh, ldw, kv_end, group, stages;
+  float sl;           // scale·log2e (not kFused)
+};
+
+// the bytes of the block's table rows in shared memory (the fused form has
+// no height table)
+__host__ __device__ inline int kh_pv8_tab(int rows, bool fused, int ldh,
+                                          int ldw) {
+  return rows * ((fused ? 0 : ldh) + ldw) * 4;
+}
+
+// kStream / kFused int8 arm: 128 q rows a block, two warpgroups on
+// pv8_consume and a producer warp streaming K (and v8t's tiles). SMEM: the
+// block's rows of the tables in shared memory (fp32, log2-domain;
+// kGridWide: the width rows extended, w[gw + x] = w[x]); else read from the
+// caller's bf16 rows (kGridAny). GRID: pv8_bias's (kh, kw) rule.
+template <int DQ, int DV, int NS, int WGS, int MODE, int GRID, bool SMEM>
+__global__ void __launch_bounds__(Pv8Cfg<DQ, DV, NS, WGS>::THREADS, 1)
+kh_pv8_sm90(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const KhPv8Args a) {
+  using C = Pv8Cfg<DQ, DV, NS, WGS>;
+  constexpr bool FUSED = MODE == kFused;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const Pv8Smem L = pv8_smem(C::Q_BYTES, C::STAGE, a.stages,
+                             SMEM ? kh_pv8_tab(C::BQ, FUSED, a.ldh, a.ldw) : 0);
+  float* bh_s = reinterpret_cast<float*>(smem + L.tab);
+  float* bw_s = bh_s + (FUSED ? 0 : C::BQ * a.ldh);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  uint64_t* q_bar = bar + 2 * a.stages;
+
+  const int q_start = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  pv8_init_bars(bar, a.stages, C::CONS / 32);
+  if (threadIdx.x >= C::CONS) {
+    // ---- producer: one thread issues every TMA load
+    if (threadIdx.x == C::CONS) {
+      bar_expect_tx(q_bar, C::Q_BYTES);
+      for (int p = 0; p < C::QP; ++p)
+        tma_load(smem + p * C::Q_PB, &qmap, q_bar, p * 64, q_start, h, b);
+      pv8_produce<C>(a.kv_end, a.group, a.stages, smem + C::Q_BYTES, bar,
+                     &vmap, h, b,
+                     [&](unsigned char* dst, uint64_t* full, int row) {
+                       for (int p = 0; p < C::QP; ++p)
+                         tma_load(dst + p * C::KV_PB, &kmap, full, p * 64,
+                                  row, h, b);
+                     });
+    }
+    return;
+  }
+  // ---- consumers: 64 q rows each
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  const int rr0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const int rr1 = rr0 + 8;
+  const int s = a.s;
+  const float ts = FUSED ? 1.f : LVV_LOG2E;   // fused: log2-domain already
+  const bf16* rhb = FUSED ? nullptr : a.qrh + b * a.tst[0] + h * a.tst[1];
+  const bf16* rwb = a.qrw + b * a.tst[3] + h * a.tst[4];
+  if constexpr (SMEM) {
+    // the block's rows of the tables, log2-domain (0 past S)
+    const int wn = GRID == kGridWide ? a.gw + NS : a.gw;
+    for (int i = tid; i < C::BQ * wn; i += C::CONS) {
+      const int r = i / wn, j = i - r * wn, tok = q_start + r;
+      bw_s[r * a.ldw + j] =
+          tok < s ? bf(rwb[tok * a.tst[5] + j % a.gw]) * ts : 0.f;
+    }
+    if constexpr (!FUSED)
+      for (int i = tid; i < C::BQ * a.gh; i += C::CONS) {
+        const int r = i / a.gh, j = i - r * a.gh, tok = q_start + r;
+        bh_s[r * a.ldh + j] = tok < s ? bf(rhb[tok * a.tst[2] + j]) * ts : 0.f;
+      }
+    named_sync(1, C::CONS);   // the warpgroups' tables
+  }
+  bar_wait(q_bar, 0);
+
+  float o[DV / 2];
+  float l0, l1;
+  const uint32_t q_addr = smem_u32(smem) + wg * 64 * 128;
+  const float* sv = a.sv + ((long long)b * a.heads + h) * DV;
+  auto run = [&](const auto& tab) {
+    auto scores = [&](int c0, float (&sc)[NS / 2], float m0, float m1) {
+      pv8_bias<NS, GRID, FUSED>(sc, c0, a.sl, a.gw, tab, m0, m1);
+    };
+    pv8_consume<C, DQ, DV>(a.kv_end, a.group, a.stages, q_addr,
+                           smem_u32(smem + C::Q_BYTES), bar, scores, sv, o,
+                           l0, l1);
+  };
+  if constexpr (SMEM) {
+    run(Pv8SmemRows{bh_s + rr0 * a.ldh, bh_s + rr1 * a.ldh,
+                    bw_s + rr0 * a.ldw, bw_s + rr1 * a.ldw});
+  } else {
+    // rows past S read row S - 1 (they are not written)
+    const long long t0 = min(q_start + rr0, s - 1);
+    const long long t1 = min(q_start + rr1, s - 1);
+    run(Pv8GlobalRows{FUSED ? nullptr : rhb + t0 * a.tst[2],
+                      FUSED ? nullptr : rhb + t1 * a.tst[2],
+                      rwb + t0 * a.tst[5], rwb + t1 * a.tst[5], ts});
+  }
+  bf16* ob = a.out + b * a.ost[0] + h * a.ost[1];
+  const int tok0 = q_start + rr0, tok1 = q_start + rr1;
+  store_rows<DV>(o, tok0 < s ? ob + tok0 * a.ost[2] : nullptr,
+                 tok1 < s ? ob + tok1 * a.ost[2] : nullptr, l0, l1);
+}
+
+template <int DQ, int DV, int NS, int WGS, int MODE, int GRID, bool SMEM>
+static int launch_pv8_n(const CUtensorMap* maps, const KhPv8Args& a, int b,
+                        cudaStream_t stream) {
+  using C = Pv8Cfg<DQ, DV, NS, WGS>;
+  const int smem = pv8_smem_bytes<C>(
+      a.stages, SMEM ? kh_pv8_tab(C::BQ, MODE == kFused, a.ldh, a.ldw) : 0);
+  if (a.stages < 2 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      allow_smem(kh_pv8_sm90<DQ, DV, NS, WGS, MODE, GRID, SMEM>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.s + C::BQ - 1) / C::BQ, a.heads, b);
+  kh_pv8_sm90<DQ, DV, NS, WGS, MODE, GRID, SMEM>
+      <<<grid, C::THREADS, smem, stream>>>(maps[0], maps[1], maps[2], a);
+  return (int)cudaGetLastError();
+}
+
+// The plan's rules (ops/attention.py `pv8_plan`): pv8_bias's three with the
+// block's table rows in shared memory, and kGridAny on the caller's rows.
+enum { kRuleGlobal = 3 };
+
+// The int8 arm on the plan the wrapper made (rule, the width table's pitch,
+// the step, the ring's stages): maps over the views of q and k (q_aug,
+// k_aug in kFused) and over v8t, then the plan's kernel.
+static int launch_pv8(const void* q, const void* k, const long long* st,
+                      const KhArgs& ka, int b, int d, int mode, int rule,
+                      int ldw, int step, int rows, int stages,
+                      cudaStream_t stream) {
+  KhPv8Args a;
+  memset(&a, 0, sizeof(a));
+  a.out = ka.out;
+  a.qrh = ka.qrh;
+  a.qrw = ka.qrw;
+  a.sv = ka.sv;
+  memcpy(a.ost, st + 9, sizeof(a.ost));
+  memcpy(a.tst, st + 12, sizeof(a.tst));
+  a.s = ka.s;
+  a.heads = ka.heads;
+  a.gh = ka.gh;
+  a.gw = ka.gw;
+  a.ldh = ka.gh | 1;
+  a.ldw = ldw;
+  a.kv_end = ka.kv_end;
+  a.group = ka.group;
+  a.stages = stages;
+  a.sl = ka.scale * LVV_LOG2E;
+  const bool fused = mode == kFused;
+  if ((rule == kGridG64 && a.gw != 64) ||
+      (rule == kGridWide && (a.gw % 8 || a.gw < 64 || ldw < a.gw + step)) ||
+      (rule != kRuleGlobal && ldw < a.gw))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const int dq = fused ? 128 : d;
+  cudaError_t e = split_map(&maps[0], q, st, dq, a.s, a.heads, b, rows);
+  if (e == cudaSuccess)
+    e = split_map(&maps[1], k, st + 3, dq, a.s, a.heads, b, 128);
+  if (e == cudaSuccess)
+    e = pv8_vmap(&maps[2], ka.v8t, b, a.heads, d, ka.s_pad8);
+  if (e != cudaSuccess) return (int)e;
+#define LVV_PV8(DQ, DV, NS, WGS, MODE, GRID, SMEM) \
+  launch_pv8_n<DQ, DV, NS, WGS, MODE, GRID, SMEM>(maps, a, b, stream)
+  const bool two = rows == 128;   // two consumer warpgroups, else one
+  if (fused) {
+    if (rule == kGridG64 && step == 128 && two)
+      return LVV_PV8(128, 64, 128, 2, kFused, kGridG64, true);
+    if (rule == kRuleGlobal && step == 32 && !two)
+      return LVV_PV8(128, 64, 32, 1, kFused, kGridAny, false);
+  } else if (d == 64) {
+    if (rule == kGridWide && step == 64 && two)
+      return LVV_PV8(64, 64, 64, 2, kStream, kGridWide, true);
+    if (rule == kGridAny && step == 64 && two)
+      return LVV_PV8(64, 64, 64, 2, kStream, kGridAny, true);
+    if (rule == kRuleGlobal && step == 32 && !two)
+      return LVV_PV8(64, 64, 32, 1, kStream, kGridAny, false);
+  } else if (rule == kRuleGlobal && step == 32 && !two) {
+    return LVV_PV8(128, 128, 32, 1, kStream, kGridAny, false);
+  }
+#undef LVV_PV8
+  return (int)cudaErrorInvalidValue;
+}
+
 // q, k, v [B, H, S, *] bf16 with unit stride on the last axis and the
 // (view, head, token) strides in `strides` (18 int64: q, k, v, out, qrh,
 // qrw), those of q, k, v multiples of 8 elements and their bases 16-byte
@@ -663,16 +750,21 @@ static int launch_float(const void* q, const void* k, const void* v,
 // d]. Keys at or past kv_end (<= S) are masked. group 0: the float arm
 // (gh, gw < 256); otherwise the int8 p@v arm (kStream, kFused) with p
 // quantized per `group` kv columns (a multiple of 64): v8t [B, H, d, s_pad8]
-// int8 (zero past S; s_pad8 a multiple of 64 and >= S) and sv [B, H, d]
-// fp32. kSmall
+// int8 (kv permuted inside each 16 columns as pv8_sm90.cuh takes it, zero
+// past S; s_pad8 a multiple of 64 and >= S) and sv [B, H, d] fp32, on the
+// plan (rule, ldw, step, rows, stages) of ops/attention.py `pv8_plan`; with
+// amax
+// (B·H·d int32 of scratch) given, v8t and sv are outputs, first made from v
+// by pv8_quantize_v. kSmall
 // takes S <= 256 and gh, gw <= 16, kSmall2 S <= 512, both kv_end = S and
 // no int8 arm.
 // Returns a cudaError_t (0 on success).
 extern "C" int lvv_flash_attention_relpos(
     const void* q, const void* k, const void* v, const void* qrh,
-    const void* qrw, const void* v8t, const void* sv, void* out,
+    const void* qrw, void* v8t, void* sv, void* amax, void* out,
     const void* strides, int b, int heads, int s, int d, int gh, int gw,
-    int kv_end, int group, int s_pad8, int mode, float scale, void* stream) {
+    int kv_end, int group, int s_pad8, int mode, int rule, int ldw,
+    int step, int rows, int stages, float scale, void* stream) {
   const bool small = mode == kSmall || mode == kSmall2;
   if (gh <= 0 || gw <= 0 || (!group && (gh > 255 || gw > 255)) ||
       gh * gw != s || kv_end <= 0 || kv_end > s || group < 0 ||
@@ -700,12 +792,29 @@ extern "C" int lvv_flash_attention_relpos(
   a.kv_end = kv_end;
   a.group = group;
   a.s_pad8 = s_pad8;
-  a.ldh = gh | 1;
-  a.ldw = gw | 1;
   a.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
   if (!group) return launch_float(q, k, v, a.st, a, b, d, mode, st);
-  if (mode == kFused) return launch_pv8<128, 64, kFused>(a, b, st);
-  return d == 64 ? launch_pv8<64, 64, kStream>(a, b, st)
-                 : launch_pv8<128, 128, kStream>(a, b, st);
+  if (amax) {
+    const cudaError_t e = pv8_quantize_v(v, a.st + 6, b, heads, s, d, s_pad8,
+                                         amax, v8t, sv, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return launch_pv8(q, k, a.st, a, b, d, mode, rule, ldw, step, rows, stages,
+                    st);
+}
+
+// The int8 arms' v operands alone (what the entry above makes first when
+// given amax): v [B, H, S, d] bf16 at the (view, head, token) strides in
+// `strides` (3 int64, multiples of 8 elements, base 16-byte aligned), d 64
+// or 128; v8t [B, H, d, s_pad] int8 and sv [B, H, d] fp32 out, amax B·H·d
+// int32 of scratch. Returns a cudaError_t (0 on success).
+extern "C" int lvv_pv8_quantize_v(const void* v, const void* strides, int b,
+                                  int heads, int s, int d, int s_pad,
+                                  void* amax, void* v8t, void* sv,
+                                  void* stream) {
+  if ((d != 64 && d != 128) || s <= 0 || s_pad < s || s_pad % kBK)
+    return (int)cudaErrorInvalidValue;
+  return (int)pv8_quantize_v(v, (const long long*)strides, b, heads, s, d,
+                             s_pad, amax, v8t, sv, (cudaStream_t)stream);
 }

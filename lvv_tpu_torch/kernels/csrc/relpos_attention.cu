@@ -48,120 +48,25 @@
 // before partitioning and the zero tokens take part, unmasked, as in the
 // reference); only the kv columns past S are masked.
 //
-// The int8 p@v arm (PV8, relpos_pv8_kernel, on common.cuh's mma.sync loop)
-// replaces the `quant8` arm of the same TPU kernel
-// (K-d8, attention.py:717-723, LVV_Q8_SCOPE "attn" on the 4 global layers):
+// The int8 p@v arm (K-d8, LVV_Q8_SCOPE "attn" on the 4 global layers)
+// replaces the `quant8` arm of the same TPU kernel (attention.py:717-723).
 // v arrives quantized per (view, head, channel) by the wrapper, transposed
-// to [B, H, d, S] (kv is the contraction axis of p@v, and the s8 MMA's B
-// fragment wants 4 consecutive kv of one channel); p is quantized in the
-// kernel per row and per GROUP of `pv_group` kv columns (1024, the TPU's kv
-// tile), against the group's own maximum, each group walked twice
-// (pv8_loop.cuh; q·k is computed twice, so the products are 1.5x those of
-// the float arm).
+// to [B, H, d, S] (kv is the contraction axis of p@v) with kv permuted
+// inside each 16 columns; p is quantized in the kernel per row and per
+// GROUP of `pv_group` kv columns (1024, the TPU's kv tile) against the
+// group's own maximum. It runs on pv8_sm90.cuh's core (two passes a group,
+// wgmma s8 with p8 from registers, a TMA ring of K and int8 V tiles), with
+// q and K read out of qkv and the bias tables formed as in the float arm's
+// streaming regime; SAM's 64-wide grids keep the 8 x 16 q patch and the
+// compile-time (kh, kw).
 //
 // What bounds the int8 arm on the H100: 2·S²·d bf16 operations for q·k and
-// 2·S²·d int8 operations for p@v: about 0.24 ms at the global shape.
-#include "attn_sm90.cuh"
-#include "pv8_loop.cuh"
+// 2·S²·d int8 operations for p@v: about 0.24 ms at the global shape (the
+// second q·k of the two passes is the design's work, not the bound's).
+#include "pv8_sm90.cuh"
 
 constexpr int kMaxGh = 64;
 constexpr int kMaxGw = 128;
-
-template <int D>
-__global__ void __launch_bounds__(kAttnThreads)
-relpos_pv8_kernel(const bf16* __restrict__ qkv,
-                  const bf16* __restrict__ rel_h,
-                  const bf16* __restrict__ rel_w,
-                  const signed char* __restrict__ v8t,
-                  const float* __restrict__ sv, bf16* __restrict__ out,
-                  int s, int heads, int gh, int gw, int s_pad, int group,
-                  float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* bh_s = reinterpret_cast<float*>(smem_raw);   // [kBQ][kMaxGh]
-  float* bw_s = bh_s + kBQ * kMaxGh;                   // [kBQ][kMaxGw]
-  bf16* q_s = reinterpret_cast<bf16*>(bw_s + kBQ * kMaxGw);
-  bf16* k_s = q_s + kBQ * LD;
-  bf16* v_s = k_s + kBK * LD;
-
-  const int q_start = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int c = heads * D;
-  const long long row = 3LL * c;
-  const bf16* base = qkv + (long long)b * s * row + h * D;
-
-  for (int i = threadIdx.x; i < kBQ * D / 8; i += kAttnThreads) {
-    const int r = i / (D / 8), cc = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q_start + r < s)
-      val = *reinterpret_cast<const uint4*>(base + (q_start + r) * row + cc);
-    *reinterpret_cast<uint4*>(q_s + r * LD + cc) = val;
-  }
-  __syncthreads();
-
-  // bias tables of this q tile (rows past S hold q = 0, so their bias is 0)
-  for (int i = threadIdx.x; i < kBQ * (gh + gw); i += kAttnThreads) {
-    const int r = i / (gh + gw), j = i % (gh + gw);
-    const int tok = min(q_start + r, s - 1);
-    const bf16* rel =
-        j < gh ? rel_h + ((long long)(tok / gw) * gh + j) * D
-               : rel_w + ((long long)(tok % gw) * gw + (j - gh)) * D;
-    const bf16* qr = q_s + r * LD;
-    float acc = 0.f;
-    for (int cc = 0; cc < D; cc += 8) {
-      const uint4 qa = *reinterpret_cast<const uint4*>(qr + cc);
-      const uint4 ra = *reinterpret_cast<const uint4*>(rel + cc);
-      const bf16* qe = reinterpret_cast<const bf16*>(&qa);
-      const bf16* re = reinterpret_cast<const bf16*>(&ra);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc += bf(qe[e]) * bf(re[e]);
-    }
-    if (j < gh)
-      bh_s[r * kMaxGh + j] = acc;
-    else
-      bw_s[r * kMaxGw + (j - gh)] = acc;
-  }
-  // (flash_tile synchronises before its first read of the tables)
-
-  const bf16* kb = base + c;
-  auto score = [&](float acc, int r, int col) {
-    if (col >= s) return LVV_NEG_BIG;
-    const float bias = bh_s[r * kMaxGh + col / gw] + bw_s[r * kMaxGw + col % gw];
-    return (acc * scale + bias) * LVV_LOG2E;
-  };
-  float o[D / 8][4];
-  float l0, l1;
-  // the v region holds the int8 v tile instead (it is large enough)
-  signed char* v8_s = reinterpret_cast<signed char*>(v_s);
-  const signed char* v8b = v8t + ((long long)b * heads + h) * D * s_pad;
-  auto load_k = [&](int k0) { load_rows<D>(k_s, kb + k0 * row, row, s - k0); };
-  auto load_v8 = [&](int k0) {
-    for (int i = threadIdx.x; i < D * kBK / 16; i += kAttnThreads) {
-      const int n = i / (kBK / 16), cc = (i % (kBK / 16)) * 16;
-      *reinterpret_cast<uint4*>(v8_s + n * kLDV8 + cc) =
-          *reinterpret_cast<const uint4*>(v8b + (long long)n * s_pad + k0 + cc);
-    }
-  };
-  auto scores = [&](int k0, float (&sc)[kBK / 8][4]) {
-    qk_scores<D>(sc, q_s, k_s, k0, score);
-  };
-  pv8_loop<D>(v8_s, s, group, load_k, load_v8, scores,
-              sv + ((long long)b * heads + h) * D, o, l0, l1);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = warp * 16 + (lane >> 2);
-  bf16* ob = out + (long long)b * s * c + h * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + 2 * (lane & 3);
-    if (q_start + r0 < s)
-      *reinterpret_cast<uint32_t*>(ob + (long long)(q_start + r0) * c + col) =
-          pack_f32(o[j][0] / l0, o[j][1] / l0);
-    if (q_start + r0 + 8 < s)
-      *reinterpret_cast<uint32_t*>(ob + (long long)(q_start + r0 + 8) * c + col) =
-          pack_f32(o[j][2] / l1, o[j][3] / l1);
-  }
-}
-
 
 // ------------------------------------------------------------- float arm
 
@@ -604,9 +509,6 @@ relpos_window_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// the most dynamic shared memory a block may take (H100: 227 KB)
-constexpr int kMaxSmem = 232448;
-
 template <int D, int N>
 static int launch_window(const CUtensorMap* maps, const void* rel_h,
                          const void* rel_w, void* out, int b, int s,
@@ -697,65 +599,188 @@ static int launch_float(const void* qkv, const void* rel_h, const void* rel_w,
                                       gh, gw, ldh, ldw, scale, stream);
 }
 
-// ------------------------------------------------------------- entry
+// ------------------------------------------------------------- int8 arm
 
-template <int D>
-static int launch_pv8(const void* qkv, const void* rel_h, const void* rel_w,
-                      const void* v8t, const void* sv, void* out, int b,
-                      int s, int heads, int gh, int gw, int s_pad, int group,
-                      float scale, cudaStream_t stream) {
-  static_assert(D * kLDV8 <= kBK * (D + 8) * (int)sizeof(bf16),
-                "the int8 v tile must fit the bf16 v region");
-  const size_t smem = (size_t)kBQ * (kMaxGh + kMaxGw) * sizeof(float) +
-                      (size_t)(kBQ + 2 * kBK) * (D + 8) * sizeof(bf16);
-  cudaError_t e = allow_smem(relpos_pv8_kernel<D>, smem);
+// K-d8: 128 q rows a block (G64: an 8 x 16 patch of the grid, as
+// relpos_stream_sm90), two warpgroups on pv8_consume and a producer warp
+// that streams K (out of qkv) and V8 (out of v8t) through the ring.
+template <int D, int NS, int WGS, bool G64>
+__global__ void __launch_bounds__(Pv8Cfg<D, D, NS, WGS>::THREADS, 1)
+relpos_pv8_sm90(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kvmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const bf16* __restrict__ rel_h,
+                const bf16* __restrict__ rel_w, const float* __restrict__ sv,
+                bf16* __restrict__ out, int s, int heads, int gh, int gw,
+                int ldh, int ldw, int group, int stages, float scale) {
+  using C = Pv8Cfg<D, D, NS, WGS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const Pv8Smem L =
+      pv8_smem(C::Q_BYTES, C::STAGE, stages, C::BQ * (ldh + ldw) * 4);
+  float* bh_s = reinterpret_cast<float*>(smem + L.tab);
+  float* bw_s = bh_s + C::BQ * ldh;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  uint64_t* q_bar = bar + 2 * stages;
+
+  constexpr int PH = 8, PW = 16;   // the G64 patch
+  const int q_start = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int qh0 = PH * (blockIdx.x / (64 / PW));
+  const int qw0 = PW * (blockIdx.x % (64 / PW));
+  const int c = heads * D;
+  pv8_init_bars(bar, stages, C::CONS / 32);
+  if (threadIdx.x >= C::CONS) {
+    // ---- producer: one thread issues every TMA load
+    if (threadIdx.x == C::CONS) {
+      bar_expect_tx(q_bar, C::Q_BYTES);
+      for (int a = 0; a < C::QP; ++a) {
+        if constexpr (G64)
+          tma_load(smem + a * C::Q_PB, &qmap, q_bar, h * D + a * 64, qw0,
+                   qh0, b);
+        else
+          tma_load(smem + a * C::Q_PB, &qmap, q_bar, h * D + a * 64, q_start,
+                   b, 0);
+      }
+      pv8_produce<C>(s, group, stages, smem + C::Q_BYTES, bar, &vmap, h, b,
+                     [&](unsigned char* dst, uint64_t* full, int row) {
+                       for (int a = 0; a < C::QP; ++a)
+                         tma_load(dst + a * C::KV_PB, &kvmap, full,
+                                  c + h * D + a * 64, row, b, 0);
+                     });
+    }
+    return;
+  }
+  // ---- consumers: 64 q rows each
+  const int wg = threadIdx.x / 128, lane = threadIdx.x & 31;
+  const int rr0 = wg * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int rr1 = rr0 + 8;
+  bar_wait(q_bar, 0);
+  bias_tables<D, G64, PH, PW>(bh_s, bw_s, ldh, ldw, smem, C::Q_PB, q_start,
+                              qh0, qw0, C::BQ, s, gh, gw, rel_h, rel_w,
+                              threadIdx.x >> 5, C::CONS / 32);
+  named_sync(1, C::CONS);   // the warpgroups' tables
+
+  const Pv8SmemRows tab{bh_s + rr0 * ldh, bh_s + rr1 * ldh, bw_s + rr0 * ldw,
+                        bw_s + rr1 * ldw};
+  const float sl = scale * LVV_LOG2E;   // the tables are log2-domain
+  auto scores = [&](int c0, float (&sc)[NS / 2], float m0, float m1) {
+    pv8_bias<NS, G64 ? kGridG64 : kGridAny, false>(sc, c0, sl, gw, tab, m0,
+                                                  m1);
+  };
+  float o[D / 2];
+  float l0, l1;
+  pv8_consume<C, D, D>(s, group, stages, smem_u32(smem) + wg * 64 * 128,
+                       smem_u32(smem + C::Q_BYTES), bar, scores,
+                       sv + ((long long)b * heads + h) * D, o, l0, l1);
+  bf16* ob = out + (long long)b * s * c + h * D;
+  const int tok0 = G64 ? (qh0 + rr0 / PW) * 64 + qw0 + rr0 % PW
+                       : q_start + rr0;
+  const int tok1 = G64 ? (qh0 + rr1 / PW) * 64 + qw0 + rr1 % PW
+                       : q_start + rr1;
+  store_rows<D>(o, tok0 < s ? ob + (long long)tok0 * c : nullptr,
+                tok1 < s ? ob + (long long)tok1 * c : nullptr, l0, l1);
+}
+
+template <int D, int NS, int WGS, bool G64>
+static int launch_pv8_sm90(const CUtensorMap* maps, const void* rel_h,
+                           const void* rel_w, const void* sv, void* out,
+                           int b, int s, int heads, int gh, int gw, int ldw,
+                           int group, int stages, float scale,
+                           cudaStream_t stream) {
+  using C = Pv8Cfg<D, D, NS, WGS>;
+  const int ldh = gh | 1;
+  const int smem = pv8_smem_bytes<C>(stages, C::BQ * (ldh + ldw) * 4);
+  if (stages < 2 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(relpos_pv8_sm90<D, NS, WGS, G64>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((s + kBQ - 1) / kBQ, heads, b);
-  relpos_pv8_kernel<D><<<grid, kAttnThreads, smem, stream>>>(
-      (const bf16*)qkv, (const bf16*)rel_h, (const bf16*)rel_w,
-      (const signed char*)v8t, (const float*)sv, (bf16*)out, s, heads, gh,
-      gw, s_pad, group, scale);
+  dim3 grid((s + C::BQ - 1) / C::BQ, heads, b);
+  relpos_pv8_sm90<D, NS, WGS, G64><<<grid, C::THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], (const bf16*)rel_h, (const bf16*)rel_w,
+      (const float*)sv, (bf16*)out, s, heads, gh, gw, ldh, ldw, group, stages,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-static int launch_arm(const void* qkv, const void* rel_h, const void* rel_w,
+// The int8 arm on the plan the wrapper made (ops/attention.py `pv8_plan`):
+// rule (kGridG64 on SAM's 64-wide grids, else kGridAny), the width
+// table's pitch, the step, the q rows of a block and the ring's stages.
+// Maps over qkv (as the float arm's streaming regime) and v8t, then the
+// plan's kernel.
+static int launch_pv8(const void* qkv, const void* rel_h, const void* rel_w,
                       const void* v8t, const void* sv, void* out, int b,
-                      int s, int heads, int gh, int gw, int s_pad, int group,
-                      float scale, cudaStream_t st) {
-  if (group == 0)
-    return launch_float<D>(qkv, rel_h, rel_w, out, b, s, heads, gh, gw, scale,
-                           st);
-  return launch_pv8<D>(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, gh, gw,
-                       s_pad, group, scale, st);
+                      int s, int heads, int d, int gh, int gw, int s_pad,
+                      int group, int rule, int ldw, int step, int rows,
+                      int stages, float scale, cudaStream_t stream) {
+  typedef cuuint64_t u64;
+  const bool g64 = rule == kGridG64;
+  if (g64 && (d != 64 || gw != 64 || gh % 8 || step != 128))
+    return (int)cudaErrorInvalidValue;
+  const u64 c3 = 3ull * heads * d;
+  const u64 dims[4] = {c3, (u64)s, (u64)b, 1};
+  const u64 strides[3] = {c3 * 2, c3 * 2 * s, c3 * 2 * s * b};
+  CUtensorMap maps[3];
+  cudaError_t e = tensor_map(&maps[1], qkv, dims, strides, 128);
+  if (e == cudaSuccess) e = pv8_vmap(&maps[2], v8t, b, heads, d, s_pad);
+  if (e == cudaSuccess && g64) {
+    // q as [B, gh, gw, 3C], read in patches of 8 grid rows by 16 columns
+    const u64 pdims[4] = {c3, (u64)gw, (u64)gh, (u64)b};
+    const u64 pstrides[3] = {c3 * 2, c3 * 2 * gw, c3 * 2 * s};
+    e = tensor_map(&maps[0], qkv, pdims, pstrides, 16, 8);
+  } else if (e == cudaSuccess) {
+    e = tensor_map(&maps[0], qkv, dims, strides, rows);
+  }
+  if (e != cudaSuccess) return (int)e;
+#define LVV_PV8(D, NS, WGS, G64)                                       \
+  launch_pv8_sm90<D, NS, WGS, G64>(maps, rel_h, rel_w, sv, out, b, s,  \
+                                   heads, gh, gw, ldw, group, stages,  \
+                                   scale, stream)
+  if (g64 && rows == 128) return LVV_PV8(64, 128, 2, true);
+  if (rule == kGridAny && d == 64 && step == 64 && rows == 128)
+    return LVV_PV8(64, 64, 2, false);
+  if (rule == kGridAny && d == 128 && step == 32 && rows == 64)
+    return LVV_PV8(128, 32, 1, false);
+#undef LVV_PV8
+  return (int)cudaErrorInvalidValue;
 }
+
+// ------------------------------------------------------------- entry
 
 // qkv [B, S, 3·heads·d], rel_h [gh, gh, d], rel_w [gw, gw, d], out
 // [B, S, heads·d], all contiguous bf16, S = gh·gw, gh <= 64, gw <= 128.
-// pv_group 0: the float arm (v8t, sv unused). Otherwise the int8 p@v arm
-// with p quantized per pv_group kv columns (a multiple of 64): v8t [B,
-// heads, d, s_pad] int8 (v quantized per channel, transposed, zero past S;
-// s_pad a multiple of 64 and >= S) and sv [B, heads, d] fp32. Returns a
-// cudaError_t (0 on success).
+// pv_group 0: the float arm (the int8 arguments unused). Otherwise the int8
+// p@v arm with p quantized per pv_group kv columns (a multiple of 64) on
+// v8t [B, heads, d, s_pad] int8 (v quantized per channel, transposed, kv
+// permuted inside each 16 columns as pv8_sm90.cuh takes it, zero past S;
+// s_pad a multiple of 64 and >= S) and sv [B, heads, d] fp32, on the plan
+// (rule, ldw, step, rows, stages) of ops/attention.py `pv8_plan`; with amax
+// (B·heads·d int32 of scratch) given, v8t and sv are outputs, first made
+// from qkv's v by pv8_quantize_v. Returns a cudaError_t (0 on success).
 extern "C" int lvv_relpos_attention(const void* qkv, const void* rel_h,
-                                    const void* rel_w, const void* v8t,
-                                    const void* sv, void* out, int b, int s,
+                                    const void* rel_w, void* v8t, void* sv,
+                                    void* amax, void* out, int b, int s,
                                     int heads, int d, int gh, int gw,
-                                    int s_pad, int pv_group, float scale,
-                                    void* stream) {
+                                    int s_pad, int pv_group, int rule,
+                                    int ldw, int step, int rows, int stages,
+                                    float scale, void* stream) {
   if (gh > kMaxGh || gw > kMaxGw || gh * gw != s || pv_group < 0 ||
-      pv_group % kBK)
-    return (int)cudaErrorInvalidValue;
-  if (pv_group && (!v8t || !sv || s_pad < s || s_pad % kBK))
+      pv_group % kBK || (d != 64 && d != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 64:
-      return launch_arm<64>(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, gh,
-                            gw, s_pad, pv_group, scale, st);
-    case 128:
-      return launch_arm<128>(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, gh,
-                             gw, s_pad, pv_group, scale, st);
+  if (!pv_group)
+    return d == 64 ? launch_float<64>(qkv, rel_h, rel_w, out, b, s, heads, gh,
+                                      gw, scale, st)
+                   : launch_float<128>(qkv, rel_h, rel_w, out, b, s, heads,
+                                       gh, gw, scale, st);
+  if (!v8t || !sv || s_pad < s || s_pad % kBK || ldw < gw)
+    return (int)cudaErrorInvalidValue;
+  if (amax) {
+    const long long c3 = 3LL * heads * d, vst[3] = {c3 * s, d, c3};
+    const cudaError_t e =
+        pv8_quantize_v((const bf16*)qkv + 2LL * heads * d, vst, b, heads, s,
+                       d, s_pad, amax, v8t, sv, st);
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaErrorInvalidValue;
+  return launch_pv8(qkv, rel_h, rel_w, v8t, sv, out, b, s, heads, d, gh, gw,
+                    s_pad, pv_group, rule, ldw, step, rows, stages, scale,
+                    st);
 }

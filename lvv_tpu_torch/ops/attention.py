@@ -18,7 +18,9 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
 - `attention_reference` (= `flash_attention_plain`) and each wrapper's
   `*_plain` are the plain PyTorch versions. `quantize_v`, `qk8_operands`,
   `fused_operands` and the window variants' row glue are glue that the JAX
-  package computes outside its kernels too.
+  package computes outside its kernels too; the int8 p@v launches make
+  their v operands on the card (`pv8_v_operands` is the PyTorch version,
+  `pv8_v_launch` those kernels alone) and take `pv8_plan`'s schedule.
 - `attention` keeps the JAX dispatch: the flash kernel once the kv sequence
   reaches 1024, without bias, and causal only for sq == sk; the reference
   otherwise. `decode_attention` is the reference over the cache, as in JAX.
@@ -26,6 +28,7 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -37,6 +40,71 @@ from .quant import quantize_rows
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
 _LANE = 128              # one head's augmented depth in K-g
+
+
+# The int8 p@v kernels (K-d8, K-h's int8 arms) share pv8_sm90.cuh's core;
+# the wrapper makes each launch's plan.
+_SMEM_MAX = 232448          # dynamic shared memory a block may take (H100)
+_PV8_RULES = ("any", "wide", "g64", "global")
+
+
+def pv8_plan(kind: str, s: int, d: int, gh: int, gw: int) -> dict:
+    """The plan of one int8 p@v launch (pv8_sm90.cuh) from the shapes alone:
+    kind "kd8" (`relpos_attention`'s int8 arm, from packed qkv), "stream"
+    or "fused" (K-h's). `rule`: how a score finds its bias columns, "g64"
+    (a grid 64 wide: at compile time), "wide" (a grid at least 64 wide and
+    a multiple of 8, as K-h's 80x80: two grid rows a 64-key step at most,
+    picked per 8-column block) or "any" (each lane steps its columns), all
+    three with the block's rows of the tables in shared memory as fp32,
+    the width rows `ldw` floats apart (and, under "wide", extended by a
+    step past gw); "global" reads the caller's bf16 tables where they lie
+    (K-h's grids whose rows do not fit beside two stages). `step`: keys a
+    step of the score product; `rows`: q rows a block, 128 (two consumer
+    warpgroups, 168 registers a thread: 128-key steps under "g64")
+    or 64 (one, 255 registers: head dim 128, "global"). `stages`: the
+    ring's, as many (up to 4) as fit; `smem`: the block's bytes."""
+    dq = 128 if kind == "fused" else d
+    rows = 64 if d == 128 else 128
+
+    def pitch(n):    # float2 reads of kw pairs: 8 times an odd number
+        return n if n % 2 else ((n + 7) // 8 | 1) * 8
+
+    def tables(ldw):
+        return rows * ((0 if kind == "fused" else gh | 1) + ldw) * 4
+
+    def smem(n, tab):
+        q_bytes = dq // 64 * rows * 128
+        stage = dq // 64 * 128 * 128 + d * 128  # K panels, int8 V tile
+        return ((q_bytes + n * stage + tab + 7) // 8 * 8 + (2 * n + 1) * 8
+                + 1024)
+
+    def stages(tab):
+        return next((n for n in (4, 3, 2) if smem(n, tab) <= _SMEM_MAX), 0)
+
+    step = 64 if d == 64 else 32
+    if kind == "kd8":
+        g64 = d == 64 and gw == 64 and gh % 8 == 0
+        rule, ldw = ("g64", 72) if g64 else ("any", gw if gw % 2 else gw + 2)
+        step = 128 if g64 else step
+    elif kind == "fused" and gw == 64 and stages(tables(72)):
+        rule, ldw, step = "g64", 72, 128
+    elif (kind == "stream" and d == 64 and gw % 8 == 0 and gw >= 64
+          and stages(tables(pitch(gw + step)))):
+        rule, ldw = "wide", pitch(gw + step)
+    elif kind == "stream" and d == 64 and stages(tables(pitch(gw))):
+        rule, ldw = "any", pitch(gw)
+    else:
+        rule, ldw, step, rows = "global", 0, 32, 64
+    tab = 0 if rule == "global" else tables(ldw)
+    n = stages(tab)
+    return dict(rule=rule, step=step, rows=rows, ldw=ldw, stages=n,
+                smem=smem(n, tab))
+
+
+def _pv8_plan_args(kind: str, s: int, d: int, gh: int, gw: int):
+    plan = pv8_plan(kind, s, d, gh, gw)
+    return (_PV8_RULES.index(plan["rule"]), plan["ldw"], plan["step"],
+            plan["rows"], plan["stages"])
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -249,6 +317,56 @@ def quantize_v(v: torch.Tensor, seq_dim: int):
     return v8, sv
 
 
+@functools.lru_cache(maxsize=None)
+def pv8_kv_perm(n: int, device=None) -> torch.Tensor:
+    """The kv order of the int8 p·v kernels' v operand (n a multiple of
+    16): position 16·i + σ holds kv column 16·i + 2·(σ // 4) + σ % 2 +
+    8·(σ % 4 // 2), the column whose p the kernel puts in k-slot σ of the
+    s8 wgmma's register A operand (its score accumulators hold columns 2t,
+    2t + 1, 8 + 2t, 9 + 2t of each 16 in lane t, the A operand wants
+    4t .. 4t + 3; pv8_sm90.cuh). p8 @ v8 over the permuted kv axis is the
+    same integer."""
+    i = torch.arange(n, device=device)
+    j = i % 16
+    return i - j + 2 * (j // 4) + j % 2 + 8 * (j % 4 // 2)
+
+
+def pv8_v_operands(v: torch.Tensor, seq_dim: int):
+    """The int8 p·v kernels' v operands from v [B, H, S, d] (seq_dim 2) or
+    [B, S, H, d] (seq_dim 1): (v8t [B, H, d, s_pad] int8, `quantize_v`'s v8
+    transposed (kv is the contraction axis of p·v), zero-padded to whole
+    64-column tiles and its kv axis in `pv8_kv_perm`'s order; sv [B, H, d]
+    fp32)."""
+    v8, sv = quantize_v(v, seq_dim)
+    if seq_dim == 1:
+        v8, sv = v8.permute(0, 2, 3, 1), sv[:, 0]
+    else:
+        v8, sv = v8.transpose(-1, -2), sv[:, :, 0]
+    s = v8.shape[-1]
+    s_pad = _pad_to(s, 64)
+    v8t = torch.nn.functional.pad(v8, (0, s_pad - s))
+    return v8t[..., pv8_kv_perm(s_pad, v.device)], sv.contiguous()
+
+
+def pv8_v_launch(v: torch.Tensor):
+    """`pv8_v_operands(v, 2)` computed by the kernels that the int8 p@v
+    launches run first (v [B, H, S, d] bf16 on the card, d 64 or 128, the
+    last axis contiguous): bit-equal to it. Returns (v8t, sv)."""
+    b, heads, s, d = v.shape
+    if (not v.is_cuda or v.dtype != torch.bfloat16 or d not in (64, 128)
+            or v.stride(-1) != 1 or v.data_ptr() % 16
+            or any(st % 8 for st in v.stride()[:3])):
+        raise ValueError(f"pv8_v_launch: unsupported v {tuple(v.shape)}")
+    v8t, sv, amax = _pv8_buffers(b, heads, d, s, v.device)
+    strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
+    fn = kernels.lib("flash_attention_relpos").lvv_pv8_quantize_v
+    err = fn(v.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, heads, s,
+             d, v8t.shape[-1], amax.data_ptr(), v8t.data_ptr(), sv.data_ptr(),
+             torch.cuda.current_stream(v.device).cuda_stream)
+    kernels.check(err, "pv8_v_launch")
+    return v8t, sv
+
+
 def _pv8_attention(q, k, v, bias, *, scale: float, group: int):
     """K-d8's function on head-split q, k, v [B, H, S, d] and the fp32 bias
     [B, H, S, S]: `_kh_online`'s int8 arm in base 2 over kv groups of
@@ -303,25 +421,41 @@ def relpos_attention(qkv, rel_h, rel_w, *, heads: int, scale: float,
     if any(t.dtype != torch.bfloat16 or t.device != qkv.device for t in ops):
         raise ValueError("relpos_attention: operands must be bf16 on one "
                          "device")
-    s_pad, v8t, sv, name = s, None, None, f"relpos_attention[{gh}x{gw}]"
-    if pv_int8:
-        # v per (view, head, channel), transposed to [B, H, d, S] (kv is the
-        # contraction axis of p@v) and zero-padded to whole 64-column tiles
-        v8, sv = quantize_v(ops[0][..., 2 * heads * d:].view(b, s, heads, d),
-                            1)
-        s_pad = -(-s // 64) * 64
-        v8t = torch.zeros(b, heads, d, s_pad, dtype=torch.int8,
-                          device=qkv.device)
-        v8t[..., :s] = v8.permute(0, 2, 3, 1)
-        sv = sv.view(b, heads, d).contiguous()
-        name = f"relpos_attention_pv8[{gh}x{gw}]"
+    return _relpos_launch(*ops, heads=heads, scale=scale,
+                          pv_group=pv_group if pv_int8 else 0)
+
+
+def _pv8_buffers(b: int, heads: int, d: int, s: int, device):
+    """Room for the int8 p@v kernels' v operands (v8t, sv) and the amax
+    scratch of their quantization."""
+    return (torch.empty(b, heads, d, _pad_to(s, 64), dtype=torch.int8,
+                        device=device),
+            torch.empty(b, heads, d, device=device),
+            torch.empty(b, heads, d, dtype=torch.int32, device=device))
+
+
+def _relpos_launch(qkv, rel_h, rel_w, *, heads: int, scale: float,
+                   pv_group: int = 0, pv8=None) -> torch.Tensor:
+    """Launch relpos_attention.cu on operands `relpos_attention` checked
+    (contiguous bf16). pv_group > 0 takes the int8 p@v arm: on pv8 =
+    (v8t, sv) of `pv8_v_operands` where given, else on v8t and sv that the
+    launch first makes from qkv's v on the card (bit-equal)."""
+    b, s, c3 = qkv.shape
+    d = c3 // 3 // heads
+    gh, gw = rel_h.shape[0], rel_w.shape[0]
+    v8t = sv = amax = None
+    if pv_group:
+        v8t, sv, amax = (_pv8_buffers(b, heads, d, s, qkv.device)
+                         if pv8 is None else (*pv8, None))
+    name = f"relpos_attention{'_pv8' if pv_group else ''}[{gh}x{gw}]"
     out = torch.empty(b, s, heads * d, dtype=qkv.dtype, device=qkv.device)
     fn = kernels.lib("relpos_attention").lvv_relpos_attention
-    err = fn(*(t.data_ptr() for t in ops),
-             None if v8t is None else v8t.data_ptr(),
-             None if sv is None else sv.data_ptr(), out.data_ptr(), b, s,
-             heads, d, gh, gw, s_pad, pv_group if pv_int8 else 0,
-             ctypes.c_float(scale),
+    err = fn(qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in (v8t, sv, amax)),
+             out.data_ptr(), b, s, heads, d, gh, gw,
+             s if v8t is None else v8t.shape[-1], pv_group,
+             *(_pv8_plan_args("kd8", s, d, gh, gw) if pv_group
+               else (0,) * 5), ctypes.c_float(scale),
              torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "relpos_attention")
     kernels.launches[name] += 1
@@ -475,8 +609,11 @@ def _kh_tables_fit(s: int, gh: int, grid_w: int, pv8: bool) -> bool:
     """Whether K-h's tables fit the kernel's shared memory. The float
     forms: a block's 128 rows of both tables (fp32, at the kernel's
     pitches) and its column table of S keys (kv // gw and kv % gw in 8 bits
-    each) beside its tiles (96 KB at head dim 128). The int8 arm (pv8): a
-    64-row slice of both tables at odd pitches."""
+    each) beside its tiles (96 KB at head dim 128). The int8 arm (pv8):
+    the first version's bound, a 64-row slice of both tables at odd
+    pitches in 160 KB (`pv8_plan` reads tables that do not fit shared
+    memory from global memory, so the bound only keeps the support
+    set)."""
     if pv8:
         return 64 * 4 * ((gh | 1) + (grid_w | 1)) <= 160 * 1024
     ldw = grid_w if grid_w % 2 else (-(-grid_w // 8) | 1) * 8
@@ -623,11 +760,13 @@ _KH_MODES = {"stream": 0, "fused": 1, "small": 2, "small2": 3}
 
 
 def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
-               grid_w: int, d: int, kv_end: int, group: int):
+               grid_w: int, d: int, kv_end: int, group: int, pv8=None):
     """Launch K-h's kernel in `mode` on [B, H, S, *] operands (q / k of
     depth d, or 128 in the fused mode) and tables read through their
-    strides; returns [B, H, S, d] (written token-major, so the caller's head
-    merge is a free view)."""
+    strides; group > 0 takes the int8 p@v arm on pv8 = (v8t, sv) of
+    `pv8_v_operands` where given, else on v8t and sv that the launch first
+    makes from v on the card (bit-equal). Returns [B, H, S, d] (written
+    token-major, so the caller's head merge is a free view)."""
     b, heads, s, _ = q.shape
     gh = s // grid_w
     ops = [t if t.stride(-1) == 1 and t.data_ptr() % 16 == 0
@@ -635,15 +774,10 @@ def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
            for t in (q, k, v)]
     tables = [None if t is None else t if t.stride(-1) == 1
               else t.contiguous() for t in (qrh, qrw)]
-    v8t = sv = None
+    v8t = sv = amax = None
     if group:
-        # v per (view, head, channel), transposed to [B, H, d, S] (kv is the
-        # contraction axis of p@v) and zero-padded to whole 64-column tiles
-        v8, sv = quantize_v(ops[2], 2)
-        v8t = torch.zeros(b, heads, d, _pad_to(s, 64), dtype=torch.int8,
-                          device=q.device)
-        v8t[..., :s] = v8.transpose(-1, -2)
-        sv = sv.reshape(b, heads, d).contiguous()
+        v8t, sv, amax = (_pv8_buffers(b, heads, d, s, q.device)
+                         if pv8 is None else (*pv8, None))
     out = torch.empty(b, s, heads, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 18)(*(
@@ -653,11 +787,13 @@ def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
     fn = kernels.lib("flash_attention_relpos").lvv_flash_attention_relpos
     err = fn(*(t.data_ptr() for t in ops),
              *(None if t is None else t.data_ptr() for t in tables),
-             None if v8t is None else v8t.data_ptr(),
-             None if sv is None else sv.data_ptr(), out.data_ptr(),
-             ctypes.cast(strides, ctypes.c_void_p), b, heads, s, d, gh,
+             *(None if t is None else t.data_ptr() for t in (v8t, sv, amax)),
+             out.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, heads,
+             s, d, gh,
              grid_w, kv_end, group, 0 if v8t is None else v8t.shape[-1],
-             mode, ctypes.c_float(scale),
+             mode, *(_pv8_plan_args(("stream", "fused")[mode], s, d, gh,
+                                    grid_w) if group else (0,) * 5),
+             ctypes.c_float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, "flash_attention_relpos")
     kernels.launches[name] += 1

@@ -363,11 +363,15 @@ def test_w8a8_matmul_falls_back_off_the_128_grid(gen):
 @pytest.mark.parametrize("b,gh,gw,heads,d,group", [
     (1, 32, 32, 2, 64, 256),        # four groups of p scales a row
     (2, 24, 40, 2, 64, 1024),       # K-h's ragged grid: one partial group
-    (1, 64, 64, 2, 64, 1024),       # the global grid
-    (1, 16, 64, 2, 128, 512)])      # head dim 128
+    (1, 64, 64, 2, 64, 1024),       # the global grid (rule "g64")
+    (1, 16, 64, 2, 128, 512),       # head dim 128 (one consumer warpgroup)
+    (1, 32, 32, 2, 64, 192),        # groups of 192: tiles that straddle
+    (1, 64, 128, 1, 128, 1024),     # the widest tables at head dim 128
+    (1, 14, 14, 2, 64, 64)])        # a window's grid, groups of 64
 def test_relpos_attention_pv8(gen, b, gh, gw, heads, d, group):
     """K-d8 against its plain version with chip_smoke's rule: one p8 step
-    (max|v| / 127) on top of the bf16 tolerance elementwise."""
+    (max|v| / 127) on top of the bf16 tolerance elementwise; and the trap
+    (one p scale for the whole row), which the rule must fail."""
     from chip_smoke import REL_L2_TOL, agreement
     qkv = _rnd(gen, b, gh * gw, 3 * heads * d)
     rh, rw = _rnd(gen, gh, gh, d, std=0.1), _rnd(gen, gw, gw, d, std=0.1)
@@ -378,6 +382,26 @@ def test_relpos_attention_pv8(gen, b, gh, gw, heads, d, group):
     ok, err, rel = agreement(got, A.relpos_attention_plain(qkv, rh, rw, **kw),
                              REL_L2_TOL, vmax / 127)
     assert ok, (err, rel)
+    if gh * gw > group:
+        trap = A.relpos_attention_plain(qkv, rh, rw,
+                                        **dict(kw, pv_group=gh * gw))
+        ok, _, rel = agreement(got, trap, REL_L2_TOL, vmax / 127)
+        assert not ok, rel
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 4096, 12, 64), (2, 3, 1000, 2, 128),
+                                   (1, 2, 77, 1, 64)])
+def test_pv8_quantization_is_bit_equal(gen, shape):
+    """The kernels that make the int8 p@v launches' v operands (v8t, sv)
+    before the attention kernel, against the PyTorch version they replace:
+    bit for bit, on a head-split view of a packed projection (K-h's v, at
+    SAM's 1024² global shape among others) and on K-d8's [B, S, H, d]."""
+    b, _, s, heads, d = shape
+    v = _rnd(gen, b, s, 3 * heads * d).view(b, s, 3, heads, d)[:, :, 2]
+    for view in (v.transpose(1, 2), v.permute(0, 2, 1, 3)):
+        v8t, sv = A.pv8_v_launch(view)
+        want8, want_s = A.pv8_v_operands(view, 2)
+        assert torch.equal(v8t, want8) and torch.equal(sv, want_s)
 
 
 @pytest.mark.parametrize("b,gh,gw,heads", [(1, 32, 32, 2), (2, 8, 64, 3),
@@ -435,12 +459,19 @@ def test_flash_attention_relpos(gen, b, heads, gh, gw, d, bq, bk):
 @pytest.mark.parametrize("b,heads,gh,gw,d", [(1, 2, 80, 80, 64),
                                              (2, 2, 24, 40, 64),
                                              (1, 2, 32, 64, 128),
-                                             (1, 2, 8, 256, 64)])
+                                             (1, 2, 8, 256, 64),
+                                             (1, 2, 40, 40, 64),
+                                             (1, 2, 16, 96, 64),
+                                             (1, 1, 3, 600, 64),
+                                             (1, 1, 5, 300, 128)])
 def test_flash_attention_relpos_pv8(gen, b, heads, gh, gw, d):
     """K-h's int8 p@v arm (p per row of each 1024-column kv tile) with
     chip_smoke's rule, and the trap (one p scale for the whole row) that the
-    rule must fail. A grid 256 wide, which the float forms refuse, is the
-    int8 arm's still."""
+    rule must fail, on every rule of the plan: "wide" (80x80, SAM at 1280²;
+    16x96, keys past 1024 dropped), "any" (24x40, one ragged group; 40x40,
+    keys past 1024 dropped; 8x256, a grid 256 wide, which the float forms
+    refuse), "global" (3x600, tables too wide for shared memory; head dim
+    128)."""
     from chip_smoke import REL_L2_TOL, agreement, kh_whole_row_trap
     ops = _kh_operands(gen, b, heads, gh, gw, d)
     kw = dict(scale=d ** -0.5, grid_w=gw, block_q=4096, block_k=1024,
@@ -472,6 +503,26 @@ def test_flash_attention_relpos_fused(gen, quant8, b, heads, g, bk):
     ok, err, rel = agreement(got, A.flash_attention_relpos_plain(*ops, **kw),
                              REL_L2_TOL, extra)
     assert ok, (err, rel)
+
+
+@pytest.mark.parametrize("b,heads,g,bk", [(1, 2, 64, 1024), (2, 2, 32, 512)])
+def test_flash_attention_relpos_fused_pv8_sees_the_trap(gen, b, heads, g, bk):
+    """The fused form's int8 arm (rule "g64" at 64x64, "global" at 32x32)
+    on peaked rows (N(0, 1) operands, as chip_smoke draws them): within
+    the int8 rule of its plain version, and the trap (one p scale for the
+    whole row) outside it."""
+    from chip_smoke import REL_L2_TOL, agreement, kh_whole_row_trap
+    ops = _kh_operands(gen, b, heads, g, g, 64)
+    kw = dict(scale=0.125, grid_w=g, block_q=g * g, block_k=bk, quant8=True)
+    got = _launched(f"flash_attention_relpos_fused_pv8[{g}x{g}]",
+                    lambda: A.flash_attention_relpos(*ops, **kw))
+    extra = float(ops[2].abs().max()) / 127
+    ok, err, rel = agreement(got, A.flash_attention_relpos_plain(*ops, **kw),
+                             REL_L2_TOL, extra)
+    assert ok, (err, rel)
+    ok, _, rel = agreement(got, kh_whole_row_trap(*ops, **kw), REL_L2_TOL,
+                           extra)
+    assert not ok, rel
 
 
 @pytest.mark.parametrize("b,heads,gh,gw,d", [(150, 2, 14, 14, 64),
