@@ -4,7 +4,8 @@ kernel (K-e, `flash_attention`) and the rel-pos attention kernel (K-c /
 K-d, the float arm of `relpos_attention`) at every main-path shape, the
 three int8 p@v launches (K-d8, `relpos_attention(..., pv_int8=True)`, at
 1024²; K-h's int8 arm at 1280² and its fused form at its benchmark's
-shape), and the window kernel (K-l's five bodies, B-1's four variants,
+shape), the int8 scores of K-g (`relpos_attention_qk8`, its prep kernel
+included) at 1024², and the window kernel (K-l's five bodies, B-1's four variants,
 B-2) and the float forms of K-h (`flash_attention_relpos`: streaming,
 fused, small; K-m on the fused form) at their benchmarks' shapes:
 
@@ -28,7 +29,7 @@ Inputs are drawn once per shape from torch's generator on the card (seed
 projections (K-h's too, its tables 0.5·N(0, 1)); the window bodies' and
 bisect variants' qkv N(0, 1), rel_h and rel_w 0.3·N(0, 1), bias2's rows
 0.5·N(0, 1) and expanders 0.1·N(0, 1); K-c / K-d's and K-m's qkv
-0.5·N(0, 1) (K-d8's N(0, 1), as chip_smoke.py draws it: peaked rows),
+0.5·N(0, 1) (K-d8's and K-g's N(0, 1), as chip_smoke.py draws them),
 rel_h and rel_w 0.1·N(0, 1). Times are
 CUDA-event means over 20 calls after a warm-up, the stream first held busy
 so that the host has queued every call. After the last round the first
@@ -61,6 +62,7 @@ SHAPES = [
     ("1024 global [6,4096,2304]", "relpos", (6, 64, 12, 64)),
     ("1024 K-d8 int8 global [6,4096,2304] groups 1024", "relpos8",
      (6, 64, 12, 64)),
+    ("1024 K-g int8 scores global [6,4096,2304]", "qk8", (6, 64, 12, 64)),
     ("1280 VATVision self q1200 kv1200 8h d256", "flash",
      (1, 1200, 1200, 8, 8, 256, False, None)),
     ("1280 VATVision cross q1200 kv2400 8h d256", "flash",
@@ -160,8 +162,13 @@ def case(torch, A, kind, shape):
             qkv, variant=variant, heads=heads, scale=d ** -0.5, qrh=qrh,
             qrw=qrw, eh=eh, ew=ew)), f"window_attention_rows[{variant}]"
     b, g, heads, d = shape
-    qkv = rnd(b, g * g, 3 * heads * d, std=1.0 if kind == "relpos8" else 0.5)
+    qkv = rnd(b, g * g, 3 * heads * d,
+              std=1.0 if kind in ("relpos8", "qk8") else 0.5)
     rh, rw = rnd(g, g, d, std=0.1), rnd(g, g, d, std=0.1)
+    if kind == "qk8":
+        return (lambda: A.relpos_attention_qk8(
+            qkv, rh, rw, heads=heads, scale=d ** -0.5)), \
+            f"relpos_attention_qk8[{g}x{g}]"
     if kind == "relpos8":
         return (lambda: A.relpos_attention(
             qkv, rh, rw, heads=heads, scale=d ** -0.5, pv_int8=True,
@@ -186,7 +193,7 @@ def one(root: pathlib.Path, build_only: bool) -> int:
     if build_only:
         kernels.build_all(("flash_attention", "relpos_attention",
                            "flash_attention_relpos", "window_attention_rows",
-                           "qr_prep"))
+                           "qr_prep", "relpos_attention_qk8"))
         return 0
     ms, sums = {}, {}
     for label, kind, shape in SHAPES:

@@ -7,14 +7,18 @@
    (one nvcc per source, all at once).
 2. Holds each hand-written kernel against its plain PyTorch version at the
    shapes each driven path gives it (the kernels that no path runs, K-h's
-   fused and small forms, K-l's window alternates with their q·R prep,
+   fused and small forms and its streaming form at 112x112 (SAM 1792²),
+   K-l's window alternates with their q·R prep,
    K-m's prepped global attention and the bisect scripts' kernels B-1 /
    B-2, at the shapes and inputs of the benchmarks that time them), in
    bf16 on the card, and times kernel, plain version and (where one
    PyTorch call computes the same function) the library call with CUDA
-   events; K-l's five rows, K-h's fused form and K-f also print
-   `kernel_only_ms`, the launch alone on operands their wrapper's glue
-   made beforehand (K-f: the weights quantized), and K-b prints
+   events (K-j and K-k: torch._weight_int8pack_mm, where this torch has a
+   CUDA kernel for it); K-l's five rows, K-h's fused form, K-f and K-g
+   also print `kernel_only_ms`, the launch alone on operands their
+   wrapper's glue or prep kernel made beforehand (K-f: the weights
+   quantized; K-g also `prep_ms` and its prep's agreement with
+   `qk8_operands`), and K-b prints
    `unfused_ms`, the unfused bf16 sequence (F.layer_norm, F.linear, GELU,
    F.linear, add) on its inputs, a reference the port never calls. A
    disagreement beyond the stated tolerance, a trap that the tolerance
@@ -117,7 +121,11 @@ Q8_REL_L2_TOL = 1.0 / 512
 # no allowance: K-i's plain version is its arithmetic exactly (K-i:
 # per-tensor scale of x ~1.4e-2 must fail Q8_REL_L2_TOL), and K-g's int8
 # scores are exact on both sides (the float scores of K-d, ~4e-2 away, must
-# fail REL_L2_TOL).
+# fail REL_L2_TOL). K-g's attention is held to its plain version on its prep
+# kernel's operands: the prep sums q·Rh and q·Rw in another order than
+# cuBLAS, so a q8 byte of `qk8_operands` may sit one step apart, which moves
+# a peaked row's outputs past 4 ulps; the prep is held to `qk8_operands`
+# itself (qk8_prep_notes), and the whole function to REL_L2_TOL.
 SCOPES = ("mlp,dense,attn", "mlp,dense,qk")
 # the 1280² paths: the float path, and the serving model under this scope
 LARGE, LARGE_SCOPE = 1280, "mlp,dense,attn"
@@ -316,6 +324,26 @@ def ab_lines(torch) -> None:
 
 # --------------------------------------------------------------- kernels --
 
+def qk8_prep_notes(got, want) -> dict:
+    """K-g's prep kernel against `qk8_operands` on the card: k8 and sk
+    must be bit-equal (the same roundings); q8, sq and qrw take q·Rh and
+    q·Rw as sums in another order than cuBLAS's, so a q8 byte may move one
+    step (not more) and a bf16 value one ulp. Returns the shares of equal
+    values and the largest differences."""
+    import torch
+    q8, k8, sq, sk, qrw = got
+    if not (torch.equal(k8, want[1]) and torch.equal(sk, want[3])):
+        raise AssertionError("qk8_prep: k8 / sk differ from qk8_operands")
+    step = int((q8.int() - want[0].int()).abs().max())
+    if step > 1:
+        raise AssertionError(f"qk8_prep: a q8 byte {step} steps off")
+    return dict(prep_q8_equal_share=float((q8 == want[0]).float().mean()),
+                prep_q8_max_step=step,
+                prep_sq_equal_share=float((sq == want[2]).float().mean()),
+                prep_qrw_equal_share=float((qrw == want[4]).float().mean()),
+                prep_qrw_max_abs_diff=float((qrw - want[4]).abs().max()))
+
+
 def kernel_cases(torch):
     """(row, label, launches per greedy_generate, setup, resolution) at the
     shapes of the paths at SAM's 1024² and 1280², and of serving-batch[8]
@@ -397,6 +425,11 @@ def kernel_cases(torch):
             return case
         return setup
 
+    # the one PyTorch call of K-j's and K-k's function, where this torch has
+    # a CUDA kernel for it (a yardstick the port never calls)
+    int8pack = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+
     def int8_case(m, k, n, nk=False):
         # The decode streams ~0.5 GB of int8 weights a step, so each product
         # finds its weight outside the 50 MB L2: the timed calls rotate
@@ -415,13 +448,26 @@ def kernel_cases(torch):
                          (Q.quantized_matmul, Q.quantized_matmul_plain))
             turn = iter(range(10 ** 9))
 
-            def rotating(f):
-                return lambda: f(x, *weights[next(turn) % len(weights)])
-            return dict(kernel=lambda: fn(x, *weights[0]),
+            def rotating(f, ws=weights):
+                return lambda: f(x, *ws[next(turn) % len(ws)])
+            w0, s0 = weights[0]
+            case = dict(kernel=lambda: fn(x, *weights[0]),
                         plain=lambda: plain(x, *weights[0]),
                         timed_kernel=rotating(fn), timed_plain=rotating(plain),
                         library=None, flops=2 * m * k * n, peak=FP32_FLOPS,
-                        bytes=k * n + 4 * n + 2 * (m * k + m * n))
+                        bytes=k * n + 4 * n + 2 * (m * k + m * n),
+                        # each column's scale on its neighbour's column
+                        traps={"rolled_scale": lambda: plain(
+                            x, w0, s0.roll(1))},
+                        notes={"library": "torch._weight_int8pack_mm (bf16 "
+                                          "scales), [N, K] weight copies"
+                               if int8pack else "none (no CUDA kernel in "
+                               f"torch {torch.__version__})"})
+            if int8pack:
+                packs = [(w if nk else w.t().contiguous(), sc.to(x.dtype))
+                         for w, sc in weights]
+                case["library"] = rotating(torch._weight_int8pack_mm, packs)
+            return case
         return setup
 
     def flash_case(sq, sk, hq, hkv, d, causal, b=1, short=None):
@@ -524,15 +570,29 @@ def kernel_cases(torch):
             bias = b * heads * 2 * s * 2 * g * d
             case = dict(library=None, bytes=2 * (b * s * 4 * c + 2 * g * g * d))
             if qk8:
+                # the attention against its plain version on the prep's
+                # operands (the same exact scores); the prep against
+                # qk8_operands (qk8_prep_notes)
+                ops = A.qk8_prep(qkv, rh, rw, **kw)
+                prepped = A.qk8_prep_operands(ops, s)
                 case.update(
                     kernel=lambda: A.relpos_attention_qk8(qkv, rh, rw, **kw),
-                    plain=lambda: A.relpos_attention_qk8_plain(qkv, rh, rw,
-                                                               **kw),
+                    plain=lambda: A.qk8_attention_plain(qkv, prepped,
+                                                        heads=heads),
+                    notes=qk8_prep_notes(prepped, A.qk8_operands(
+                        qkv, rh, rw, **kw)),
+                    # the whole function, the prep's q·R sums apart
+                    rel_l2_refs={"whole_plain": lambda: (
+                        A.relpos_attention_qk8_plain(qkv, rh, rw, **kw))},
                     flops=pair * 128 // d + pair,
                     ops_ms=(pair * 128 // d / INT8_OPS
                             + pair / BF16_FLOPS) * 1e3,
                     traps={"float_scores": lambda: A.relpos_attention_plain(
-                        qkv, rh, rw, **kw)})
+                        qkv, rh, rw, **kw)},
+                    # the attention launch alone, on the prep's operands
+                    kernel_only=lambda: A.qk8_attend(qkv, ops, heads=heads,
+                                                     grid_w=g),
+                    info=("prep_ms", lambda: A.qk8_prep(qkv, rh, rw, **kw)))
             else:
                 case.update(
                     kernel=lambda: A.relpos_attention(
@@ -824,6 +884,9 @@ def kernel_cases(torch):
         ("flash_attention_relpos_mh[14x14]",
          "[150,12,196,64] tiles 256 (benchmarks/sam_block_bisect.py)", 0,
          kh_case(150, 14, 12, 64, bq=256, bk=256)),
+        ("flash_attention_relpos[112x112]", "global [1,12,12544,64] tiles "
+         "1024/1024 (SAM at 1792², sam.img_size 1792)", 0,
+         kh_case(1, 112, 12, 64, bq=1024, bk=1024)),
         ("window_attention_rows[fused]", win_label.format("fused_micro"), 0,
          window_case("fused")),
         ("window_attention_rows[fused2]", win_label.format("fused_micro"), 0,
@@ -999,6 +1062,9 @@ ROWS = {
     "flash_attention_relpos_mh[14x14]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
         "lvv_tpu/ops/attention.py:363"),
+    "flash_attention_relpos[112x112]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_relpos.cu",
+        "lvv_tpu/ops/attention.py:269"),
     "window_attention_rows[fused]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/window_attention_rows.cu",
         "lvv_tpu/ops/attention.py:1138"),
@@ -1104,6 +1170,11 @@ def check_case(torch, row, label, count, setup) -> tuple:
                     + f"; rel L2 1/{round(1 / rel_tol)}",
                 bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms), **case.get("notes", {}))
+    # references held by the relative L2 alone
+    for name, ref in case.get("rel_l2_refs", {}).items():
+        _, _, ref_l2 = agreement(got, ref(), rel_tol, extra)
+        line[f"{name}_rel_l2"] = ref_l2
+        ok = ok and ref_l2 <= rel_tol
     # the tolerance has to see a wrong function: each trap must fail it
     for name, trap in case.get("traps", {}).items():
         trap_ok, _, trap_l2 = agreement(got, trap(), rel_tol, extra)
@@ -1656,11 +1727,12 @@ def device_busy(torch, generate) -> dict:
 # last prefill logits leaves room for that and catches a wrong layer.
 LOGITS_REL_TOL = 0.05
 # the sm_90a window and K-h float kernels whose v is 64 deep (mangled
-# win_sm90<64, ...> and kh_stream_sm90<DQ, 64, ...>) and every kernel of the
+# win_sm90<64, ...> and kh_stream_sm90<DQ, 64, ...>), every kernel of the
 # two MLP sources (mlp_gemm_sm90, mlp_ln_*, mlp_quant_h, mlp_combine,
-# mlp_wmax, mlp_wquant): ptxas must report no spill for them
+# mlp_wmax, mlp_wquant), of the int8 p@v core, K-j's (qmv_kn) and K-g's
+# (qk8_sm90, qk8_prep): ptxas must report no spill for them
 NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
-                      r"pv8_sm90|pv8_v_")
+                      r"pv8_sm90|pv8_v_|qmv_kn|qk8_")
 
 
 def main() -> int:

@@ -38,10 +38,12 @@ _ARGTYPES = {
     "lvv_relpos_attention": [_P] * 7 + [_I] * 13 + [_F, _P],
     "lvv_ln_mlp_residual_q8": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
     "lvv_ln_mlp_residual_q8_weight": [_P] * 4 + [_I] * 2 + [_P],
-    "lvv_int8_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "lvv_int8_matmul": [_P] * 4 + [_I] * 11 + [_P],
     "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 4 + [_P],
     "lvv_w8a8_matmul": [_P] * 5 + [_I] * 4 + [_P],
-    "lvv_relpos_attention_qk8": [_P] * 7 + [_I] * 4 + [_P],
+    "lvv_relpos_attention_qk8": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "lvv_qk8_prep": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "lvv_qk8_attention": [_P] * 7 + [_I] * 5 + [_P],
     "lvv_flash_attention_relpos": [_P] * 10 + [_I] * 15 + [_F, _P],
     "lvv_pv8_quantize_v": [_P] * 2 + [_I] * 5 + [_P] * 4,
     "lvv_window_attention_rows": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -49,7 +51,8 @@ _ARGTYPES = {
 }
 # C entry points beside a library's own `lvv_{name}`
 _ENTRIES = {"ln_mlp_residual_q8": ("lvv_ln_mlp_residual_q8_weight",),
-            "flash_attention_relpos": ("lvv_pv8_quantize_v",)}
+            "flash_attention_relpos": ("lvv_pv8_quantize_v",),
+            "relpos_attention_qk8": ("lvv_qk8_prep", "lvv_qk8_attention")}
 _libs: dict = {}
 _lock = threading.Lock()
 

@@ -58,6 +58,12 @@
 // (160 or 128 keys), so kh and kw are known at compile time up to the
 // tile's row and the lane, as in relpos_attention.cu's 64-wide grids, and
 // keys past kv_end (whole grid rows) are masked through the height bias.
+// Where the block's table rows and the column table do not fit beside the
+// tiles (square grids from 112x112 up, or a side of 256 or more, past the
+// column table's 8-bit fields), the scores read the caller's bf16 table
+// rows where they lie and each lane steps its (kv / gw, kv % gw) by 8 keys,
+// as the int8 arm's rule "global" does (ops/attention.py `kh_float_plan`
+// picks the form).
 // The int8 arm's design (kh_pv8_sm90): the two passes a group of
 // pv8_sm90.cuh with K (and v8t's int8 tiles) through the TMA ring, on the
 // plan of ops/attention.py `pv8_plan`. The block's rows of the tables lie
@@ -104,11 +110,12 @@ struct KhSm90Args {
 
 // The key tile: two grid rows on a grid GW wide (80: the streaming form at
 // d 64, SAM's 1280² grid; 64: the fused form); otherwise 128 keys where v is 64 deep, 64
-// at d 128 and where the form walks kv twice (a thread's registers within
-// 168).
+// at d 128, where the form walks kv twice and where the tables are read
+// from global memory (a thread's registers within 168).
 template <int DQ, int DV, int MODE>
-__host__ __device__ constexpr int kh_tile(int gw_rows) {
-  return gw_rows ? 2 * gw_rows : DV == 64 && MODE != kSmall2 ? 128 : 64;
+__host__ __device__ constexpr int kh_tile(int gw_rows, bool gtab = false) {
+  return gw_rows ? 2 * gw_rows
+                 : DV == 64 && MODE != kSmall2 && !gtab ? 128 : 64;
 }
 
 namespace sm90 {
@@ -204,23 +211,25 @@ __host__ __device__ inline KhTail kh_tail(int tab_off, bool fused, int ldh,
 // GW > 0 (the grid GW wide, kv_end a whole number of grid rows; kFused:
 // of tiles): a tile of BN = 2·GW keys is two whole grid rows, so a score's
 // kh is the tile's first row (or the next) and its kw a compile-time
-// column plus 2·(lane % 4): no column table.
-template <int DQ, int DV, int MODE, int GW>
+// column plus 2·(lane % 4): no column table. GTAB: no tables in shared
+// memory; the scores read the caller's rows (pv8_bias's kGridAny).
+template <int DQ, int DV, int MODE, int GW, bool GTAB>
 __global__ void __launch_bounds__(
-    KhCfg<DQ, DV, MODE, kh_tile<DQ, DV, MODE>(GW)>::THREADS, 1)
+    KhCfg<DQ, DV, MODE, kh_tile<DQ, DV, MODE>(GW, GTAB)>::THREADS, 1)
 kh_stream_sm90(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                const KhSm90Args a) {
-  constexpr int BN = kh_tile<DQ, DV, MODE>(GW);
+  constexpr int BN = kh_tile<DQ, DV, MODE>(GW, GTAB);
   using C = KhCfg<DQ, DV, MODE, BN>;
   constexpr bool FUSED = MODE == kFused, NORMED = MODE == kSmall2;
   constexpr bool ROWTILE = GW > 0;
+  static_assert(!(ROWTILE && GTAB), "whole-row tiles read shared tables");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const int n_t = (a.kv_end + BN - 1) / BN;
-  const KhTail tl =
-      kh_tail(C::TAB_OFF, FUSED, a.ldh, a.ldw, ROWTILE ? 0 : n_t * BN);
+  const KhTail tl = kh_tail(C::TAB_OFF, FUSED, a.ldh, a.ldw,
+                            ROWTILE || GTAB ? 0 : n_t * BN);
   unsigned char* ring = smem + C::Q_BYTES;   // stage i: K then V
   float* bh_s = reinterpret_cast<float*>(smem + C::TAB_OFF);
   float* bw_s = reinterpret_cast<float*>(smem + tl.bw);
@@ -270,18 +279,18 @@ kh_stream_sm90(const __grid_constant__ CUtensorMap qmap,
     const int t = lane & 3;
     const int rr0 = wg * 64 + warp * 16 + (lane >> 2), rr1 = rr0 + 8;
     const int s = a.s, gh = a.gh, gw = a.gw;
-    if constexpr (!ROWTILE)
+    if constexpr (!ROWTILE && !GTAB)
       for (int i = tid; i < n_t * BN; i += 256)
         ctab[i] = i < s ? (uint16_t)((i / gw) | (i % gw) << 8) : 0;
     // the block's rows of the tables, log2-domain (0 past S)
     const float ts = FUSED ? 1.f : LVV_LOG2E;
     const bf16* rwb = a.qrw + b * a.tst[3] + h * a.tst[4];
-    for (int i = tid; i < C::BQ * gw; i += 256) {
+    const bf16* rhb = FUSED ? nullptr : a.qrh + b * a.tst[0] + h * a.tst[1];
+    for (int i = tid; i < (GTAB ? 0 : C::BQ * gw); i += 256) {
       const int r = i / gw, j = i - r * gw, tok = q_start + r;
       bw_s[r * a.ldw + j] = tok < s ? bf(rwb[tok * a.tst[5] + j]) * ts : 0.f;
     }
-    if constexpr (!FUSED) {
-      const bf16* rhb = a.qrh + b * a.tst[0] + h * a.tst[1];
+    if constexpr (!FUSED && !GTAB) {
       for (int i = tid; i < C::BQ * gh; i += 256) {
         const int r = i / gh, j = i - r * gh, tok = q_start + r;
         bh_s[r * a.ldh + j] =
@@ -298,6 +307,14 @@ kh_stream_sm90(const __grid_constant__ CUtensorMap qmap,
     const float* bw1 = bw_s + rr1 * a.ldw;
     // kv 2i, 2i + 1 share kh
     const bool pairs = (gw & 1) == 0;
+    // GTAB: the caller's rows (rows past S read row S - 1 and are not
+    // written)
+    const long long t0 = min(q_start + rr0, s - 1);
+    const long long t1 = min(q_start + rr1, s - 1);
+    const Pv8GlobalRows grows{FUSED ? nullptr : rhb + t0 * a.tst[2],
+                              FUSED ? nullptr : rhb + t1 * a.tst[2],
+                              rwb + t0 * a.tst[5], rwb + t1 * a.tst[5], ts,
+                              gh - 1};
     auto tile = [&](int i) {
       const int st = i % C::STAGES;
       bar_wait(&full[st], (i / C::STAGES) & 1);
@@ -347,6 +364,9 @@ kh_stream_sm90(const __grid_constant__ CUtensorMap qmap,
             e[3] = fmaf(e[3], a.sl, h1 + w1.y);
           }
         }
+      } else if constexpr (GTAB) {
+        pv8_bias<BN, kGridAny, FUSED>(sc, k0, a.sl, gw, grows, 0.f, 0.f);
+        pv8_mask<BN>(sc, k0, 0, a.kv_end);
       } else {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
@@ -461,20 +481,20 @@ kh_stream_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int DQ, int DV, int MODE, int GW = 0>
+template <int DQ, int DV, int MODE, int GW = 0, bool GTAB = false>
 static int launch_stream(const CUtensorMap* maps, const KhSm90Args& a, int b,
                          int heads, cudaStream_t stream) {
-  constexpr int BN = kh_tile<DQ, DV, MODE>(GW);
+  constexpr int BN = kh_tile<DQ, DV, MODE>(GW, GTAB);
   using C = KhCfg<DQ, DV, MODE, BN>;
-  const int n_col = GW ? 0 : (a.kv_end + BN - 1) / BN * BN;
+  const int n_col = GW || GTAB ? 0 : (a.kv_end + BN - 1) / BN * BN;
   const int smem =
       kh_tail(C::TAB_OFF, MODE == kFused, a.ldh, a.ldw, n_col).total +
       kSmemAlign;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(kh_stream_sm90<DQ, DV, MODE, GW>, smem);
+  cudaError_t e = allow_smem(kh_stream_sm90<DQ, DV, MODE, GW, GTAB>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.s + C::BQ - 1) / C::BQ, heads, b);
-  kh_stream_sm90<DQ, DV, MODE, GW><<<grid, C::THREADS, smem, stream>>>(
+  kh_stream_sm90<DQ, DV, MODE, GW, GTAB><<<grid, C::THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], a);
   return (int)cudaGetLastError();
 }
@@ -483,7 +503,7 @@ static int launch_stream(const CUtensorMap* maps, const KhSm90Args& a, int b,
 // rows and kv rows), then the form's kernel.
 static int launch_float(const void* q, const void* k, const void* v,
                         const long long* st, const KhArgs& ka, int b, int d,
-                        int mode, cudaStream_t stream) {
+                        int mode, bool gtab, cudaStream_t stream) {
   const int s = ka.s, heads = ka.heads;
   CUtensorMap maps[3];
   cudaError_t e;
@@ -515,25 +535,42 @@ static int launch_float(const void* q, const void* k, const void* v,
   a.s = s;
   a.gh = ka.gh;
   a.gw = ka.gw;
-  a.ldh = ka.gh | 1;
   // even gw: 8 times an odd number of floats, so that the float2 reads of
-  // a half-warp's 4 rows land on distinct 8-bank groups
-  a.ldw = ka.gw % 2 ? ka.gw : ((ka.gw + 7) / 8 | 1) * 8;
+  // a half-warp's 4 rows land on distinct 8-bank groups (no rows in shared
+  // memory under gtab)
+  a.ldh = gtab ? 0 : ka.gh | 1;
+  a.ldw = gtab ? 0 : ka.gw % 2 ? ka.gw : ((ka.gw + 7) / 8 | 1) * 8;
   a.kv_end = ka.kv_end;
   a.sl = ka.scale * LVV_LOG2E;
   const int dq = mode == kFused ? 128 : d;
   // whole-row tiles: the streaming form at d 64 on grids 80 wide (kv_end
   // whole rows), the fused form on grids 64 wide (whole tiles)
   const int gw_rows =
-      (mode == kStream && d == 64 && ka.gw == 80 && ka.kv_end % 80 == 0) ||
-              (mode == kFused && ka.gw == 64 && ka.kv_end % 128 == 0)
+      !gtab && ((mode == kStream && d == 64 && ka.gw == 80 &&
+                 ka.kv_end % 80 == 0) ||
+                (mode == kFused && ka.gw == 64 && ka.kv_end % 128 == 0))
           ? ka.gw
           : 0;
-  const int bn = gw_rows ? 2 * gw_rows : d == 64 && mode != kSmall2 ? 128 : 64;
+  // the column table's fields are 8 bits
+  if (!gtab && !gw_rows && (ka.gh > 255 || ka.gw > 255))
+    return (int)cudaErrorInvalidValue;
+  if (gtab && mode != kStream && mode != kFused)
+    return (int)cudaErrorInvalidValue;
+  const int bn =
+      gw_rows ? 2 * gw_rows : d == 64 && mode != kSmall2 && !gtab ? 128 : 64;
   e = split_map(&maps[0], q, st, dq, s, heads, b, 128);
   if (e == cudaSuccess) e = split_map(&maps[1], k, st + 3, dq, s, heads, b, bn);
   if (e == cudaSuccess) e = split_map(&maps[2], v, st + 6, d, s, heads, b, bn);
   if (e != cudaSuccess) return (int)e;
+  if (gtab)
+    return mode == kFused
+               ? launch_stream<128, 64, kFused, 0, true>(maps, a, b, heads,
+                                                          stream)
+           : d == 128
+               ? launch_stream<128, 128, kStream, 0, true>(maps, a, b, heads,
+                                                           stream)
+               : launch_stream<64, 64, kStream, 0, true>(maps, a, b, heads,
+                                                         stream);
   if (mode == kFused)
     return gw_rows ? launch_stream<128, 64, kFused, 64>(maps, a, b, heads,
                                                         stream)
@@ -653,7 +690,8 @@ kh_pv8_sm90(const __grid_constant__ CUtensorMap qmap,
     const long long t1 = min(q_start + rr1, s - 1);
     run(Pv8GlobalRows{FUSED ? nullptr : rhb + t0 * a.tst[2],
                       FUSED ? nullptr : rhb + t1 * a.tst[2],
-                      rwb + t0 * a.tst[5], rwb + t1 * a.tst[5], ts});
+                      rwb + t0 * a.tst[5], rwb + t1 * a.tst[5], ts,
+                      a.gh - 1});
   }
   bf16* ob = a.out + b * a.ost[0] + h * a.ost[1];
   const int tok0 = q_start + rr0, tok1 = q_start + rr1;
@@ -747,8 +785,10 @@ static int launch_pv8(const void* q, const void* k, const long long* st,
 // aligned; q / k of depth d (128 in mode kFused, where q, k are q_aug, k_aug
 // and d = 64 is v's depth); qrh [B, H, S, gh] (not read in mode kFused) and
 // qrw [B, H, S, gw] bf16 with unit stride on the last axis; out [B, H, S,
-// d]. Keys at or past kv_end (<= S) are masked. group 0: the float arm
-// (gh, gw < 256); otherwise the int8 p@v arm (kStream, kFused) with p
+// d]. Keys at or past kv_end (<= S) are masked. group 0: the float arm,
+// its tables in shared memory (rule 0; gh, gw < 256 unless the tiles are
+// whole grid rows) or read where they lie (rule 3, kStream / kFused: the
+// plan of ops/attention.py `kh_float_plan`); otherwise the int8 p@v arm (kStream, kFused) with p
 // quantized per `group` kv columns (a multiple of 64): v8t [B, H, d, s_pad8]
 // int8 (kv permuted inside each 16 columns as pv8_sm90.cuh takes it, zero
 // past S; s_pad8 a multiple of 64 and >= S) and sv [B, H, d] fp32, on the
@@ -766,8 +806,7 @@ extern "C" int lvv_flash_attention_relpos(
     int kv_end, int group, int s_pad8, int mode, int rule, int ldw,
     int step, int rows, int stages, float scale, void* stream) {
   const bool small = mode == kSmall || mode == kSmall2;
-  if (gh <= 0 || gw <= 0 || (!group && (gh > 255 || gw > 255)) ||
-      gh * gw != s || kv_end <= 0 || kv_end > s || group < 0 ||
+  if (gh <= 0 || gw <= 0 || gh * gw != s || kv_end <= 0 || kv_end > s || group < 0 ||
       group % kBK || !qrw || (mode != kFused && !qrh) || mode < kStream || mode > kSmall2 ||
       !(d == 64 || (d == 128 && mode != kFused)) ||
       (small && (kv_end != s || s > (mode == kSmall ? 256 : 512))) ||
@@ -794,7 +833,9 @@ extern "C" int lvv_flash_attention_relpos(
   a.s_pad8 = s_pad8;
   a.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!group) return launch_float(q, k, v, a.st, a, b, d, mode, st);
+  if (!group)
+    return launch_float(q, k, v, a.st, a, b, d, mode, rule == kRuleGlobal,
+                        st);
   if (amax) {
     const cudaError_t e = pv8_quantize_v(v, a.st + 6, b, heads, s, d, s_pad8,
                                          amax, v8t, sv, st);

@@ -448,8 +448,9 @@ struct Pv8SmemRows {   // fp32 rows in shared memory
 struct Pv8GlobalRows { // the caller's bf16 rows, times ts
   const bf16 *h0, *h1, *w0, *w1;
   float ts;
+  int ghm;              // gh - 1: keys past S (masked) read the last entry
   __device__ __forceinline__ float h(int i, int kh) const {
-    return bf(__ldg((i ? h1 : h0) + kh)) * ts;
+    return bf(__ldg((i ? h1 : h0) + min(kh, ghm))) * ts;
   }
   __device__ __forceinline__ float w(int i, int kw) const {
     return bf(__ldg((i ? w1 : w0) + kw)) * ts;

@@ -20,7 +20,10 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
   `fused_operands` and the window variants' row glue are glue that the JAX
   package computes outside its kernels too; the int8 p@v launches make
   their v operands on the card (`pv8_v_operands` is the PyTorch version,
-  `pv8_v_launch` those kernels alone) and take `pv8_plan`'s schedule.
+  `pv8_v_launch` those kernels alone) and take `pv8_plan`'s schedule; K-g
+  makes `qk8_operands`' operands with its prep kernel (`qk8_prep`, held to
+  them; `qk8_attention_plain` is the attention on given operands); K-h's
+  float forms take `kh_float_plan`'s table placement.
 - `attention` keeps the JAX dispatch: the flash kernel once the kv sequence
   reaches 1024, without bias, and causal only for sq == sk; the reference
   otherwise. `decode_attention` is the reference over the cache, as in JAX.
@@ -497,16 +500,24 @@ def qk8_operands(qkv, rel_h, rel_w, *, heads: int, scale: float):
 
 def relpos_attention_qk8_plain(qkv, rel_h, rel_w, *, heads: int,
                                scale: float) -> torch.Tensor:
-    """K-g's function: scores (z·sq)·sk + qrw[q, k mod gw] from the int8
-    augmented operands (z summed exactly: 128 products of |x| <= 127 stay
-    below 2^24, so fp32 sums are exact), base-2 softmax, p rounded to qkv's
-    dtype for p@v; one view at a time. Returns [B, S, C]."""
+    """K-g's function: `qk8_operands`, then `qk8_attention_plain`. Returns
+    [B, S, C]."""
+    return qk8_attention_plain(qkv, qk8_operands(qkv, rel_h, rel_w,
+                                                 heads=heads, scale=scale),
+                               heads=heads)
+
+
+def qk8_attention_plain(qkv, ops, *, heads: int) -> torch.Tensor:
+    """K-g's attention on its operands ops = (q8, k8, sq, sk, qrw) in
+    `qk8_operands`' layout: scores (z·sq)·sk + qrw[q, k mod gw] (z summed
+    exactly: 128 products of |x| <= 127 stay below 2^24, so fp32 sums are
+    exact), base-2 softmax, p rounded to qkv's dtype for p@v, v read from
+    qkv [B, S, 3C]; one view at a time. Returns [B, S, C]."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    gw = rel_w.shape[0]
-    q8, k8, sq, sk, qrw = qk8_operands(qkv, rel_h, rel_w, heads=heads,
-                                       scale=scale)
+    q8, k8, sq, sk, qrw = ops
+    gw = qrw.shape[-1]
     cols = torch.arange(s, device=qkv.device) % gw
     out = torch.empty(b, s, c, dtype=qkv.dtype, device=qkv.device)
     for i in range(b):
@@ -522,35 +533,96 @@ def relpos_attention_qk8_plain(qkv, rel_h, rel_w, *, heads: int,
     return out
 
 
-def relpos_attention_qk8(qkv, rel_h, rel_w, *, heads: int,
-                         scale: float) -> torch.Tensor:
-    """Kernel K-g: SAM global attention with int8 q_aug·k_augᵀ scores (the
-    height bias inside the product, depth 128) and bf16 p@v, from packed
-    qkv [B, S, 3C] (head dim 64, d + gh <= 128, gw <= 128); returns
-    [B, S, C]."""
-    if not qkv.is_cuda:
-        return relpos_attention_qk8_plain(qkv, rel_h, rel_w, heads=heads,
-                                          scale=scale)
+def _qk8_check(fn: str, qkv, rel_h, rel_w, heads: int):
     b, s, c3 = qkv.shape
     d = c3 // 3 // heads
     gh, gw = rel_h.shape[0], rel_w.shape[0]
     if (c3 != 3 * heads * d or d != 64 or gh * gw != s or d + gh > _LANE
             or gw > _LANE or rel_h.shape != (gh, gh, d)
             or rel_w.shape != (gw, gw, d)):
-        raise ValueError(f"relpos_attention_qk8: unsupported qkv "
-                         f"{tuple(qkv.shape)} rel_h {tuple(rel_h.shape)} "
-                         f"rel_w {tuple(rel_w.shape)} heads={heads}")
+        raise ValueError(f"{fn}: unsupported qkv {tuple(qkv.shape)} rel_h "
+                         f"{tuple(rel_h.shape)} rel_w {tuple(rel_w.shape)} "
+                         f"heads={heads}")
     if any(t.dtype != torch.bfloat16 or t.device != qkv.device
            for t in (qkv, rel_h, rel_w)):
-        raise ValueError("relpos_attention_qk8: operands must be bf16 on one "
-                         "device")
-    qkv = qkv.contiguous()
-    ops = [t.contiguous() for t in qk8_operands(qkv, rel_h, rel_w,
-                                                heads=heads, scale=scale)]
-    out = torch.empty(b, s, heads * d, dtype=qkv.dtype, device=qkv.device)
+        raise ValueError(f"{fn}: operands must be bf16 on one device")
+    return [t.contiguous() for t in (qkv, rel_h, rel_w)]
+
+
+def qk8_prep(qkv, rel_h, rel_w, *, heads: int, scale: float):
+    """K-g's operands made by its prep kernel on the card (the launch that
+    `relpos_attention_qk8` runs first): (q8, k8 [B, S, H, 128] int8, sq [B,
+    S, H] fp32, skT [B, H, s_pad] fp32 (sk transposed, S padded to 128, not
+    written past S), qrw [B, S, H, gw] bf16). k8 and sk are bit-equal to
+    `qk8_operands` on the card; q8, sq and qrw take q·Rh and q·Rw as sums
+    in another order than cuBLAS's."""
+    if not qkv.is_cuda:
+        raise ValueError("qk8_prep: the prep kernel runs on the card")
+    qkv, rel_h, rel_w = _qk8_check("qk8_prep", qkv, rel_h, rel_w, heads)
+    b, s, _ = qkv.shape
+    gh, gw = rel_h.shape[0], rel_w.shape[0]
+    ops = _qk8_buffers(b, s, heads, gw, qkv.device)
+    err = kernels.lib("relpos_attention_qk8").lvv_qk8_prep(
+        qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+        *(t.data_ptr() for t in ops), b, s, heads, gh, gw, ops[3].shape[-1],
+        ctypes.c_float(scale * _LOG2E),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "qk8_prep")
+    return ops
+
+
+def qk8_prep_operands(ops, s: int):
+    """`qk8_prep`'s outputs in `qk8_operands`' layout and types (sk [B, S,
+    H] from skT, qrw as fp32)."""
+    q8, k8, sq, skt, qrw = ops
+    return q8, k8, sq, skt[..., :s].transpose(1, 2), qrw.float()
+
+
+def _qk8_buffers(b: int, s: int, heads: int, gw: int, device):
+    """Room for K-g's prep outputs (see `qk8_prep`)."""
+    i8 = dict(dtype=torch.int8, device=device)
+    return (torch.empty(b, s, heads, _LANE, **i8),
+            torch.empty(b, s, heads, _LANE, **i8),
+            torch.empty(b, s, heads, device=device),
+            torch.empty(b, heads, _pad_to(s, 128), device=device),
+            torch.empty(b, s, heads, gw, dtype=torch.bfloat16, device=device))
+
+
+def qk8_attend(qkv, ops, *, heads: int, grid_w: int) -> torch.Tensor:
+    """K-g's attention launch alone on the prep's operands `ops` (those of
+    `qk8_prep`), v read from qkv [B, S, 3C] (contiguous bf16 on the card).
+    Returns [B, S, C]."""
+    b, s, c3 = qkv.shape
+    out = torch.empty(b, s, c3 // 3, dtype=qkv.dtype, device=qkv.device)
+    err = kernels.lib("relpos_attention_qk8").lvv_qk8_attention(
+        *(t.data_ptr() for t in ops), qkv.data_ptr(), out.data_ptr(), b, s,
+        heads, grid_w, ops[3].shape[-1],
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "qk8_attend")
+    return out
+
+
+def relpos_attention_qk8(qkv, rel_h, rel_w, *, heads: int,
+                         scale: float) -> torch.Tensor:
+    """Kernel K-g: SAM global attention with int8 q_aug·k_augᵀ scores (the
+    height bias inside the product, depth 128) and bf16 p@v, from packed
+    qkv [B, S, 3C] (head dim 64, d + gh <= 128, gw <= 128); returns
+    [B, S, C]. On the card one call runs the prep kernel (`qk8_prep`: the
+    operands of `qk8_operands`) and then the attention kernel."""
+    if not qkv.is_cuda:
+        return relpos_attention_qk8_plain(qkv, rel_h, rel_w, heads=heads,
+                                          scale=scale)
+    qkv, rel_h, rel_w = _qk8_check("relpos_attention_qk8", qkv, rel_h, rel_w,
+                                   heads)
+    b, s, c3 = qkv.shape
+    gh, gw = rel_h.shape[0], rel_w.shape[0]
+    ops = _qk8_buffers(b, s, heads, gw, qkv.device)
+    out = torch.empty(b, s, c3 // 3, dtype=qkv.dtype, device=qkv.device)
     fn = kernels.lib("relpos_attention_qk8").lvv_relpos_attention_qk8
-    err = fn(*(t.data_ptr() for t in ops), qkv.data_ptr(), out.data_ptr(), b,
-             s, heads, gw, torch.cuda.current_stream(qkv.device).cuda_stream)
+    err = fn(qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+             *(t.data_ptr() for t in ops), out.data_ptr(), b, s, heads, gh,
+             gw, ops[3].shape[-1], ctypes.c_float(scale * _LOG2E),
+             torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "relpos_attention_qk8")
     kernels.launches[f"relpos_attention_qk8[{gh}x{gw}]"] += 1
     return out
@@ -605,20 +677,44 @@ def kh_form(s: int, d: int, grid_w: int, block_q: int, block_k: int,
     return "stream", kv_end, tile
 
 
-def _kh_tables_fit(s: int, gh: int, grid_w: int, pv8: bool) -> bool:
-    """Whether K-h's tables fit the kernel's shared memory. The float
-    forms: a block's 128 rows of both tables (fp32, at the kernel's
-    pitches) and its column table of S keys (kv // gw and kv % gw in 8 bits
-    each) beside its tiles (96 KB at head dim 128). The int8 arm (pv8):
-    the first version's bound, a 64-row slice of both tables at odd
-    pitches in 160 KB (`pv8_plan` reads tables that do not fit shared
-    memory from global memory, so the bound only keeps the support
-    set)."""
-    if pv8:
-        return 64 * 4 * ((gh | 1) + (grid_w | 1)) <= 160 * 1024
-    ldw = grid_w if grid_w % 2 else (-(-grid_w // 8) | 1) * 8
-    return (gh < 256 and grid_w < 256
-            and 512 * ((gh | 1) + ldw) + 2 * _pad_to(s, 128) <= 130 * 1024)
+def _kh_tables_fit(s: int, gh: int, grid_w: int) -> bool:
+    """The grids K-h's wrapper takes, one rule for every arm: the first
+    kernel's bound, a 64-row slice of both tables at odd pitches in 160 KB.
+    The kernels read tables that do not fit shared memory from global
+    memory (`pv8_plan`'s rule "global", `kh_float_plan`'s "global"), so the
+    bound only keeps the support set."""
+    return 64 * 4 * ((gh | 1) + (grid_w | 1)) <= 160 * 1024
+
+
+def kh_float_plan(form: str, s: int, d: int, gh: int, gw: int,
+                  kv_end: int) -> dict:
+    """Where K-h's float forms (`kh_stream_sm90`, forms "stream", "fused",
+    "small2") keep the bias tables, from the shapes alone: "smem" (the
+    block's 128 rows of both tables as fp32 at the kernel's pitches, and a
+    column table of kv // gw and kv % gw in 8 bits each, beside q and two
+    stages of K / V tiles) where that fits and both sides are below 256,
+    or where the tiles are two whole grid rows (80 wide at head dim 64, the
+    fused form 64 wide: no column table); else "global" (the caller's bf16
+    rows read where they lie, each lane stepping its columns), which the
+    small2 form never needs (S <= 512). `tile`: keys a kv tile; `smem`:
+    the block's bytes."""
+    fused = form == "fused"
+    dq = 128 if fused else d
+    rowtile = ((form == "stream" and d == 64 and gw == 80 and kv_end % 80 == 0)
+               or (fused and gw == 64 and kv_end % 128 == 0))
+
+    def total(bn, ldh, ldw, n_col):  # flash_attention_relpos.cu `kh_tail`
+        tab_off = dq // 64 * 128 * 128 + 2 * (dq // 64 + d // 64) * bn * 128
+        bw = (tab_off + (0 if fused else 128 * ldh * 4) + 7) // 8 * 8
+        return (bw + 128 * ldw * 4 + n_col * 2 + 7) // 8 * 8 + 64 + 1024
+
+    bn = 2 * gw if rowtile else 128 if d == 64 and form != "small2" else 64
+    ldw = gw if gw % 2 else (-(-gw // 8) | 1) * 8
+    smem = total(bn, gh | 1, ldw, 0 if rowtile else _pad_to(kv_end, bn))
+    if rowtile or (gh < 256 and gw < 256 and smem <= _SMEM_MAX):
+        return dict(tables="smem", tile=bn, smem=smem)
+    # 64-key tiles: the global reads' registers leave no room for 128
+    return dict(tables="global", tile=64, smem=total(64, 0, 0, 0))
 
 
 def _grid_cols(s: int, grid_w: int, device):
@@ -784,6 +880,13 @@ def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
         st for t in (*ops, out) for st in t.stride()[:3]),
         *(st for t in tables
           for st in ((0, 0, 0) if t is None else t.stride()[:3])))
+    form = [f for f, m in _KH_MODES.items() if m == mode][0]
+    if group:
+        plan = _pv8_plan_args(form, s, d, gh, grid_w)
+    else:     # the float arm: rule 3 reads the tables where they lie
+        glob = form != "small" and kh_float_plan(
+            form, s, d, gh, grid_w, kv_end)["tables"] == "global"
+        plan = (3 if glob else 0, 0, 0, 0, 0)
     fn = kernels.lib("flash_attention_relpos").lvv_flash_attention_relpos
     err = fn(*(t.data_ptr() for t in ops),
              *(None if t is None else t.data_ptr() for t in tables),
@@ -791,23 +894,21 @@ def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
              out.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), b, heads,
              s, d, gh,
              grid_w, kv_end, group, 0 if v8t is None else v8t.shape[-1],
-             mode, *(_pv8_plan_args(("stream", "fused")[mode], s, d, gh,
-                                    grid_w) if group else (0,) * 5),
-             ctypes.c_float(scale),
+             mode, *plan, ctypes.c_float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, "flash_attention_relpos")
     kernels.launches[name] += 1
     return out
 
 
-def _kh_check(fn: str, q, k, v, tables, grid_w: int, pv8: bool):
+def _kh_check(fn: str, q, k, v, tables, grid_w: int):
     b, heads, s, d = q.shape
     gh = s // grid_w if grid_w > 0 else 0
     ok = (d in (64, 128) and grid_w > 0 and gh * grid_w == s
           and k.shape == q.shape and v.shape == q.shape
           and tables[0].shape == (b, heads, s, gh)
           and tables[1].shape == (b, heads, s, grid_w)
-          and _kh_tables_fit(s, gh, grid_w, pv8))
+          and _kh_tables_fit(s, gh, grid_w))
     if not ok:
         raise ValueError(f"{fn}: unsupported q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} tables "
@@ -834,9 +935,7 @@ def flash_attention_relpos(q, k, v, q_rh, q_rw, *, scale: float,
             q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
             block_k=block_k, quant8=quant8, fused=fused)
     b, heads, s, d = q.shape
-    pv8 = quant8 and grid_w > 0 and kh_form(
-        s, d, grid_w, block_q, block_k, fused)[0] in ("stream", "fused")
-    _kh_check("flash_attention_relpos", q, k, v, (q_rh, q_rw), grid_w, pv8)
+    _kh_check("flash_attention_relpos", q, k, v, (q_rh, q_rw), grid_w)
     gh = s // grid_w
     if fused and _fused_ok(s, d, gh, grid_w, block_q, block_k):
         return flash_attention_relpos_fused(
@@ -870,8 +969,7 @@ def flash_attention_relpos_fused(q, k, v, q_rh, q_rw, *, scale: float,
             q, k, v, q_rh, q_rw, scale=scale, grid_w=grid_w, block_q=block_q,
             block_k=block_k, quant8=quant8)
     b, heads, s, d = q.shape
-    _kh_check("flash_attention_relpos_fused", q, k, v, (q_rh, q_rw), grid_w,
-              quant8)
+    _kh_check("flash_attention_relpos_fused", q, k, v, (q_rh, q_rw), grid_w)
     gh = s // grid_w
     if d != 64 or not _fused_ok(s, d, gh, grid_w, block_q, block_k):
         raise ValueError(f"flash_attention_relpos_fused: S={s}, d={d}, "

@@ -15,7 +15,8 @@ the scale at 1e-8, so it is bit-equal to the JAX package's.
   the kernel wrappers of the decode: on a CUDA tensor they launch their kernel or raise,
   on a CPU tensor they compute their plain version. Both read the int8
   weight as stored ([K, N], or [N, K] for the tied unembed) and dequantize
-  in registers; no dequantized copy of a weight is made on the card.
+  in registers; no dequantized copy of a weight is made on the card. K-j
+  takes its grid and split-K clusters from `qmv_plan`.
 - `quantized_matmul_plain` / `quantized_matmul_nk_plain` follow the JAX
   decode's arithmetic: x @ q rounded to x's dtype, then scaled and rounded
   again (the kernels round once).
@@ -23,6 +24,7 @@ the scale at 1e-8, so it is bit-equal to the JAX package's.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -30,6 +32,7 @@ import torch
 from .. import kernels
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_SMS = 132                  # the H100's streaming multiprocessors
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,6 +120,44 @@ def quantized_matmul_nk_plain(x: torch.Tensor, q: torch.Tensor,
     return ((x @ q.t().to(x.dtype)) * scale).to(x.dtype)
 
 
+def qmv_plan(m: int, k: int, n: int) -> dict:
+    """K-j's launch plan (int8_matmul.cu) from the shapes alone. `rows`: x
+    rows a block (1, 2, 4 or 8; more rows take more row groups); `vec`:
+    weight columns a thread loads at once (16, or 8 at 8 rows; 4 where N is
+    no multiple of those). A thread's rows·vec sums set `stages`, the
+    weight loads it issues ahead (8 up to 16 sums, else 4), and the blocks
+    an SM its registers allow (3 up to 32 sums, else 2), whose 7/8 (the
+    clusters do not pack every SM) make one wave. `n_tile`: columns a
+    block, 128 where the tiles fill that wave with K split 8 ways, else 32;
+    `splits`: K ranges of `k_split` rows (the last may be shorter, none is
+    empty), as many as the wave holds, at most 8 and each at least 16 rows;
+    `cluster`: the blocks of one N tile's splits, whose partials the kernel
+    adds in rank order."""
+    rows = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+    vec = 8 if rows == 8 else 16
+    vec = vec if n % vec == 0 else 4
+    sums = rows * vec
+    wave = (3 if sums <= 32 else 2) * _SMS * 7 // 8
+    n_tile = 128 if -(-n // 128) * 8 >= wave else 32
+    tiles = -(-n // n_tile)
+    splits = max(1, min(8, wave // tiles, -(-k // 16)))
+    k_split = -(-k // splits)
+    splits = -(-k // k_split)
+    return dict(rows=rows, vec=vec, n_tile=n_tile, splits=splits,
+                k_split=k_split, cluster=splits,
+                stages=8 if sums <= 16 else 4)
+
+
+@functools.lru_cache(maxsize=256)
+def _qmv_args(m: int, k: int, n: int) -> tuple:
+    """`qmv_plan` as the C entry takes it, kept per shape: the decode asks
+    for a few shapes thousands of times a generate, and the decode's pace
+    is the host's."""
+    plan = qmv_plan(m, k, n)
+    return tuple(plan[key] for key in ("n_tile", "splits", "cluster",
+                                       "k_split", "stages", "rows", "vec"))
+
+
 def _launch(name: str, x, q, scale, n: int, k: int, *, nk: bool):
     if x.dtype not in _KINDS or q.dtype != torch.int8 or (
             scale.dtype != torch.float32):
@@ -139,8 +180,9 @@ def _launch(name: str, x, q, scale, n: int, k: int, *, nk: bool):
     out = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
     if x2.shape[0]:
         fn = getattr(kernels.lib(name), f"lvv_{name}")
+        plan = () if nk else _qmv_args(x2.shape[0], k, n)
         err = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), x2.shape[0], k, n, _KINDS[x.dtype],
+                 out.data_ptr(), x2.shape[0], k, n, _KINDS[x.dtype], *plan,
                  torch.cuda.current_stream(x.device).cuda_stream)
         kernels.check(err, name)
         kernels.launches[name] += 1

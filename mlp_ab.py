@@ -1,8 +1,11 @@
-"""Time the port's two MLP kernels in several checkouts of this repository
-on one H100, alternating the checkouts: K-b (`ln_mlp_residual`, the float
-path) and K-f (`ln_mlp_residual_q8`, the serving path, with its wrapper's
-per-call weight quantization) at every shape that chip_smoke.py's paths
-give them:
+"""Time the port's two MLP kernels and the decode's int8 product in
+several checkouts of this repository on one H100, alternating the
+checkouts: K-b (`ln_mlp_residual`, the float path) and K-f
+(`ln_mlp_residual_q8`, the serving path, with its wrapper's per-call
+weight quantization) at every shape that chip_smoke.py's paths give them,
+and K-j (`quantized_matmul`, the packed int8 decode's four products a
+layer, at batch 1 and 8, the weights rotated through copies that exceed
+the 50 MB L2 as in chip_smoke.py):
 
     python3 mlp_ab.py PATH [PATH ...] [--rounds 2]
 
@@ -12,15 +15,15 @@ round, each checkout in turn runs in a process of its own
 (`python3 mlp_ab.py --one PATH`), which prints one JSON line:
 
 - `ms`: per-call ms of each wrapper (its glue included) at SAM's and
-  CLIP's shapes at 1024² and 1280² (K-b and K-f) and at serving-batch[8]
-  (K-f);
+  CLIP's shapes at 1024² and 1280² (K-b and K-f), at serving-batch[8]
+  (K-f) and at the decode's products (K-j);
 - `out_abs_sum`: the sum of |output| at each shape, so that the checkouts
   can be seen to compute the same thing.
 
 Inputs are drawn once per shape from torch's generator on the card (seed
 0), the same in every checkout, as chip_smoke.py draws them: x N(0, 1),
 the LN scale 1 + 0.1·N(0, 1), the biases 0.1·N(0, 1), W1 N(0, 1/C), W2
-N(0, 1/H). Times are CUDA-event means over 20 calls after a warm-up, the
+N(0, 1/H); K-j's weights N(0, 1/K) quantized per column. Times are CUDA-event means over 20 calls after a warm-up, the
 stream first held busy so that the host has queued every call (the
 `alternate` and `timed_ms` of attention_ab.py). After the last round the
 first process prints one `mlp-ab-summary` line: per shape, each checkout's
@@ -48,16 +51,29 @@ SHAPES = [(f"{res} {kind} [{n},{dims[0]}]x[{dims[0]},{dims[1]}]", q8,
     (f"batch8 {name} K-f [{n},{dims[0]}]x[{dims[0]},{dims[1]}]", True,
      (n,) + dims)
     for name, n, dims in (("SAM", 8 * 24576, SAM), ("CLIP", 8 * 1542, CLIP))]
+# K-j: (label, "qmv", (rows, K, N))
+SHAPES += [(f"decode K-j {name} [{m},{k}]x[{k},{n}]", "qmv", (m, k, n))
+           for m in (1, 8)
+           for name, k, n in (("qkv", 896, 1152), ("o", 896, 896),
+                              ("gate|up", 896, 9728), ("down", 4864, 896))]
 
 
-def case(torch, M, q8: bool, shape):
+def case(torch, M, q8, shape):
     """The wrapper call on seeded inputs."""
-    n, c, h, act = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rnd(*s, std=1.0):
         return (torch.randn(s, generator=gen, device="cuda") * std).to(
             torch.bfloat16)
+    if q8 == "qmv":
+        from lvv_tpu_torch.ops import quant as Q
+        m, k, n = shape
+        x = rnd(m, k)
+        ws = [Q.quantize_weight(rnd(k, n, std=k ** -0.5))
+              for _ in range(max(1, -(-128 * 2 ** 20 // (k * n))))]
+        turn = iter(range(10 ** 9))
+        return lambda: Q.quantized_matmul(x, *ws[next(turn) % len(ws)])
+    n, c, h, act = shape
     x = rnd(n, c)
     p = (1 + rnd(c, std=0.1), rnd(c, std=0.1), rnd(c, h, std=c ** -0.5),
          rnd(h, std=0.1), rnd(h, c, std=h ** -0.5), rnd(c, std=0.1))
@@ -73,12 +89,14 @@ def one(root: pathlib.Path, build_only: bool) -> int:
     from lvv_tpu_torch import kernels
     from lvv_tpu_torch.ops import fused_mlp as M
     if build_only:
-        kernels.build_all(("ln_mlp_residual", "ln_mlp_residual_q8"))
+        kernels.build_all(("ln_mlp_residual", "ln_mlp_residual_q8",
+                           "int8_matmul"))
         return 0
     ms, sums = {}, {}
     for label, q8, shape in SHAPES:
         fn = case(torch, M, q8, shape)
-        name = "ln_mlp_residual_q8" if q8 else "ln_mlp_residual"
+        name = ("int8_matmul" if q8 == "qmv" else
+                "ln_mlp_residual_q8" if q8 else "ln_mlp_residual")
         before = kernels.launches[name]
         sums[label] = float(fn().float().abs().sum())
         if kernels.launches[name] == before:

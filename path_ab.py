@@ -22,11 +22,13 @@ tokens):
 - "serving 1024 mlp,dense,attn": the serving model at 1024² under that
   scope, where SAM's 4 global layers run the int8 p@v arm K-d8
   ("serving-path[mlp,dense,attn]");
+- "serving 1024 mlp,dense,qk": the same under that scope, where they run
+  the int8 scores K-g ("serving-path[mlp,dense,qk]");
 - "float 1280": SAM at 1280², float ("main-path[sam1280]");
 - "serving 1280 mlp,dense,attn": the serving model at 1280² under that
   scope ("serving-path[sam1280,mlp,dense,attn]").
 
-`--sizes 1024` drives the first four only. Each path is warmed up once,
+`--sizes 1024` drives the first five only. Each path is warmed up once,
 then timed `--runs` times on the host's clock (synchronised), and so is its
 encode alone (`encode_prefix` of the views and BEV grid, as chip_smoke.py
 times it: device-bound at batch 8, less at the host's mercy than the p50);
@@ -47,9 +49,10 @@ import subprocess
 import sys
 import time
 
+QK_SCOPE = "mlp,dense,qk"
 PATHS = ("float 1024", "serving 1024", "serving-batch 8",
-         "serving 1024 mlp,dense,attn", "float 1280",
-         "serving 1280 mlp,dense,attn")
+         "serving 1024 mlp,dense,attn", f"serving 1024 {QK_SCOPE}",
+         "float 1280", "serving 1280 mlp,dense,attn")
 
 
 def drive(torch, cs, model, args, packed, runs: int) -> dict:
@@ -114,9 +117,10 @@ def one(root: pathlib.Path, build_only: bool, runs: int, sizes) -> int:
                     torch, cs, model, on_card(cs.serving_batch_inputs(
                         cfg, cs.SERVING_BATCH)), packed, runs)
         if size == 1024:
-            with cs.q8_scope_env(cs.LARGE_SCOPE):
-                out[f"serving {size} {cs.LARGE_SCOPE}"] = drive(
-                    torch, cs, model, args, packed, runs)
+            for scope in (cs.LARGE_SCOPE, QK_SCOPE):
+                with cs.q8_scope_env(scope):
+                    out[f"serving {size} {scope}"] = drive(
+                        torch, cs, model, args, packed, runs)
         del model, packed
         torch.cuda.empty_cache()
     print("path-ab", json.dumps(dict(tree=str(root), card=cs.card_line(),

@@ -228,6 +228,32 @@ def test_int8_matmul(gen, dtype, m, k, n):
     _agree(got, Q.quantized_matmul_plain(x, q, s))
 
 
+_DECODE = [(896, 1152), (896, 896), (896, 9728), (4864, 896)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+@pytest.mark.parametrize("k,n", _DECODE)
+def test_int8_matmul_at_the_decode_shapes(gen, m, k, n):
+    """K-j's split-K clusters at every product of the decode, batch 1 to 8
+    (one row group: every row in one pass over the weight)."""
+    q, s = Q.quantize_weight(torch.randn(k, n, generator=gen, device="cuda")
+                             * k ** -0.5)
+    x = _rnd(gen, m, k)
+    got = _launched("int8_matmul", lambda: Q.quantized_matmul(x, q, s))
+    _agree(got, Q.quantized_matmul_plain(x, q, s))
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", _DECODE)
+def test_int8_matmul_is_deterministic(gen, m, k, n):
+    """The split-K partials are added in a fixed order (no atomics): two
+    runs are bit-equal."""
+    q, s = Q.quantize_weight(torch.randn(k, n, generator=gen, device="cuda"))
+    x = _rnd(gen, m, k)
+    assert torch.equal(Q.quantized_matmul(x, q, s),
+                       Q.quantized_matmul(x, q, s))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 896, 151940), (3, 896, 1000),
                                    (5, 64, 200)])
@@ -405,16 +431,46 @@ def test_pv8_quantization_is_bit_equal(gen, shape):
 
 
 @pytest.mark.parametrize("b,gh,gw,heads", [(1, 32, 32, 2), (2, 8, 64, 3),
-                                           (1, 64, 64, 2)])
+                                           (1, 64, 64, 2), (1, 40, 96, 2),
+                                           (2, 12, 20, 2)])
 def test_relpos_attention_qk8(gen, b, gh, gw, heads):
-    """K-g against its plain version (the same exact int8 scores)."""
+    """K-g against its plain attention on the prep's operands (the same
+    exact int8 scores; the prep is held to `qk8_operands` below): grids 64,
+    32 wide (the qrw columns at compile time) and 96, 20 wide (each lane
+    steps them)."""
     qkv = _rnd(gen, b, gh * gw, 3 * heads * 64)
     rh, rw = _rnd(gen, gh, gh, 64, std=0.1), _rnd(gen, gw, gw, 64, std=0.1)
+    kw = dict(heads=heads, scale=0.125)
     got = _launched(f"relpos_attention_qk8[{gh}x{gw}]",
-                    lambda: A.relpos_attention_qk8(qkv, rh, rw, heads=heads,
-                                                   scale=0.125))
-    _agree(got, A.relpos_attention_qk8_plain(qkv, rh, rw, heads=heads,
-                                             scale=0.125))
+                    lambda: A.relpos_attention_qk8(qkv, rh, rw, **kw))
+    ops = A.qk8_prep_operands(A.qk8_prep(qkv, rh, rw, **kw), gh * gw)
+    _agree(got, A.qk8_attention_plain(qkv, ops, heads=heads))
+
+
+@pytest.mark.parametrize("b,gh,gw,heads", [(1, 32, 32, 2), (2, 8, 64, 3),
+                                           (6, 64, 64, 12), (1, 40, 96, 2)])
+def test_qk8_prep_against_qk8_operands(gen, b, gh, gw, heads):
+    """K-g's prep kernel: k8 and sk bit-equal to `qk8_operands` on the card
+    (the same roundings: the scale a multiply by fl(1/127), as PyTorch
+    divides by a scalar here); q8, sq and qrw take q·Rh and q·Rw as sums in
+    another order than cuBLAS's, so a byte may move one step and a bf16
+    value one ulp, rarely (or, where a sum cancels to near 0, by fp32
+    round-off of its terms: 1e-5 of the largest value)."""
+    qkv = _rnd(gen, b, gh * gw, 3 * heads * 64)
+    rh, rw = _rnd(gen, gh, gh, 64, std=0.1), _rnd(gen, gw, gw, 64, std=0.1)
+    kw = dict(heads=heads, scale=0.125)
+    want = A.qk8_operands(qkv, rh, rw, **kw)
+    q8, k8, sq, skt, qrw = A.qk8_prep(qkv, rh, rw, **kw)
+    s = gh * gw
+    assert torch.equal(k8, want[1])
+    assert torch.equal(skt[..., :s].transpose(1, 2), want[3])
+    assert int((q8.int() - want[0].int()).abs().max()) <= 1
+    assert float((q8 == want[0]).float().mean()) >= 0.999
+    for got, ref in ((sq, want[2]), (qrw.float(), want[4])):
+        ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+        assert bool(((got - ref).abs()
+                     <= ulp + 1e-5 * float(ref.abs().max())).all())
+        assert float((got == ref).float().mean()) >= 0.999
 
 
 def test_int8_attention_refuses_what_the_kernels_do_not_take(gen):
@@ -545,6 +601,18 @@ def test_flash_attention_relpos_small(gen, b, heads, gh, gw, d):
         got = _launched(f"flash_attention_relpos_mh[{gh}x{gw}]",
                         lambda: A.flash_attention_relpos(*ops, **kw))
         _agree(got, A.flash_attention_relpos_plain(*ops, **kw))
+
+
+@pytest.mark.parametrize("g", [112, 128])
+def test_flash_attention_relpos_large_grids(gen, g):
+    """K-h's float form at SAM 1792² (112x112: the tables in shared memory)
+    and 2048² (128x128: read where they lie), which the int8 arm's rule
+    takes too, against the plain version."""
+    ops = _kh_operands(gen, 1, 12, g, g, 64, std=0.5)
+    kw = dict(scale=0.125, grid_w=g, block_q=1024, block_k=1024)
+    got = _launched(f"flash_attention_relpos[{g}x{g}]",
+                    lambda: A.flash_attention_relpos(*ops, **kw))
+    _agree(got, A.flash_attention_relpos_plain(*ops, **kw))
 
 
 def test_flash_attention_relpos_refuses_what_the_kernel_does_not_take(gen):

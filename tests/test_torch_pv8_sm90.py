@@ -368,13 +368,13 @@ def test_plan(args, rule, step, rows, ldw, stages):
 def test_plan_fits_every_grid_the_wrappers_take():
     """Every plan leaves two stages or more in 227 KB: K-d8 on grids up to
     64 x 128 at head dim 64 and 128, K-h's int8 arm on every grid
-    `_kh_tables_fit(pv8=True)` admits (sampled), the fused form likewise."""
+    `_kh_tables_fit` admits (sampled), the fused form likewise."""
     for d in (64, 128):
         for gh, gw in ((64, 128), (64, 64), (7, 128), (64, 9)):
             assert A.pv8_plan("kd8", gh * gw, d, gh, gw)["stages"] >= 2
     for gh, gw in ((80, 80), (3, 600), (600, 3), (300, 300), (1, 630),
                    (255, 255), (8, 256), (100, 500)):
-        if not A._kh_tables_fit(gh * gw, gh, gw, True):
+        if not A._kh_tables_fit(gh * gw, gh, gw):
             continue
         for d in (64, 128):
             assert A.pv8_plan("stream", gh * gw, d, gh, gw)["stages"] >= 2

@@ -149,21 +149,22 @@ def test_kh_form_routes_as_the_wrapper_does(s, d, gw, bq, bk, want):
         assert A.kh_form(s, d, gw, bq, bk, fused=False)[0] == "stream"
 
 
-@pytest.mark.parametrize("gh,gw,pv8,want", [
-    (80, 80, False, True),       # SAM at 1280²
-    (80, 80, True, True),
-    (255, 1, False, True),       # the column table's 8-bit limit
-    (256, 1, False, False),
-    (256, 1, True, True),        # the int8 arm has no column table
-    (200, 200, False, False),    # 128 table rows beside the tiles
-    (200, 200, True, True),      # the int8 arm's 64-row slice
-    (400, 400, True, False),
+@pytest.mark.parametrize("gh,gw,want", [
+    (80, 80, True),              # SAM at 1280²
+    (112, 112, True),            # SAM at 1792²
+    (255, 1, True),              # past the column table's 8-bit fields the
+    (256, 1, True),              # float forms read the tables globally
+    (200, 200, True),            # 128 table rows do not fit beside the tiles
+    (1, 630, True),              # the 64-row slice's bound at its edge
+    (1, 640, False),
+    (400, 400, False),
 ])
-def test_kh_tables_fit_takes_each_arm_by_its_own_rule(gh, gw, pv8, want):
-    """Which grids K-h's wrapper sends to the kernel: the float forms by
-    their 128 table rows and 8-bit column table, the int8 arm by the
-    64-row table slice of its own kernel."""
-    assert A._kh_tables_fit(gh * gw, gh, gw, pv8) == want
+def test_kh_tables_fit_takes_each_arm_by_its_own_rule(gh, gw, want):
+    """Which grids K-h's wrapper sends to the kernel: every arm by one rule,
+    the first kernel's 64-row table slice in 160 KB (the float forms and
+    the int8 arm read tables that do not fit shared memory from global
+    memory)."""
+    assert A._kh_tables_fit(gh * gw, gh, gw) == want
 
 
 # ------------------------------------------------------- one-hot bias --
