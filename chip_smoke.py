@@ -18,13 +18,17 @@
    also print `kernel_only_ms`, the launch alone on operands their
    wrapper's glue or prep kernel made beforehand (K-f: the weights
    quantized; K-g also `prep_ms` and its prep's agreement with
-   `qk8_operands`), and K-b prints
+   `qk8_operands`), K-b prints
    `unfused_ms`, the unfused bf16 sequence (F.layer_norm, F.linear, GELU,
-   F.linear, add) on its inputs, a reference the port never calls. A
+   F.linear, add) on its inputs, a reference the port never calls, and K-i
+   its own `unfused_ms` (quantize_rows, quantize_weight, torch._int_mm, the
+   fp32 rescale and bias) beside `rows_ms` and `weight_prep_ms`, the two
+   quantization passes of its launch alone. A
    disagreement beyond the stated tolerance, a trap that the tolerance
    passes, or a wrapper that did not launch its kernel, fails the run; so
    does a spill that ptxas reports for the d-64 window and K-h kernels or
-   for any of the MLP or int8 p@v kernels. Then one line per A/B benchmark of the JAX
+   for any kernel of the GEMM core (K-b, K-f, K-i), the int8 p@v core, K-j,
+   K-k or K-g. Then one line per A/B benchmark of the JAX
    package that times K-l, K-m, B-1 or B-2 (`winattn-ab[...]`,
    `gattn-prep-ab`): per-call ms of each variant beside the kernel SAM
    runs for that function (K-c for the windows, K-d for the 64x64 grid) on
@@ -394,7 +398,7 @@ def kernel_cases(torch):
                                                       act=act),
                 library=None, flops=4 * n * c * h, peak=BF16_FLOPS,
                 bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h),
-                info=("unfused_ms", unfused))
+                info={"unfused_ms": unfused})
         return setup
 
     def q8_case(n, c, h, act):
@@ -548,11 +552,26 @@ def kernel_cases(torch):
                 xq = torch.clamp(torch.round(xf / sx), -127, 127)
                 wq, sw = Q.quantize_weight(w)
                 return (Q.int8_exact(xq, wq) * sx * sw + b.float()).to(bf)
+
+            def unfused():
+                """the function as a sequence of PyTorch calls (a yardstick
+                the port never calls): both quantizations, cuBLAS's int8
+                product, the fp32 rescale and bias"""
+                x8, sx = Q.quantize_rows(x)
+                wq, sw = Q.quantize_weight(w)
+                z = torch._int_mm(x8, wq).float()
+                return ((z * sx) * sw + b.float()).to(bf)
             return dict(
                 kernel=lambda: Q.w8a8_matmul(x, w, b),
                 plain=lambda: Q.int8_dot(x, w, b), library=None,
-                info=("info_bf16_matmul_ms_not_same_function",
-                      lambda: torch.matmul(x, w) + b),
+                info={"unfused_ms": unfused,
+                      "rows_ms": lambda: Q.w8a8_rows(x),
+                      "weight_prep_ms": lambda: M.quantize_weight_t(w),
+                      "info_bf16_matmul_ms_not_same_function":
+                          lambda: torch.matmul(x, w) + b},
+                notes={"library": "none: no one PyTorch call computes W8A8 "
+                                  "with a per-row dynamic scale of x "
+                                  "(unfused_ms: the unfused sequence)"},
                 flops=2 * m * k * n, peak=INT8_OPS,
                 bytes=2 * (m * k + k * n + n + m * n),
                 rel_l2_tol=Q8_REL_L2_TOL,
@@ -592,7 +611,7 @@ def kernel_cases(torch):
                     # the attention launch alone, on the prep's operands
                     kernel_only=lambda: A.qk8_attend(qkv, ops, heads=heads,
                                                      grid_w=g),
-                    info=("prep_ms", lambda: A.qk8_prep(qkv, rh, rw, **kw)))
+                    info={"prep_ms": lambda: A.qk8_prep(qkv, rh, rw, **kw)})
             else:
                 case.update(
                     kernel=lambda: A.relpos_attention(
@@ -1187,8 +1206,8 @@ def check_case(torch, row, label, count, setup) -> tuple:
     line["plain_ms"] = timed_ms(case.get("timed_plain", case["plain"]), 3)
     line["library_ms"] = (timed_ms(case["library"], 10)
                           if case["library"] else None)
-    if "info" in case:                 # a yardstick of another function
-        line[case["info"][0]] = timed_ms(case["info"][1], 10)
+    for key, fn in case.get("info", {}).items():   # yardsticks and parts
+        line[key] = timed_ms(fn, 10)
     if "kernel_only" in case:          # the launch without the wrapper's glue
         line["kernel_only_ms"] = timed_ms(case["kernel_only"], 20)
     print("kernel-check", json.dumps(line), flush=True)
@@ -1728,11 +1747,12 @@ def device_busy(torch, generate) -> dict:
 LOGITS_REL_TOL = 0.05
 # the sm_90a window and K-h float kernels whose v is 64 deep (mangled
 # win_sm90<64, ...> and kh_stream_sm90<DQ, 64, ...>), every kernel of the
-# two MLP sources (mlp_gemm_sm90, mlp_ln_*, mlp_quant_h, mlp_combine,
-# mlp_wmax, mlp_wquant), of the int8 p@v core, K-j's (qmv_kn) and K-g's
+# GEMM core's sources (mlp_gemm_sm90 of K-b, K-f and K-i, mlp_ln_*,
+# mlp_quant_h, mlp_combine, mlp_wmax, mlp_wquant, K-i's w8a8_rows), of the
+# int8 p@v core, K-j's (qmv_kn), K-k's (qmv_nk_fma, qmv_nk_mma) and K-g's
 # (qk8_sm90, qk8_prep): ptxas must report no spill for them
 NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
-                      r"pv8_sm90|pv8_v_|qmv_kn|qk8_")
+                      r"pv8_sm90|pv8_v_|qmv_kn|qk8_|qmv_nk_|w8a8_rows")
 
 
 def main() -> int:

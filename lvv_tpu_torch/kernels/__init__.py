@@ -37,10 +37,11 @@ _ARGTYPES = {
     "lvv_flash_attention": [_P] * 7 + [_I] * 8 + [_F, _P, _P],
     "lvv_relpos_attention": [_P] * 7 + [_I] * 13 + [_F, _P],
     "lvv_ln_mlp_residual_q8": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
-    "lvv_ln_mlp_residual_q8_weight": [_P] * 4 + [_I] * 2 + [_P],
+    "lvv_ln_mlp_residual_q8_weight": [_P] * 4 + [_I] * 3 + [_P],
     "lvv_int8_matmul": [_P] * 4 + [_I] * 11 + [_P],
-    "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 4 + [_P],
-    "lvv_w8a8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 7 + [_P],
+    "lvv_w8a8_matmul": [_P] * 9 + [_I] * 6 + [_P],
+    "lvv_w8a8_rows": [_P] * 3 + [_I] * 3 + [_P],
     "lvv_relpos_attention_qk8": [_P] * 9 + [_I] * 6 + [_F, _P],
     "lvv_qk8_prep": [_P] * 8 + [_I] * 6 + [_F, _P],
     "lvv_qk8_attention": [_P] * 7 + [_I] * 5 + [_P],
@@ -51,6 +52,7 @@ _ARGTYPES = {
 }
 # C entry points beside a library's own `lvv_{name}`
 _ENTRIES = {"ln_mlp_residual_q8": ("lvv_ln_mlp_residual_q8_weight",),
+            "w8a8_matmul": ("lvv_w8a8_rows",),
             "flash_attention_relpos": ("lvv_pv8_quantize_v",),
             "relpos_attention_qk8": ("lvv_qk8_prep", "lvv_qk8_attention")}
 _libs: dict = {}

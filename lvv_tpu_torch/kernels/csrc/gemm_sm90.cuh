@@ -1,5 +1,6 @@
-// The GEMM core for sm_90a that the two MLP kernels share, ln_mlp_residual.cu
-// (K-b, bf16) and ln_mlp_residual_q8.cu (K-f, int8): a block computes
+// The GEMM core for sm_90a that the two MLP kernels, ln_mlp_residual.cu
+// (K-b, bf16) and ln_mlp_residual_q8.cu (K-f, int8), and SAM's W8A8
+// projection w8a8_matmul.cu (K-i, int8) share: a block computes
 // [128, BN] tiles of D = A · B with A [M, K] K-major (the token rows) and B
 // either [K, N] row-major (bf16 weights, read MN-major through wgmma's
 // transpose bit) or [N, K] (int8 weights, K-major: 8-bit wgmma has no

@@ -49,76 +49,14 @@
 //      also doubles the second product's tiles (104 -> 208).
 // The schedule is the wrapper's `mlp_plan`. The wrapper quantizes the
 // weights on every call (as the JAX package does outside its kernel) with
-// mlp_wmax / mlp_wquant, which also write them transposed. h, h8 and the
-// maxima cost 6·N·H + N·H / 8 bytes of traffic more (~0.46 GB a SAM
-// call), not counted in the bound.
+// quant_weight.cuh's mlp_wmax / mlp_wquant, which also write them
+// transposed. h, h8 and the maxima cost 6·N·H + N·H / 8 bytes of traffic
+// more (~0.46 GB a SAM call), not counted in the bound.
 #include "gemm_sm90.cuh"
 #include "int8.cuh"
+#include "quant_weight.cuh"
 
 using namespace sm90;
-
-// The wrapper's per-call weight quantization, quant.quantize_weight of w
-// [k, n] bf16 as PyTorch computes it on the card: s [n] = max(max_r |w[r,
-// col]| · fl(1 / 127), 1e-8) (a tensor divided by a Python scalar is a
-// multiply by its reciprocal there) and wt [n, k] int8 = quant(w, s) (a true
-// division), transposed: K-major, as int8 wgmma reads B. Two launches:
-// mlp_wmax writes the column maxima of each 128-row slab, pm [k / 128, n];
-// mlp_wquant reduces them to s and writes [64, 64] tiles of wt through
-// shared memory, 16 bytes a thread.
-__global__ void __launch_bounds__(256)
-mlp_wmax(const bf16* __restrict__ w, float* __restrict__ pm, int k, int n) {
-  __shared__ float red[8][64];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int col = blockIdx.x * 64 + 2 * lane, r0 = blockIdx.y * 128;
-  float m0 = 0.f, m1 = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < 16; ++i) {
-    const int r = r0 + warp + 8 * i;
-    if (r < k) {
-      const float2 v = load_bf2(w + (long long)r * n + col);
-      m0 = fmaxf(m0, fabsf(v.x));
-      m1 = fmaxf(m1, fabsf(v.y));
-    }
-  }
-  red[warp][2 * lane] = m0;
-  red[warp][2 * lane + 1] = m1;
-  __syncthreads();
-  if (threadIdx.x < 64) {
-    float m = red[0][threadIdx.x];
-#pragma unroll
-    for (int i = 1; i < 8; ++i) m = fmaxf(m, red[i][threadIdx.x]);
-    pm[(long long)blockIdx.y * n + blockIdx.x * 64 + threadIdx.x] = m;
-  }
-}
-
-__global__ void __launch_bounds__(256)
-mlp_wquant(const bf16* __restrict__ w, const float* __restrict__ pm,
-           signed char* __restrict__ wt, float* __restrict__ s, int k,
-           int n) {
-  __shared__ float sc[64];
-  __shared__ __align__(16) signed char q_s[64][64 + 16];
-  const int c0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
-  if (threadIdx.x < 64) {
-    float m = 0.f;
-    for (int p = 0; p < (k + 127) / 128; ++p)
-      m = fmaxf(m, pm[(long long)p * n + c0 + threadIdx.x]);
-    sc[threadIdx.x] = fmaxf(__fmul_rn(m, 1.f / 127.f), 1e-8f);
-    if (blockIdx.y == 0) s[c0 + threadIdx.x] = sc[threadIdx.x];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = warp + 8 * i;       // row of the tile, k0 + r < k
-    const float2 v = load_bf2(w + (long long)(k0 + r) * n + c0 + 2 * lane);
-    q_s[2 * lane][r] = quant(v.x, sc[2 * lane]);
-    q_s[2 * lane + 1][r] = quant(v.y, sc[2 * lane + 1]);
-  }
-  __syncthreads();
-  const int c = threadIdx.x / 4, off = (threadIdx.x % 4) * 16;
-  *reinterpret_cast<uint4*>(wt + (long long)(c0 + c) * k + k0 + off) =
-      *reinterpret_cast<const uint4*>(&q_s[c][off]);
-}
 
 // LayerNorm (fp32) and per-row int8 quantization, one warp per row; each
 // lane holds NI groups of 4 columns (C = 128 NI).
@@ -389,17 +327,16 @@ extern "C" int lvv_ln_mlp_residual_q8(
   return (int)cudaGetLastError();
 }
 
-// quant.quantize_weight of w [k, n] bf16 (contiguous), transposed: wt [n, k]
-// int8 and s [n] fp32, through pm [ceil(k / 128), n] fp32 scratch; k and n
-// multiples of 64. Returns a cudaError_t (0 on success).
+// quant.quantize_weight of w [k, n] (contiguous; wkind 0 fp32, 1 bf16),
+// transposed: wt [n, k] int8 and s [n] fp32, through pm [ceil(k / 128), n]
+// fp32 scratch; k and n multiples of 64. The weight prep of K-f's wrapper,
+// and K-i's own (w8a8_matmul.cu launches the same kernels itself). Returns
+// a cudaError_t (0 on success).
 extern "C" int lvv_ln_mlp_residual_q8_weight(const void* w, void* wt,
                                              void* s, void* pm, int k, int n,
-                                             void* stream) {
-  if (k <= 0 || n <= 0 || k % 64 || n % 64) return (int)cudaErrorInvalidValue;
+                                             int wkind, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  mlp_wmax<<<dim3(n / 64, (k + 127) / 128), 256, 0, st>>>((const bf16*)w,
-                                                        (float*)pm, k, n);
-  mlp_wquant<<<dim3(n / 64, k / 64), 256, 0, st>>>(
-      (const bf16*)w, (const float*)pm, (signed char*)wt, (float*)s, k, n);
-  return (int)cudaGetLastError();
+  if (wkind == 0) return quantize_weight_t<float>(w, wt, s, pm, k, n, st);
+  if (wkind == 1) return quantize_weight_t<bf16>(w, wt, s, pm, k, n, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -249,17 +249,20 @@ def ln_mlp_residual_q8(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
 
 
 def quantize_weight_t(w):
-    """quant.quantize_weight of a bf16 weight w [K, N] on the card, the int8
-    matrix transposed ([N, K]: int8 wgmma reads both operands K-major) ->
-    (int8 [N, K], scale [N] fp32). Part of K-f's wrapper: its launch is not
-    counted apart."""
+    """quant.quantize_weight of a bf16 or fp32 weight w [K, N] on the card,
+    the int8 matrix transposed ([N, K]: int8 wgmma reads both operands
+    K-major) -> (int8 [N, K], scale [N] fp32), by the two kernels of
+    quant_weight.cuh. Part of K-f's wrapper (its launch is not counted
+    apart); K-i's launch runs the same kernels itself."""
     k, n = w.shape
+    if w.dtype not in quant._KINDS:
+        raise ValueError(f"quantize_weight_t: unsupported {w.dtype}")
     wt = torch.empty(n, k, dtype=torch.int8, device=w.device)
     s = torch.empty(n, dtype=torch.float32, device=w.device)
     pm = torch.empty(-(-k // 128), n, dtype=torch.float32, device=w.device)
     fn = kernels.lib("ln_mlp_residual_q8").lvv_ln_mlp_residual_q8_weight
-    err = fn(w.contiguous().data_ptr(), wt.data_ptr(), s.data_ptr(),
-             pm.data_ptr(), k, n,
+    err = fn(quant._aligned(w).data_ptr(), wt.data_ptr(), s.data_ptr(),
+             pm.data_ptr(), k, n, quant._KINDS[w.dtype],
              torch.cuda.current_stream(w.device).cuda_stream)
     kernels.check(err, "ln_mlp_residual_q8 weights")
     return wt, s

@@ -7,16 +7,18 @@ and out[m, n] = (x @ q)[m, n] * scale[n]. Quantization divides (not a
 multiply by the reciprocal), rounds half to even, clips to +-127 and floors
 the scale at 1e-8, so it is bit-equal to the JAX package's.
 
-- `w8a8_matmul` (K-i, CUDA): SAM's W8A8 projections (the "dense" scope),
-  x quantized per row inside the kernel, the float weight per column on
-  every call; `int8_dot` is its plain version and its fallback for K or N
-  off the 128 grid, as in JAX.
+- `w8a8_matmul` (K-i, CUDA): SAM's W8A8 projections (the "dense" scope):
+  the float weight quantized per column on every call and x per row, each
+  by a pass of the kernel's own, then the int8 product on the sm_90a GEMM
+  core, scheduled by `w8a8_plan`; `int8_dot` is its plain version and the
+  JAX dispatch's path for K or N off the 128 grid.
 - `quantized_matmul` (K-j, CUDA) and `quantized_matmul_nk` (K-k, CUDA) are
   the kernel wrappers of the decode: on a CUDA tensor they launch their kernel or raise,
   on a CPU tensor they compute their plain version. Both read the int8
   weight as stored ([K, N], or [N, K] for the tied unembed) and dequantize
   in registers; no dequantized copy of a weight is made on the card. K-j
-  takes its grid and split-K clusters from `qmv_plan`.
+  takes its grid and split-K clusters from `qmv_plan`, K-k its form and
+  its one wave of blocks from `qmv_nk_plan`.
 - `quantized_matmul_plain` / `quantized_matmul_nk_plain` follow the JAX
   decode's arithmetic: x @ q rounded to x's dtype, then scaled and rounded
   again (the kernels round once).
@@ -33,6 +35,8 @@ from .. import kernels
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132                  # the H100's streaming multiprocessors
+_SMEM_SM = 233472           # shared memory of an SM, bytes (1 KB a block
+                            # of it reserved)
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,31 +79,78 @@ def int8_dot(x: torch.Tensor, w: torch.Tensor,
     return out.to(out_dtype).reshape(*lead, w.shape[1])
 
 
+def w8a8_plan(m: int, k: int, n: int) -> dict:
+    """K-i's schedule (w8a8_matmul.cu on gemm_sm90.cuh) for x [m, k] and a
+    weight [k, n], from the shapes alone, as the C launch computes it from
+    the card's SM count: [128, `bn`] output tiles, `tiles` = (row tiles,
+    column tiles), on `blocks` persistent blocks, two an SM, at most one
+    wave. bn is 128 at every shape: int8 tiles of 256 columns hold one
+    block an SM, whose epilogue then stalls its own products (slower at
+    every SAM shape on the H100)."""
+    tiles = (-(-m // 128), -(-n // 128))
+    return dict(bn=128, tiles=tiles,
+                blocks=min(tiles[0] * tiles[1], 2 * _SMS))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (the kernels read 16
+    bytes at a time; TMA needs it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def w8a8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K-i's row pass alone: x [M, K] (bf16 or fp32, on the card) ->
+    (int8 [M, K], per-row scale [M] fp32), the scale max|row| / 127 by a
+    true division, as the kernel quantizes x."""
+    m, k = x.shape
+    if x.dtype not in _KINDS or k % 128 or k > 1536 or m == 0:
+        raise ValueError(f"w8a8_rows: unsupported {tuple(x.shape)} {x.dtype}")
+    xc = _aligned(x)
+    x8 = torch.empty(m, k, dtype=torch.int8, device=x.device)
+    sx = torch.empty(m, dtype=torch.float32, device=x.device)
+    err = kernels.lib("w8a8_matmul").lvv_w8a8_rows(
+        xc.data_ptr(), x8.data_ptr(), sx.data_ptr(), m, k, _KINDS[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "w8a8_rows")
+    return x8, sx
+
+
 def w8a8_matmul(x: torch.Tensor, w: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K-i: W8A8 x [..., K] @ w [K, N] (+ bias) -> [..., N] in x's
     dtype, with JAX's dispatch: K or N off the 128 grid take `int8_dot`
-    (also the plain version, on a CPU tensor); otherwise the weight is
-    quantized here, per call, and the kernel quantizes x per row."""
+    (also the plain version, on a CPU tensor). Otherwise one C call
+    launches the weight's quantization (per column, every call, bf16 or
+    fp32 w), x's row pass and the int8 product with its epilogue."""
     k, n = w.shape
     if k % 128 or n % 128 or not x.is_cuda:
         return int8_dot(x, w, bias)
-    if x.dtype not in _KINDS or x.shape[-1] != k or k > 1536:
+    if (x.dtype not in _KINDS or w.dtype not in _KINDS or x.shape[-1] != k
+            or k > 1536 or (bias is not None and (
+                bias.dtype not in _KINDS or bias.shape != (n,)))):
         raise ValueError(f"w8a8_matmul: unsupported x {tuple(x.shape)} "
-                         f"{x.dtype} / weight {tuple(w.shape)}")
+                         f"{x.dtype} / weight {tuple(w.shape)} {w.dtype}")
     if any(t is not None and t.device != x.device for t in (w, bias)):
         raise ValueError("w8a8_matmul: operands must be on one device")
-    wq, sw = quantize_weight(w)
-    wt = wq.t().contiguous()                 # B fragments: 4 k of a column
-    b = (torch.zeros(n, dtype=torch.float32, device=x.device)
-         if bias is None else bias.float().contiguous())
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).contiguous()
-    out = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
-    if x2.shape[0]:
+    x2 = _aligned(x.reshape(-1, k))
+    m = x2.shape[0]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    if m:
+        wc = _aligned(w)
+        b = None if bias is None else _aligned(bias)
+        i8, f32 = torch.int8, torch.float32
+        # scratch: x8, sx, the weight transposed and its scales, and the
+        # column maxima of each 128-row slab of the weight
+        scratch = (x2.new_empty(m, k, dtype=i8), x2.new_empty(m, dtype=f32),
+                   x2.new_empty(n, k, dtype=i8), x2.new_empty(n, dtype=f32),
+                   x2.new_empty(k // 128, n, dtype=f32))
         err = kernels.lib("w8a8_matmul").lvv_w8a8_matmul(
-            x2.data_ptr(), wt.data_ptr(), sw.data_ptr(), b.data_ptr(),
-            out.data_ptr(), x2.shape[0], k, n, _KINDS[x.dtype],
+            x2.data_ptr(), wc.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), *(t.data_ptr() for t in scratch), m, k, n,
+            _KINDS[x.dtype], _KINDS[w.dtype],
+            0 if b is None else 1 + _KINDS[b.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
         kernels.check(err, "w8a8_matmul")
         kernels.launches["w8a8_matmul"] += 1
@@ -158,6 +209,40 @@ def _qmv_args(m: int, k: int, n: int) -> tuple:
                                        "k_split", "stages", "rows", "vec"))
 
 
+def qmv_nk_plan(m: int, k: int, n: int, fp32: bool = False) -> dict:
+    """K-k's launch plan (int8_matmul_nk.cu) from the shapes and x's type.
+    `mma`: the tensor-core form, for bf16 x at 2 to 8 rows (and more, 8 a
+    pass): a warp's tile is 16 rows of the table (`tile_rows`), x's rows
+    the 8 columns of mma.sync's B operand. Else the fma form (fp32 x, or
+    one row): tiles of 4 table rows, `rows` (1, 2, 4 or 8) rows of x a
+    pass. `passes`: passes over the table (one at every m <= 8). `loads`:
+    16-byte loads a lane makes of a tile, `smem` the bytes of x a block
+    stages. `per_sm`: the blocks an SM holds (3 where the launch bounds
+    leave 85 registers a thread, else 2, fewer where x's staging does not
+    fit); `blocks`: one wave of them, at most one warp a tile."""
+    mma = not fp32 and m >= 2
+    rows = 8 if mma or m > 4 else 4 if m > 2 else m
+    tile_rows = 16 if mma else 4
+    loads = -(-k // (64 if mma else 128))
+    smem = 8 * (64 * loads + 8) * 2 if mma else rows * 128 * loads * 4
+    per_sm = min(3 if mma or rows <= 2 else 2, _SMEM_SM // (smem + 1024))
+    tiles = -(-n // tile_rows)
+    return dict(mma=mma, rows=rows, tile_rows=tile_rows, tiles=tiles,
+                loads=loads, smem=smem, per_sm=per_sm,
+                passes=-(-m // rows),
+                blocks=max(1, min(per_sm * _SMS, -(-tiles // 8))))
+
+
+@functools.lru_cache(maxsize=256)
+def _qmv_nk_args(m: int, k: int, n: int, fp32: bool) -> tuple:
+    """`qmv_nk_plan` as the C entry takes it, kept per shape (the decode
+    calls it every step)."""
+    plan = qmv_nk_plan(m, k, n, fp32)
+    if plan["per_sm"] < 1:
+        raise ValueError(f"int8_matmul_nk: K={k} does not fit a block")
+    return int(plan["mma"]), plan["rows"], plan["blocks"]
+
+
 def _launch(name: str, x, q, scale, n: int, k: int, *, nk: bool):
     if x.dtype not in _KINDS or q.dtype != torch.int8 or (
             scale.dtype != torch.float32):
@@ -174,13 +259,12 @@ def _launch(name: str, x, q, scale, n: int, k: int, *, nk: bool):
     if q.data_ptr() % 16:
         raise ValueError(f"{name}: the weight must be 16-byte aligned")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).contiguous()
-    if x2.data_ptr() % 16:                   # rows are read 16 bytes a time
-        x2 = x2.clone()
+    x2 = _aligned(x.reshape(-1, k))          # rows are read 16 bytes a time
     out = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
     if x2.shape[0]:
         fn = getattr(kernels.lib(name), f"lvv_{name}")
-        plan = () if nk else _qmv_args(x2.shape[0], k, n)
+        plan = (_qmv_nk_args(x2.shape[0], k, n, x.dtype == torch.float32)
+                if nk else _qmv_args(x2.shape[0], k, n))
         err = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), x2.shape[0], k, n, _KINDS[x.dtype], *plan,
                  torch.cuda.current_stream(x.device).cuda_stream)

@@ -256,14 +256,21 @@ def test_int8_matmul_is_deterministic(gen, m, k, n):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 896, 151940), (3, 896, 1000),
-                                   (5, 64, 200)])
+                                   (5, 64, 200), (9, 896, 1000),
+                                   (17, 64, 200), (2, 2048, 1332),
+                                   (2, 896, 151940), (5, 896, 151940),
+                                   (8, 896, 151940)])
 def test_int8_matmul_nk(gen, dtype, m, k, n):
-    """K-k at the unembed's shape and at odd ones."""
+    """K-k at the unembed's shape for decode batch 1, 2, 5 and 8 (the fma
+    form at one row or fp32, the tensor-core form at 2 to 8 bf16 rows), and
+    at odd ones: K = 64 (a partial group of 64), more than 8 rows (two and
+    three passes over the table), K = 2048."""
     t = Q.quantize_rows_table(torch.randn(n, k, generator=gen,
                                           device="cuda") * 0.02)
     x = _rnd(gen, m, k).to(dtype)
     got = _launched("int8_matmul_nk",
                     lambda: Q.quantized_matmul_nk(x, t["q"], t["s"]))
+    assert got.dtype == dtype
     _agree(got, Q.quantized_matmul_nk_plain(x, t["q"], t["s"]))
 
 
@@ -384,6 +391,65 @@ def test_w8a8_matmul_falls_back_off_the_128_grid(gen):
         x, w = _rnd(gen, 9, k), _rnd(gen, k, n, std=0.05)
         _agree(Q.w8a8_matmul(x, w), Q.int8_dot(x, w))
     assert kernels.launches["w8a8_matmul"] == before
+
+
+_SAM_DENSE = [(29400, 768, 2304), (29400, 768, 768), (24576, 768, 2304),
+              (24576, 768, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", _SAM_DENSE + [(29401, 768, 2304),
+                                               (24575, 768, 768)])
+def test_w8a8_matmul_at_sams_shapes(gen, dtype, m, k, n):
+    """K-i at SAM's four projection shapes at 1024² and with a ragged last
+    row tile, x, weight and bias all bf16 or all fp32 (the float-dtype
+    path)."""
+    from chip_smoke import Q8_REL_L2_TOL, agreement
+    x = _rnd(gen, m, k).to(dtype)
+    w = _rnd(gen, k, n, std=k ** -0.5).to(dtype)
+    b = _rnd(gen, n, std=0.1).to(dtype)
+    got = _launched("w8a8_matmul", lambda: Q.w8a8_matmul(x, w, b))
+    assert got.dtype == dtype
+    ok, err, rel = agreement(got, Q.int8_dot(x, w, b), Q8_REL_L2_TOL)
+    assert ok, (err, rel)
+
+
+def test_w8a8_matmul_refuses_what_the_kernel_does_not_take(gen):
+    x = _rnd(gen, 4, 1664)
+    with pytest.raises(ValueError):
+        Q.w8a8_matmul(x, _rnd(gen, 1664, 128))         # K > 1536
+    x = _rnd(gen, 4, 256)
+    with pytest.raises(ValueError):
+        Q.w8a8_matmul(x.half(), _rnd(gen, 256, 128))   # fp16 x
+    with pytest.raises(ValueError):
+        Q.w8a8_matmul(x, _rnd(gen, 256, 128).half())   # fp16 weight
+    with pytest.raises(ValueError):
+        Q.w8a8_matmul(x, _rnd(gen, 256, 128), _rnd(gen, 64))  # bias shape
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (1536, 128),
+                                 (128, 384)])
+def test_quantize_weight_t_at_k_is_shapes(gen, dtype, k, n):
+    """The weight prep that K-i launches first (and K-f's wrapper calls) is
+    quant.quantize_weight bit for bit on the card, transposed, for bf16 and
+    fp32 weights at SAM's projection shapes; a zero column takes the 1e-8
+    floor."""
+    w = _rnd(gen, k, n, std=0.05).to(dtype)
+    w[:, 3] = 0
+    wt, sw = M.quantize_weight_t(w)
+    q, s = Q.quantize_weight(w)
+    assert torch.equal(wt, q.t().contiguous()) and torch.equal(sw, s)
+
+
+@pytest.mark.parametrize("m", [1, 8, 11])
+def test_int8_matmul_nk_is_deterministic(gen, m):
+    """Every sum has a fixed order (no atomics): two runs are bit-equal."""
+    t = Q.quantize_rows_table(torch.randn(151940, 896, generator=gen,
+                                          device="cuda") * 0.02)
+    x = _rnd(gen, m, 896)
+    assert torch.equal(Q.quantized_matmul_nk(x, t["q"], t["s"]),
+                       Q.quantized_matmul_nk(x, t["q"], t["s"]))
 
 
 @pytest.mark.parametrize("b,gh,gw,heads,d,group", [
