@@ -18,7 +18,9 @@
    also print `kernel_only_ms`, the launch alone on operands their
    wrapper's glue or prep kernel made beforehand (K-f: the weights
    quantized; K-g also `prep_ms` and its prep's agreement with
-   `qk8_operands`), K-b prints
+   `qk8_operands`), K-a's add form `norm[add]` (a residual add and the
+   RMS norm after it, one launch) is also held bit-equal to x + y on its
+   s, K-b prints
    `unfused_ms`, the unfused bf16 sequence (F.layer_norm, F.linear, GELU,
    F.linear, add) on its inputs, a reference the port never calls, and K-i
    its own `unfused_ms` (quantize_rows, quantize_weight, torch._int_mm, the
@@ -33,7 +35,10 @@
    `gattn-prep-ab`): per-call ms of each variant beside the kernel SAM
    runs for that function (K-c for the windows, K-d for the 64x64 grid) on
    the benchmark's inputs, and the benchmark's numcheck, the max |diff|
-   against that kernel, where the variant computes that function.
+   against that kernel, where the variant computes that function. Then
+   the `norm-host` line: the host's time per call of K-a's wrappers at the
+   decode's [1, 896] (norm, add_norm, and the pair x + y; norm that the
+   add form replaces), a loop of 2,000 calls with the queue kept short.
 3. Drives the float main path: `greedy_generate` of
    VQAModel(default_config()) in bf16 with seeded random weights on
    bench.py's inputs (6 views at 1024², BEV [1, 128, 180, 180], 24 prompt
@@ -75,7 +80,7 @@ dispatch of G generates included, in `launches_by_path`), then the card
 line, then as its last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no result
 line). TF32 is off for matmuls and convolutions (both paths compute in the
-stated dtypes). Needs torch with CUDA, nvcc (CUDA_HOME or PATH) and triton.
+stated dtypes). Needs torch with CUDA and nvcc (CUDA_HOME or PATH).
 """
 from __future__ import annotations
 
@@ -326,6 +331,45 @@ def ab_lines(torch) -> None:
     _BENCH_INPUTS.clear()
 
 
+HOST_CALLS = 2000
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """The host's time a call of fn (us, host clock): `calls` calls after a
+    warm-up, synchronising every 50 so that the launch queue stays short
+    and the host never waits on a full queue."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn()
+        if i % 50 == 49:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def norm_host(torch) -> dict:
+    """K-a's wrappers' host time a call at the decode's shape, x and y [1,
+    896] bf16 (the decode is host-bound: a wrapper's host time is part of
+    its cost): `norm`, `add_norm`, and the pair it replaces, PyTorch's
+    x + y then `norm`. norm_prep_ab.py times the same three beside those of
+    another checkout (e.g. one whose `norm` is the Triton kernel this one
+    replaced)."""
+    from lvv_tpu_torch.ops import fused_mlp as M
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, y = (torch.randn(1, 896, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    s = torch.ones(896, dtype=torch.bfloat16, device="cuda")
+    return dict(
+        shape="[1,896] bf16", calls=HOST_CALLS,
+        norm_us=host_us(torch, lambda: M.norm(x, s, eps=1e-6, rms=True)),
+        add_norm_us=host_us(torch, lambda: M.add_norm(x, y, s, eps=1e-6,
+                                                      rms=True)),
+        pair_us=host_us(torch, lambda: M.norm(x + y, s, eps=1e-6, rms=True)))
+
+
 # --------------------------------------------------------------- kernels --
 
 def qk8_prep_notes(got, want) -> dict:
@@ -375,6 +419,30 @@ def kernel_cases(torch):
                 plain=lambda: M.norm_plain(x, s, bias, eps=1e-6, rms=rms),
                 library=lib, flops=7 * n * c, peak=FP32_FLOPS,
                 bytes=2 * (2 * n * c + 2 * c))
+        return setup
+
+    def add_norm_case(n, c):
+        # K-a's add form as Qwen calls it: a residual add, then RMSNorm
+        def setup():
+            x, y, s = rnd(n, c), rnd(n, c), 1 + rnd(c, std=0.1)
+
+            def exact(got):
+                if not torch.equal(got[:n * c].view(n, c), x + y):
+                    raise AssertionError(f"add_norm [{n},{c}]: s is not "
+                                         "bit-equal to x + y")
+                return {"s_bit_equal_to_x_plus_y": True}
+            return dict(
+                kernel=lambda: flat(M.add_norm(x, y, s, eps=1e-6, rms=True)),
+                plain=lambda: flat(M.add_norm_plain(x, y, s, eps=1e-6,
+                                                    rms=True)),
+                timed_kernel=lambda: M.add_norm(x, y, s, eps=1e-6, rms=True),
+                timed_plain=lambda: M.add_norm_plain(x, y, s, eps=1e-6,
+                                                     rms=True),
+                library=lambda: F.rms_norm(x + y, (c,), s, 1e-6),
+                notes={"library": "a sequence of two calls: x + y, then "
+                                  "F.rms_norm"},
+                check=exact, flops=8 * n * c, peak=FP32_FLOPS,
+                bytes=2 * (4 * n * c + c))
         return setup
 
     def mlp_case(n, c, h, act):
@@ -729,10 +797,18 @@ def kernel_cases(torch):
                             A._log2e_table(rw, bf)[cols % g]], 1)
             q4 = qkv[..., :c].view(b, s, heads, d)
             return dict(
+                library=None, info={"einsum_q_r_only_ms": lambda: torch.einsum(
+                    "bshd,skd->bshk", q4, tg)},
+                notes={"library": "none: no one PyTorch call computes both "
+                                  "padded row tensors (einsum_q_r_only_ms: "
+                                  "one einsum over the gathered tables, "
+                                  "unpadded)"},
                 kernel=lambda: flat(A.window_bias_prep(qkv, rh, rw, **kw)),
                 plain=lambda: flat(A.window_bias_prep_plain(qkv, rh, rw,
                                                             **kw)),
-                library=lambda: torch.einsum("bshd,skd->bshk", q4, tg),
+                timed_kernel=lambda: A.window_bias_prep(qkv, rh, rw, **kw),
+                timed_plain=lambda: A.window_bias_prep_plain(qkv, rh, rw,
+                                                             **kw),
                 flops=2 * b * s * heads * 2 * g * d, peak=BF16_FLOPS,
                 bytes=2 * (b * s * c + 2 * g * g * d + 2 * b * s * heads * kp))
         return setup
@@ -752,7 +828,14 @@ def kernel_cases(torch):
             return dict(
                 kernel=lambda: flat(A.hpacked_prep(qkv, rh, rw, **kw)),
                 plain=lambda: flat(A.hpacked_prep_plain(qkv, rh, rw, **kw)),
-                library=lambda: torch.einsum(eq, q5, tab),
+                timed_kernel=lambda: A.hpacked_prep(qkv, rh, rw, **kw),
+                timed_plain=lambda: A.hpacked_prep_plain(qkv, rh, rw, **kw),
+                # not the function: the q·R lanes alone
+                library=None, info={"einsum_q_r_only_ms": lambda: torch.einsum(
+                    eq, q5, tab)},
+                notes={"library": "none: no one PyTorch call computes the "
+                                  "lane blocks (einsum_q_r_only_ms: the "
+                                  "q·R product alone)"},
                 flops=2 * b * s * heads * g * d, peak=BF16_FLOPS,
                 bytes=2 * (2 * b * s * c + g * g * d
                            + n_out * b * s * heads * 128))
@@ -833,7 +916,9 @@ def kernel_cases(torch):
                 bytes=2 * b * heads * s * 4 * d)
         return setup
 
-    decode = NEW_TOKENS * 49
+    # a Qwen pass runs 49 RMS norms: the first layer's input norm alone, the
+    # other 48 after a residual add, in K-a's add form
+    adds = 2 * 24
     layer_steps = 24 * NEW_TOKENS
     large = [       # every shape of the 1280² paths
         ("norm", "LN SAM [38400,768]", 12, norm_case(38400, 768, False)),
@@ -847,8 +932,12 @@ def kernel_cases(torch):
         ("norm", "LN VATLiDAR [768,896]", 14, norm_case(768, 896, False)),
         ("norm", "LN VATLiDAR in [32400,896]", 1,
          norm_case(32400, 896, False)),
-        ("norm", "RMS prefill [1996,896]", 49, norm_case(1996, 896, True)),
-        ("norm", "RMS decode [1,896]", decode, norm_case(1, 896, True)),
+        ("norm", "RMS prefill [1996,896]", 1, norm_case(1996, 896, True)),
+        ("norm", "RMS decode [1,896]", NEW_TOKENS, norm_case(1, 896, True)),
+        ("norm[add]", "add + RMS prefill [1996,896]", adds,
+         add_norm_case(1996, 896)),
+        ("norm[add]", "add + RMS decode [1,896]", adds * NEW_TOKENS,
+         add_norm_case(1, 896)),
         ("ln_mlp_residual", "SAM [38400,768]x[768,3072] gelu", 12,
          mlp_case(38400, 768, 3072, "gelu")),
         ("ln_mlp_residual", "CLIP [2406,1024]x[1024,4096] quick_gelu", 24,
@@ -952,9 +1041,13 @@ def kernel_cases(torch):
          norm_case(n * 768, 896, False)),
         ("norm", f"LN VATLiDAR in [{n * 32400},896]", 1,
          norm_case(n * 32400, 896, False)),
-        ("norm", f"RMS prefill [{n * pre},896]", 49,
+        ("norm", f"RMS prefill [{n * pre},896]", 1,
          norm_case(n * pre, 896, True)),
-        ("norm", f"RMS decode [{n},896]", decode, norm_case(n, 896, True)),
+        ("norm", f"RMS decode [{n},896]", NEW_TOKENS, norm_case(n, 896, True)),
+        ("norm[add]", f"add + RMS prefill [{n * pre},896]", adds,
+         add_norm_case(n * pre, 896)),
+        ("norm[add]", f"add + RMS decode [{n},896]", adds * NEW_TOKENS,
+         add_norm_case(n, 896)),
         ("ln_mlp_residual_q8", f"SAM [{n * 24576},768]x[768,3072] gelu", 12,
          q8_case(n * 24576, 768, 3072, "gelu")),
         ("ln_mlp_residual_q8",
@@ -992,8 +1085,12 @@ def kernel_cases(torch):
         ("norm", "LN VAT out [768,896]", 15, norm_case(768, 896, False)),
         ("norm", "LN VATLiDAR in [32400,896]", 1,
          norm_case(32400, 896, False)),
-        ("norm", "RMS prefill [1564,896]", 49, norm_case(1564, 896, True)),
-        ("norm", "RMS decode [1,896]", decode, norm_case(1, 896, True)),
+        ("norm", "RMS prefill [1564,896]", 1, norm_case(1564, 896, True)),
+        ("norm", "RMS decode [1,896]", NEW_TOKENS, norm_case(1, 896, True)),
+        ("norm[add]", "add + RMS prefill [1564,896]", adds,
+         add_norm_case(1564, 896)),
+        ("norm[add]", "add + RMS decode [1,896]", adds * NEW_TOKENS,
+         add_norm_case(1, 896)),
         ("ln_mlp_residual", "SAM [24576,768]x[768,3072] gelu", 12,
          mlp_case(24576, 768, 3072, "gelu")),
         ("ln_mlp_residual", "CLIP [1542,1024]x[1024,4096] quick_gelu", 24,
@@ -1039,8 +1136,11 @@ def kernel_cases(torch):
 
 
 ROWS = {
-    "norm": ("triton", "lvv_tpu_torch/kernels/norm_triton.py",
+    "norm": ("cuda", "lvv_tpu_torch/kernels/csrc/norm.cu",
              "lvv_tpu/ops/fused_mlp.py:203"),
+    # the add form fuses the residual add before _rms_only_kernel's norm
+    "norm[add]": ("cuda", "lvv_tpu_torch/kernels/csrc/norm.cu",
+                  "lvv_tpu/ops/fused_mlp.py:209"),
     "ln_mlp_residual": ("cuda", "lvv_tpu_torch/kernels/csrc/ln_mlp_residual.cu",
                         "lvv_tpu/ops/fused_mlp.py:56"),
     "flash_attention": ("cuda", "lvv_tpu_torch/kernels/csrc/flash_attention.cu",
@@ -1119,6 +1219,11 @@ ROWS = {
 }
 
 
+# rows whose launches are also launches of another row, and whose times
+# count in that row too: the add form is a launch of K-a
+PART_OF = {"norm[add]": "norm"}
+
+
 def agreement(got, want, rel_l2_tol: float = REL_L2_TOL,
               abs_extra: float = 0.0):
     """(ok, max abs error, relative L2) of a kernel's output against its
@@ -1149,15 +1254,18 @@ def check_kernels(torch) -> dict:
         if (row, label) not in measured:
             measured[row, label] = check_case(torch, row, label, count, setup)
         line, ok, has_library = measured[row, label]
-        r = rows[row].setdefault(res, dict(totals))
         weight = count if res else 1
-        r["max_abs_err"] = max(r["max_abs_err"], line["max_abs_err"])
-        for key in ("bytes_ms", "ops_ms", "bound_ms", "ms", "plain_ms"):
-            r[key] += weight * line[key]
-        if has_library:
-            r["library_ms"] += weight * line["library_ms"]
-        else:
-            r["has_library"] = False
+        for name in (row, PART_OF.get(row)):
+            if name is None:
+                continue
+            r = rows[name].setdefault(res, dict(totals))
+            r["max_abs_err"] = max(r["max_abs_err"], line["max_abs_err"])
+            for key in ("bytes_ms", "ops_ms", "bound_ms", "ms", "plain_ms"):
+                r[key] += weight * line[key]
+            if has_library:
+                r["library_ms"] += weight * line["library_ms"]
+            else:
+                r["has_library"] = False
     return rows
 
 
@@ -1189,6 +1297,8 @@ def check_case(torch, row, label, count, setup) -> tuple:
                     + f"; rel L2 1/{round(1 / rel_tol)}",
                 bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms), **case.get("notes", {}))
+    if "check" in case:                # exact parts of the function
+        line.update(case["check"](got))
     # references held by the relative L2 alone
     for name, ref in case.get("rel_l2_refs", {}).items():
         _, _, ref_l2 = agreement(got, ref(), rel_tol, extra)
@@ -1289,6 +1399,8 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
                (llm.num_layers, cache_tokens(cfg) - NEW_TOKENS - 8))
     want = collections.Counter({
         "norm": encode + per_llm_pass * (1 + NEW_TOKENS),
+        # every Qwen norm but the first layer's input norm follows an add
+        "norm[add]": (per_llm_pass - 1) * (1 + NEW_TOKENS),
         "flash_attention": sum(n for n, kv in kv_lens if kv >= 1024),
         f"relpos_attention[{s.window_size}x{s.window_size}]":
             s.depth - n_global})
@@ -1348,6 +1460,7 @@ def plain_kernels():
             [fn(part, *a, **kw) for part in (
                 qkv.split(6) if qkv.shape[1] > 512 else (qkv,))])
     swaps = [(M, "norm", M.norm_plain),
+             (M, "add_norm", M.add_norm_plain),
              (M, "ln_mlp_residual", mlp_plain),
              (A, "flash_attention", A.flash_attention_plain),
              (sam, "relpos_attention", by_views(A.relpos_attention_plain)),
@@ -1381,7 +1494,7 @@ def drive(torch, model, args, params_decode, want) -> dict:
         torch.cuda.synchronize()
         return toks, lens
 
-    generate()                                   # warm-up (Triton JIT)
+    generate()                                   # warm-up
     torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()
     t0 = time.perf_counter()
@@ -1720,11 +1833,17 @@ def run_u8_check(torch, served) -> dict:
                 lengths=lens[:, 0].tolist())
 
 
+# kernels printed by device_busy wherever they rank: PyTorch's bf16 adds
+# (the residual adds that K-a's add form takes in) and K-a itself
+PROFILE_WATCH = re.compile(r"CUDAFunctor_add<c10::BFloat16>|norm_kernel")
+
+
 def device_busy(torch, generate) -> dict:
     """One generate under torch.profiler: the device's busy time (sum of
     its kernels' durations; the idle share is taken against the unprofiled
     p50) and the run's wall time with the profiler on. Prints the top
-    kernels by device time (names cut to 100 characters)."""
+    kernels by device time (names cut to 100 characters), then the
+    PROFILE_WATCH kernels below them (`profile-watch`)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1734,9 +1853,15 @@ def device_busy(torch, generate) -> dict:
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in dev) / 1e6
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:20]:
+    ranked = sorted(dev, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:20]:
         print(f"profile-top {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:100]}")
+    # the launches that K-a's add form takes in, wherever they rank
+    for e in ranked[20:]:
+        if PROFILE_WATCH.search(e.key):
+            print(f"profile-watch {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x {e.key[:100]}")
     return dict(profiled_wall_s=wall, device_busy_s=busy_s)
 
 
@@ -1750,9 +1875,11 @@ LOGITS_REL_TOL = 0.05
 # GEMM core's sources (mlp_gemm_sm90 of K-b, K-f and K-i, mlp_ln_*,
 # mlp_quant_h, mlp_combine, mlp_wmax, mlp_wquant, K-i's w8a8_rows), of the
 # int8 p@v core, K-j's (qmv_kn), K-k's (qmv_nk_fma, qmv_nk_mma) and K-g's
-# (qk8_sm90, qk8_prep): ptxas must report no spill for them
+# (qk8_sm90, qk8_prep), K-a's (norm_kernel) and the q·R preps'
+# (qr_lanes_kernel, qr_rows_kernel): ptxas must report no spill for them
 NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
-                      r"pv8_sm90|pv8_v_|qmv_kn|qk8_|qmv_nk_|w8a8_rows")
+                      r"pv8_sm90|pv8_v_|qmv_kn|qk8_|qmv_nk_|w8a8_rows|"
+                      r"norm_kernel|qr_lanes_|qr_rows_")
 
 
 def main() -> int:
@@ -1805,6 +1932,7 @@ def main() -> int:
 
     rows = check_kernels(torch)
     ab_lines(torch)
+    print("norm-host", json.dumps(norm_host(torch)), flush=True)
     phase_s["kernel-checks and A/B lines"] = time.perf_counter() - clock[0]
     clock[0] = time.perf_counter()
     torch.cuda.empty_cache()

@@ -4,8 +4,7 @@ The CUDA sources in `csrc/` are compiled at first use with `nvcc` for
 sm_90a into one shared library each (plain C interface, loaded with
 ctypes), under `build/lvv_tpu_torch/` at the repository root. A library is
 rebuilt when its sources change (the file name carries a hash of them).
-`build_all()` starts one `nvcc` per source at once. The Triton kernel
-(`norm_triton.py`) is compiled by Triton itself at its first launch.
+`build_all()` starts one `nvcc` per source at once.
 
 `launches` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that it went
@@ -27,7 +26,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lvv_tpu_tor
 SOURCES = ("ln_mlp_residual", "flash_attention", "relpos_attention",
            "ln_mlp_residual_q8", "int8_matmul", "int8_matmul_nk",
            "w8a8_matmul", "relpos_attention_qk8",
-           "flash_attention_relpos", "window_attention_rows", "qr_prep")
+           "flash_attention_relpos", "window_attention_rows", "qr_prep",
+           "norm")
 
 launches: collections.Counter = collections.Counter()
 
@@ -49,6 +49,7 @@ _ARGTYPES = {
     "lvv_pv8_quantize_v": [_P] * 2 + [_I] * 5 + [_P] * 4,
     "lvv_window_attention_rows": [_P] * 9 + [_I] * 6 + [_F, _P],
     "lvv_qr_prep": [_P] * 5 + [_I] * 8 + [_F, _P],
+    "lvv_norm": [_P] * 6 + [_I] * 2 + [_F] + [_I] * 2 + [_P],
 }
 # C entry points beside a library's own `lvv_{name}`
 _ENTRIES = {"ln_mlp_residual_q8": ("lvv_ln_mlp_residual_q8_weight",),

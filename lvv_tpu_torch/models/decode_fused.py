@@ -14,7 +14,8 @@ and the unembed through kernel K-k. The arithmetic is the JAX decode's:
     next token  = argmax over those logits (first index on a tie)
 
 Norms, RoPE, the in-place cache update and the attention over the cache are
-the ops the port's Qwen decode uses.
+the ops the port's Qwen decode uses; each residual add that a norm follows
+is taken by that norm's launch (kernel K-a's add form, `add_norm_fast`).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from ..config import LLMConfig
 from ..ops import quant
 from ..ops.attention import decode_attention
-from ..ops.fused_mlp import norm_fast
+from ..ops.fused_mlp import add_norm_fast, norm_fast
 from .qwen import KVCache, apply_rope, greedy_loop
 
 
@@ -96,8 +97,12 @@ def fused_decode_step(cfg: LLMConfig, dtype, packed: Dict, token_ids,
     pos = cache.length[:, None].long()
     idx = cache.length.long()
     rows = torch.arange(b, device=x.device)
+    delta = None        # the previous layer's MLP output, not yet added
     for i, lp in enumerate(packed["layers"]):
-        xl = norm_fast(x, lp["ln1"], eps=eps, rms=True)
+        if delta is None:
+            xl = norm_fast(x, lp["ln1"], eps=eps, rms=True)
+        else:
+            x, xl = add_norm_fast(x, delta, lp["ln1"], eps=eps, rms=True)
         qkv = _dense(xl, lp["qkv"], dtype, bias=True)        # [B, 1, 1152]
         q = qkv[..., : nq * d].reshape(b, 1, nq, d).transpose(1, 2)
         k = qkv[..., nq * d: (nq + nkv) * d].reshape(b, 1, nkv, d).transpose(
@@ -109,11 +114,14 @@ def fused_decode_step(cfg: LLMConfig, dtype, packed: Dict, token_ids,
         kc[rows, :, idx] = k[:, :, 0]
         vc[rows, :, idx] = v[:, :, 0]
         o = decode_attention(q, kc, vc, cache.length + 1)
-        x = x + _dense(o.transpose(1, 2).reshape(b, 1, nq * d), lp["o"], dtype)
-        xl = norm_fast(x, lp["ln2"], eps=eps, rms=True)
+        x, xl = add_norm_fast(
+            x, _dense(o.transpose(1, 2).reshape(b, 1, nq * d), lp["o"], dtype),
+            lp["ln2"], eps=eps, rms=True)
         gu = _dense(xl, lp["gateup"], dtype)                      # [B, 1, 2F]
-        x = x + _dense(F.silu(gu[..., :f]) * gu[..., f:], lp["down"], dtype)
-    x = norm_fast(x, packed["final_ln"], eps=eps, rms=True)
+        delta = _dense(F.silu(gu[..., :f]) * gu[..., f:], lp["down"], dtype)
+    x = (norm_fast(x, packed["final_ln"], eps=eps, rms=True) if delta is None
+         else add_norm_fast(x, delta, packed["final_ln"], eps=eps,
+                            rms=True)[1])
     uq = packed["unembed"]
     logits = quant.quantized_matmul_nk(x.to(dtype), uq["q"], uq["s"])
     cache.length = cache.length + 1

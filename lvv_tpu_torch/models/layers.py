@@ -22,7 +22,7 @@ from torch import nn
 
 from ..ops import quant
 from ..ops.attention import attention
-from ..ops.fused_mlp import norm_fast
+from ..ops.fused_mlp import add_norm_fast, norm_fast
 
 # flax's lecun_normal draws a normal truncated at +-2 and divides by the
 # standard deviation of that truncated distribution
@@ -135,6 +135,11 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return norm_fast(x, self.scale, eps=self.eps, rms=True)
+
+    def add(self, x, y):
+        """(x + y, self(x + y)) in one launch of K-a's add form on the
+        card."""
+        return add_norm_fast(x, y, self.scale, eps=self.eps, rms=True)
 
 
 class Dense(nn.Module):

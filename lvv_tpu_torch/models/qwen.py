@@ -8,6 +8,11 @@ RMSNorm, SwiGLU, RoPE (theta 1e6, neox half split), q/k/v biases, GQA
 flash kernel (K-e, causal with kv_len) on the card; single-token decode
 attends over the cache on the plain path, as in the JAX package.
 
+Each residual add that a norm follows (the attention's add before
+`post_attn_ln`, the MLP's add before the next layer's `input_ln` or
+`final_ln`) runs in that norm's launch, K-a's add form: a layer hands its
+MLP output on unsummed (`QwenLayer.forward_pending`).
+
 `forward(..., params=tree)` runs the stack over a weight-only int8 tree
 from `ops.quant.quantize_llm_params` (the unfused serving decode): every
 projection through kernel K-j and the tied unembed through kernel K-k,
@@ -134,12 +139,26 @@ class QwenLayer(nn.Module):
         self.post_attn_ln = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.mlp = QwenMLP(cfg, **kw)
 
+    def forward_pending(self, x, delta, positions, seq_len=None, cache=None,
+                        layer_idx: int = 0, p=None):
+        """The layer on x + delta (delta: the previous layer's MLP output,
+        or None), its own MLP output left unsummed: returns (h, mlp) with
+        the layer's output h + mlp. Each add runs in the launch of the norm
+        that follows it."""
+        p = p or {}
+        if delta is None:
+            xl = self.input_ln(x)
+        else:
+            x, xl = self.input_ln.add(x, delta)
+        x, xl = self.post_attn_ln.add(x, self.attn(
+            xl, positions, seq_len, cache, layer_idx, p.get("attn")))
+        return x, self.mlp(xl, p.get("mlp"))
+
     def forward(self, x, positions, seq_len=None, cache=None,
                 layer_idx: int = 0, p=None):
-        p = p or {}
-        x = x + self.attn(self.input_ln(x), positions, seq_len, cache,
-                          layer_idx, p.get("attn"))
-        return x + self.mlp(self.post_attn_ln(x), p.get("mlp"))
+        h, mlp = self.forward_pending(x, None, positions, seq_len, cache,
+                                      layer_idx, p)
+        return h + mlp
 
 
 class QwenModel(nn.Module):
@@ -185,10 +204,13 @@ class QwenModel(nn.Module):
             positions = torch.arange(s, device=inputs_embeds.device)[
                 None].expand(b, s)
         x = inputs_embeds.to(self.embed_tokens.embedding.dtype)
+        delta = None
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, positions, seq_len, cache, i,
-                                            params.get(f"layer_{i}"))
-        x = self.final_ln(x)
+            x, delta = getattr(self, f"layer_{i}").forward_pending(
+                x, delta, positions, seq_len, cache, i,
+                params.get(f"layer_{i}"))
+        x = self.final_ln(x) if delta is None else self.final_ln.add(
+            x, delta)[1]
         if last_pos is not None:
             # only the last real position feeds the first decode step: gather
             # before the unembedding so [B, S, V] logits never exist

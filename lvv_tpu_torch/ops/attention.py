@@ -1092,21 +1092,23 @@ def window_bias_prep(qkv, rel_h, rel_w, *, heads: int, win: int):
     """Kernel K-l's prep (`qr_prep.cu`, mode rows; JAX `_window_bias_prep`):
     the grouped q·R bias rows (qrh, qrw) [B, S, H·kp] of packed qkv
     [B, S, 3C] (S = win², kp = max(8, ceil(win / 8)·8)), scaled by log2e;
-    head dim 64 or 128."""
+    head dim 64 or 128, win <= 16 (a block holds a whole window, as K-l's
+    row kernels do: S <= 256)."""
     if not qkv.is_cuda:
         return window_bias_prep_plain(qkv, rel_h, rel_w, heads=heads, win=win)
     b, s, c, hd = _window_shape("window_bias_prep", qkv, rel_h, rel_w, heads,
                                 win)
-    if hd not in (64, 128) or _kpad(win) > 64:
-        raise ValueError(f"window_bias_prep: head dim {hd}, window {win}")
+    if hd not in (64, 128) or win > 16:
+        raise ValueError(f"window_bias_prep: head dim {hd}, window {win} "
+                         "(the kernel takes d 64 / 128, win <= 16)")
     _bf16_on_one_device("window_bias_prep", qkv, rel_h, rel_w)
     qkv = qkv.contiguous()
     kp = _kpad(win)
     outs = [torch.empty(b, s, heads * kp, dtype=qkv.dtype, device=qkv.device)
             for _ in range(2)]
-    _qr_prep_launch(_QR_ROWS, qkv, *(_log2e_table(r, qkv.dtype).contiguous()
-                                     for r in (rel_h, rel_w)), outs,
-                    heads=heads, gh=win, gw=win, width=kp)
+    # the kernel makes the tables rel·log2e itself
+    _qr_prep_launch(_QR_ROWS, qkv, rel_h.contiguous(), rel_w.contiguous(),
+                    outs, heads=heads, gh=win, gw=win, width=kp)
     return tuple(outs)
 
 
@@ -1505,7 +1507,8 @@ def hpacked_prep(qkv, rel_h, rel_w, *, heads: int, grid_w: int, scale: float,
         outs = [torch.empty(b, s, heads * _LANE, dtype=qkv.dtype,
                             device=qkv.device)
                 for _ in range(2 if mode == "qk" else 1)]
-        tabs = [_log2e_table(r, qkv.dtype).contiguous() if m == mode else None
+        # the kernel makes its table rel·log2e itself
+        tabs = [r.contiguous() if m == mode else None
                 for r, m in ((rel_h, "qk"), (rel_w, "v"))]
         _qr_prep_launch({"qk": _QR_QK, "v": _QR_V}[mode], qkv, *tabs, outs,
                         heads=heads, gh=gh, gw=grid_w, width=_LANE - d,

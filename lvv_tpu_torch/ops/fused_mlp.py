@@ -1,14 +1,15 @@
 """Row norms and the fused pre-LN MLP (counterpart of lvv_tpu/ops/fused_mlp.py).
 
-- `norm` (K-a, Triton), `ln_mlp_residual` (K-b, CUDA) and its W8A8 form
-  `ln_mlp_residual_q8` (K-f, CUDA) are the kernel wrappers: on a CUDA
-  tensor they launch their kernel or raise, on a CPU tensor they compute
-  their plain version.
-- `norm_plain` / `ln_mlp_residual_plain` / `ln_mlp_residual_q8_plain` are
-  those plain PyTorch versions: the CPU path, and the oracle the kernels are
-  held to on the card.
-- `norm_fast` and `kernel_ok` keep the JAX package's dispatch: the kernel
-  for lane-aligned widths (multiples of 128), the plain path otherwise.
+- `norm` and its add form `add_norm` (K-a), `ln_mlp_residual` (K-b) and
+  its W8A8 form `ln_mlp_residual_q8` (K-f) are the kernel wrappers (CUDA):
+  on a CUDA tensor they launch their kernel or raise, on a CPU tensor they
+  compute their plain version.
+- `norm_plain` / `add_norm_plain` / `ln_mlp_residual_plain` /
+  `ln_mlp_residual_q8_plain` are those plain PyTorch versions: the CPU
+  path, and the oracle the kernels are held to on the card.
+- `norm_fast`, `add_norm_fast` and `kernel_ok` keep the JAX package's
+  dispatch: the kernel for lane-aligned widths (multiples of 128), the
+  plain path otherwise.
 - `mlp_plan` is the MLP kernels' schedule (tile widths, tiles, blocks,
   K-f's chunk slices), from the shapes alone.
 """
@@ -56,25 +57,66 @@ def norm_plain(x, scale, bias=None, *, eps: float, rms: bool = False):
     return y.to(x.dtype)
 
 
+def add_norm_plain(x, y, scale, bias=None, *, eps: float,
+                   rms: bool = False):
+    """(s, n): s = x + y as PyTorch adds (one rounding to x's dtype), n =
+    norm_plain(s)."""
+    s = x + y
+    return s, norm_plain(s, scale, bias, eps=eps, rms=rms)
+
+
+_NORM_TYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _norm_launch(x, y, scale, bias, eps: float, rms: bool):
+    """K-a's launch (kernels/csrc/norm.cu) on x [..., C] (and y, the add
+    form): returns (s or None, n)."""
+    c = x.shape[-1]
+    ops = (scale,) if bias is None or rms else (scale, bias)
+    if (x.dtype not in _NORM_TYPES or c > 8192
+            or any(p.shape != (c,) or p.dtype != x.dtype
+                   or p.device != x.device for p in ops)):
+        raise ValueError(f"norm: unsupported {x.dtype} / C={c}, or scale / "
+                         "bias not [C] of x's dtype on its device")
+    if y is not None and (y.shape != x.shape or y.dtype != x.dtype
+                          or y.device != x.device):
+        raise ValueError("add_norm: y must match x in shape, dtype and "
+                         "device")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    s = None if y is None else torch.empty_like(x)
+    n = x.numel() // c if c else 0
+    if n:
+        err = kernels.lib("norm").lvv_norm(
+            x.data_ptr(), None if y is None else y.contiguous().data_ptr(),
+            scale.contiguous().data_ptr(),
+            None if bias is None or rms else bias.contiguous().data_ptr(),
+            None if s is None else s.data_ptr(), out.data_ptr(), n, c,
+            ctypes.c_float(eps), int(rms), _NORM_TYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check(err, "norm")
+        kernels.launches["norm"] += 1
+        if s is not None:
+            kernels.launches["norm[add]"] += 1
+    return s, out
+
+
 def norm(x, scale, bias=None, *, eps: float, rms: bool = False):
-    """Kernel K-a: row LayerNorm (RMSNorm when rms) of x [..., C]."""
+    """Kernel K-a: row LayerNorm (RMSNorm when rms) of x [..., C], bf16 or
+    fp32, C <= 8192."""
     if not x.is_cuda:
         return norm_plain(x, scale, bias, eps=eps, rms=rms)
-    c = x.shape[-1]
-    params = [scale] + ([] if bias is None else [bias])
-    if any(p.shape != (c,) or p.device != x.device for p in params):
-        raise ValueError("norm: scale/bias must be [C] on the input's device")
-    if x.dtype not in (torch.bfloat16, torch.float32) or c > 8192:
-        raise ValueError(f"norm: unsupported {x.dtype} / C={c}")
-    x2 = x.reshape(-1, c).contiguous()
-    out = torch.empty_like(x2)
-    if x2.shape[0]:
-        from ..kernels import norm_triton
-        norm_triton.launch(x2, scale.contiguous(),
-                           None if bias is None else bias.contiguous(), out,
-                           eps, rms)
-        kernels.launches["norm"] += 1
-    return out.view(x.shape)
+    return _norm_launch(x, None, scale, bias, eps, rms)[1]
+
+
+def add_norm(x, y, scale, bias=None, *, eps: float, rms: bool = False):
+    """Kernel K-a's add form: (s, n) with s = x + y rounded to x's dtype
+    (bit-equal to PyTorch's add) and n = norm(s), in one launch; x and y
+    [..., C] of one shape and dtype. Counted under "norm" and
+    "norm[add]"."""
+    if not x.is_cuda:
+        return add_norm_plain(x, y, scale, bias, eps=eps, rms=rms)
+    return _norm_launch(x, y, scale, bias, eps, rms)
 
 
 def norm_fast(x, scale, bias=None, *, eps: float = 1e-6, rms: bool = False):
@@ -84,6 +126,17 @@ def norm_fast(x, scale, bias=None, *, eps: float = 1e-6, rms: bool = False):
     if kernel_ok(x, c, c):
         return norm(x, scale, bias, eps=eps, rms=rms)
     return norm_plain(x, scale, bias, eps=eps, rms=rms)
+
+
+def add_norm_fast(x, y, scale, bias=None, *, eps: float = 1e-6,
+                  rms: bool = False):
+    """A residual add and the norm after it, (x + y, norm_fast(x + y)):
+    the add form of the kernel where norm_fast takes the kernel, else
+    PyTorch's add and the plain norm."""
+    c = x.shape[-1]
+    if kernel_ok(x, c, c):
+        return add_norm(x, y, scale, bias, eps=eps, rms=rms)
+    return add_norm_plain(x, y, scale, bias, eps=eps, rms=rms)
 
 
 def ln_mlp_residual_plain(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,

@@ -1,6 +1,6 @@
 """The port's hand-written kernels on the card, against their plain versions.
 
-These need a CUDA card (and nvcc and triton): they carry the `gpu` marker
+These need a CUDA card (and nvcc): they carry the `gpu` marker
 and skip, with the reason, where there is none. Run them on the card with
 
     python -m pytest tests/test_torch_gpu.py -q -p no:randomly
@@ -64,6 +64,54 @@ def test_norm(gen, rms, n, c):
     bias = None if rms else b
     got = _launched("norm", lambda: M.norm(x, s, bias, eps=1e-6, rms=rms))
     _agree(got, M.norm_plain(x, s, bias, eps=1e-6, rms=rms))
+
+
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("n,c", [(3, 100), (64, 8192), (2, 1000)])
+def test_norm_fp32_and_element_widths(gen, rms, n, c):
+    """K-a in fp32 (C = 8192: 512 threads a row), and at widths that are not
+    whole 16-byte vectors (one element a "vector")."""
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn(n, c, generator=gen, device="cuda") * 2).to(dt)
+        s = (1 + torch.randn(c, generator=gen, device="cuda") * 0.1).to(dt)
+        b = (torch.randn(c, generator=gen, device="cuda") * 0.1).to(dt)
+        bias = None if rms else b
+        got = _launched("norm", lambda: M.norm(x, s, bias, eps=1e-6,
+                                               rms=rms))
+        _agree(got, M.norm_plain(x, s, bias, eps=1e-6, rms=rms))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("shape", [(1, 896), (8, 896), (1, 1564, 896),
+                                   (2, 37, 256)])
+def test_add_norm(gen, dt, rms, shape):
+    """K-a's add form: s bit-equal to PyTorch's x + y on the card, n within
+    the tolerance of norm_plain(s), one launch counted under norm and
+    norm[add]."""
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dt)
+    y = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    sc = (1 + torch.randn(c, generator=gen, device="cuda") * 0.1).to(dt)
+    b = None if rms else (torch.randn(c, generator=gen, device="cuda")
+                          * 0.1).to(dt)
+    norms = kernels.launches["norm"]
+    s, n = _launched("norm[add]", lambda: M.add_norm(x, y, sc, b, eps=1e-6,
+                                                     rms=rms))
+    assert kernels.launches["norm"] == norms + 1
+    assert s.shape == x.shape and n.shape == x.shape
+    assert torch.equal(s, x + y)
+    _agree(n, M.norm_plain(x + y, sc, b, eps=1e-6, rms=rms))
+
+
+def test_norm_wrappers_refuse_what_the_kernel_does_not_take(gen):
+    x = _rnd(gen, 4, 256)
+    with pytest.raises(ValueError):                   # scale of another type
+        M.norm(x, torch.ones(256, device="cuda"), eps=1e-6, rms=True)
+    with pytest.raises(ValueError):                   # C > 8192
+        M.norm(_rnd(gen, 2, 8320), _rnd(gen, 8320), eps=1e-6, rms=True)
+    with pytest.raises(ValueError):                   # y of another shape
+        M.add_norm(x, _rnd(gen, 2, 256), _rnd(gen, 256), eps=1e-6, rms=True)
 
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
@@ -732,10 +780,12 @@ def test_window_attention_rows(gen, kind, opts, b, win, heads, d):
                                                              **kw))
 
 
-@pytest.mark.parametrize("b,win,heads,d", _WINDOW_SHAPES)
+@pytest.mark.parametrize("b,win,heads,d", _WINDOW_SHAPES + [(4, 14, 5, 128)])
 def test_window_bias_prep(gen, b, win, heads, d):
     """K-l's prep (qr_prep.cu, mode rows): bf16 rows from fp32 sums, so at
-    most one bf16 rounding apart from the plain version."""
+    most one bf16 rounding apart from the plain version; windows of 49,
+    196 and 256 tokens (7, 14 and 16 wide lines in 16-slot tiles), head
+    dims 64 and 128, heads split over blocks."""
     qkv, rh, rw = _window_operands(gen, b, win, heads, d)
     got = _launched("qr_prep[rows]", lambda: A.window_bias_prep(
         qkv, rh, rw, heads=heads, win=win))
@@ -750,9 +800,11 @@ def _global_operands(gen, b, gh, gw, heads):
 
 
 @pytest.mark.parametrize("b,gh,gw,heads", [(1, 16, 64, 2), (2, 8, 32, 3),
-                                           (6, 64, 64, 12)])
+                                           (6, 64, 64, 12), (3, 24, 40, 5)])
 def test_hpacked_prep(gen, b, gh, gw, heads):
-    """K-m's prep (qr_prep.cu, modes qk and v) against its plain version."""
+    """K-m's prep (qr_prep.cu, modes qk and v) against its plain version;
+    at 24x40 a grid row (40 tokens) and a column (24) leave a ragged last
+    16-token tile."""
     qkv, rh, rw = _global_operands(gen, b, gh, gw, heads)
     kw = dict(heads=heads, grid_w=gw, scale=0.125)
     for mode in ("qk", "v"):
@@ -791,6 +843,9 @@ def test_window_and_prep_wrappers_refuse_what_the_kernels_do_not_take(gen):
         A.window_attention_v3(qkv, rh, rw, scale=0.1, heads=2, win=7)
     with pytest.raises(ValueError):                   # head dim 32
         A.window_bias_prep(qkv, rh, rw, heads=2, win=7)
+    qkv, rh, rw = _window_operands(gen, 1, 20, 2, 64)
+    with pytest.raises(ValueError):                   # a window over 16 wide
+        A.window_bias_prep(qkv, rh, rw, heads=2, win=20)
     qkv, rh, rw = _window_operands(gen, 2, 7, 2, 64)
     with pytest.raises(ValueError):                   # fp32 qkv
         A.window_attention_v4(qkv.float(), rh, rw, scale=0.1, heads=2, win=7)

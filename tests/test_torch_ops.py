@@ -172,6 +172,7 @@ def test_cpu_wrappers_launch_nothing():
     kernels.launches.clear()
     x = torch.randn(4, 128)
     tmlp.norm(x, torch.ones(128), torch.zeros(128), eps=1e-6)
+    tmlp.add_norm(x, x, torch.ones(128), eps=1e-6, rms=True)
     tattn.flash_attention(torch.randn(1, 1, 8, 64), torch.randn(1, 1, 8, 64),
                           torch.randn(1, 1, 8, 64))
     assert sum(kernels.launches.values()) == 0
