@@ -73,10 +73,35 @@
    takes its int8 p@v arm ("serving-path[sam1280,mlp,dense,attn]"). Both
    are checked as in 4: launch counts, repeated tokens, and prefill and
    first-step logits against every kernel swapped for its plain version.
+7. Drives the serving runtime on configs/vqa_nuscenes_serving.json (read
+   by the port's `config.load`; quant8 SAM and CLIP, a 772-token prefix,
+   LoRA 16 / 8) with seeded weights: "serving-checkpoint" (save_checkpoint
+   under build/, ModelLoader.load_all on the card, every tensor
+   bit-equal); "serving-engine[8]" (ServingEngine with the packed int8
+   decode, 12 requests of uint8 nuScenes-size frames and distinct
+   questions from 3 threads: launches equal expected_launches per
+   dispatched bucket, every answer equal to greedy_generate on its padded
+   bucket, each bucket's prefill and first-step logits against every
+   kernel swapped for its plain version, the share equal to batch 1
+   reported, latencies, frames/s and device busy; the same workload at
+   pipeline_depth 2 for comparison);
+   "continuous[8]" (ContinuousServingEngine: a burst of 8 equal to
+   greedy_generate at the slab's cache length, 4 staggered admissions
+   reported against batch 1, launches per admission and slab step);
+   "serve-http" (the serve CLI's handler on 127.0.0.1: /healthz,
+   /v1/stats, a POST equal to the engine's answer and to greedy_generate's
+   tokens, a 400, a 404); and "infer-cli" (the infer CLI on the checkpoint
+   as a subprocess, exit 0, and through its `main` in this process, whose
+   launches are counted; answers equal to greedy_generate's tokens; answer
+   texts carry their token ids, `ids_as_text`, where random weights would
+   give empty byte strings). The kernels of these phases are checked at
+   the preset's shapes in 2 (VATVision's and VATLiDAR's 384 queries, the
+   901-token prefill, buckets of 1, 4 and 8 frames).
 
 Prints the per-kernel JSON line (`launches`: the most of one generate in
 any driven path, the run that `ms` times; each path's own, bench-stream's
-dispatch of G generates included, in `launches_by_path`), then the card
+dispatch of G generates and the continuous engine's totals included, in
+`launches_by_path`), then the card
 line, then as its last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no result
 line). TF32 is off for matmuls and convolutions (both paths compute in the
@@ -88,8 +113,10 @@ import collections
 import contextlib
 import functools
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -394,9 +421,10 @@ def qk8_prep_notes(got, want) -> dict:
 
 def kernel_cases(torch):
     """(row, label, launches per greedy_generate, setup, resolution) at the
-    shapes of the paths at SAM's 1024² and 1280², and of serving-batch[8]
-    (resolution (1024, 8)); resolution None: a form that no path runs,
-    timed per call. setup() -> dict(kernel, plain, library, flops, bytes,
+    shapes of the paths at SAM's 1024² and 1280², of serving-batch[8]
+    (resolution (1024, 8)) and of the serving runtime's phases on the
+    serving preset, a bucket of b frames (resolution ("preset", b));
+    resolution None: a form that no path runs, timed per call. setup() -> dict(kernel, plain, library, flops, bytes,
     peak)."""
     import torch.nn.functional as F
     from lvv_tpu_torch.ops import attention as A
@@ -1075,6 +1103,78 @@ def kernel_cases(torch):
         ("int8_matmul_nk", f"decode unembed [{n},896]x[151940,896]^T",
          NEW_TOKENS, int8_case(n, 896, 151940, nk=True)),
     ]
+    # the serving runtime's phases on SERVING_PRESET (SAM 1024², LVV_Q8_SCOPE
+    # "mlp", the packed int8 decode) in buckets of PRESET_BATCHES frames:
+    # VATVision's 384 queries over 1,536 image tokens, VATLiDAR's 384 over
+    # 32,400 BEV cells, and a prefill of the 772-token prefix and the
+    # engines' ENGINE_PROMPT-token prompts, under the flash kernel's 1,024
+    # keys; a shape that another path shares keeps its label there and is
+    # measured once. Each bucket's counts must add up to expected_launches
+    # of the preset.
+    from lvv_tpu_torch.models.vqa import _prefix_len
+    preset = preset_config().model
+    pre_p = _prefix_len(preset) + ENGINE_PROMPT
+
+    def preset_cases(n):
+        return [
+            ("norm", f"LN SAM [{n * 24576},768]", 12,
+             norm_case(n * 24576, 768, False)),
+            ("norm", f"LN SAM neck [{n * 24576},256]", 2,
+             norm_case(n * 24576, 256, False)),
+            ("norm", f"LN CLIP [{n * 1542},1024]", 25,
+             norm_case(n * 1542, 1024, False)),
+            ("norm", f"LN adapter [{n * 1536},2048]", 1,
+             norm_case(n * 1536, 2048, False)),
+            ("norm", f"LN VATVision [{n * 384},2048]", 15,
+             norm_case(n * 384, 2048, False)),
+            ("norm", f"LN VAT out [{n * 384},896]", 15,
+             norm_case(n * 384, 896, False)),
+            ("norm", f"LN VATLiDAR in [{n * 32400},896]", 1,
+             norm_case(n * 32400, 896, False)),
+            ("norm", f"RMS prefill [{n * pre_p},896]", 1,
+             norm_case(n * pre_p, 896, True)),
+            ("norm", f"RMS decode [{n},896]", NEW_TOKENS,
+             norm_case(n, 896, True)),
+            ("norm[add]", f"add + RMS prefill [{n * pre_p},896]", adds,
+             add_norm_case(n * pre_p, 896)),
+            ("norm[add]", f"add + RMS decode [{n},896]", adds * NEW_TOKENS,
+             add_norm_case(n, 896)),
+            ("ln_mlp_residual_q8", f"SAM [{n * 24576},768]x[768,3072] gelu",
+             12, q8_case(n * 24576, 768, 3072, "gelu")),
+            ("ln_mlp_residual_q8",
+             f"CLIP [{n * 1542},1024]x[1024,4096] quick_gelu", 24,
+             q8_case(n * 1542, 1024, 4096, "quick_gelu")),
+            ("flash_attention", f"VATVision cross {n}x q384 kv1536 8h d256",
+             4, flash_case(384, 1536, 8, 8, 256, False, b=n)),
+            ("flash_attention", f"VATLiDAR cross {n}x q384 kv32400 8h d112",
+             4, flash_case(384, 32400, 8, 8, 112, False, b=n)),
+            ("relpos_attention[14x14]",
+             f"windows [{n * 150},196,2304] 12h d64", 8,
+             relpos_case(n * 150, 14, 12, 64)),
+            ("relpos_attention[64x64]",
+             f"global [{n * 6},4096,2304] 12h d64", 4,
+             relpos_case(n * 6, 64, 12, 64)),
+            ("int8_matmul", f"decode qkv [{n},896]x[896,1152]", layer_steps,
+             int8_case(n, 896, 1152)),
+            ("int8_matmul", f"decode o [{n},896]x[896,896]", layer_steps,
+             int8_case(n, 896, 896)),
+            ("int8_matmul", f"decode gate|up [{n},896]x[896,9728]",
+             layer_steps, int8_case(n, 896, 9728)),
+            ("int8_matmul", f"decode down [{n},4864]x[4864,896]",
+             layer_steps, int8_case(n, 4864, 896)),
+            ("int8_matmul_nk", f"decode unembed [{n},896]x[151940,896]^T",
+             NEW_TOKENS, int8_case(n, 896, 151940, nk=True)),
+        ]
+    by_preset = {n: preset_cases(n) for n in PRESET_BATCHES}
+    want = expected_launches(preset, serving=True, prompt_len=ENGINE_PROMPT)
+    for n, cases in by_preset.items():
+        got = collections.Counter()
+        for row, _, count, _ in cases:
+            for name in {row, PART_OF.get(row, row)}:
+                got[name] += count
+        if dict(got) != want:
+            raise AssertionError(f"the preset's cases at batch {n} launch "
+                                 f"{dict(got)}, its path {want}")
     # the 1024² list: every shape of its four batch-1 paths
     return [c + (1024,) for c in [
         ("norm", "LN SAM [24576,768]", 12, norm_case(24576, 768, False)),
@@ -1132,7 +1232,9 @@ def kernel_cases(torch):
         ("relpos_attention_qk8[64x64]", "global [6,4096,2304] 12h d64", 4,
          relpos_q8_case(6, 64, 12, 64, qk8=True)),
     ]] + [c + ((1024, n),) for c in batch] + [
-        c + (LARGE,) for c in large] + [c + (None,) for c in unused]
+        c + (LARGE,) for c in large] + [
+        c + (("preset", b),) for b, cases in by_preset.items()
+        for c in cases] + [c + (None,) for c in unused]
 
 
 ROWS = {
@@ -1368,17 +1470,21 @@ def global_kind(cfg, names) -> str:
     return f"{kind}[{g}x{g}]"
 
 
-def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
+def expected_launches(cfg, serving: bool = False, scope: str = "mlp",
+                      prompt_len: int = PROMPT_LEN,
+                      packed: bool = None) -> dict:
     """Kernel launches of one greedy_generate at batch 1, from the model's
-    structure (every norm width there is a multiple of 128). The serving
-    path runs the W8A8 MLP in place of the bf16 one and the packed int8
-    decode: 4 int8 products a layer and one int8 unembed a step. Its other
-    SAM scopes add the W8A8 qkv / proj projections ("dense", 2 a block) and
-    change the global layers' kernel (`global_kind`): at 64x64, K-g ("qk",
-    which wins) or K-d8 ("attn"); at 80x80, K-h's int8 arm ("attn")."""
-    from lvv_tpu_torch.models.vqa import sam_grid_side
+    structure (every norm width there is a multiple of 128), for prompts
+    `prompt_len` wide. The serving path runs the W8A8 MLP in place of the
+    bf16 one and (unless `packed` is False) the packed int8 decode: 4 int8
+    products a layer and one int8 unembed a step. Its other SAM scopes add
+    the W8A8 qkv / proj projections ("dense", 2 a block) and change the
+    global layers' kernel (`global_kind`): at 64x64, K-g ("qk", which wins)
+    or K-d8 ("attn"); at 80x80, K-h's int8 arm ("attn")."""
+    from lvv_tpu_torch.models.vqa import _prefix_len, sam_grid_side
     s, c, vv, vl, llm = (cfg.sam, cfg.clip, cfg.vat_vision, cfg.vat_lidar,
                          cfg.llm)
+    packed = serving if packed is None else packed
     n_global = len(s.global_attn_indexes)
     encode = (s.depth + 2                       # ln1 per block + neck LNs
               + 1 + c.num_layers                # pre_ln + ln1 per layer
@@ -1390,13 +1496,14 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
     # `attention` takes the flash kernel once kv reaches 1024 tokens: the
     # VAT blocks' self-attention over their queries (VATVision's 1,200 at
     # 1280², not its 768 at 1024²) and cross-attention over the image
-    # tokens / BEV cells, and the prefill
+    # tokens / BEV cells, and the prefill (not the serving preset's: 772
+    # prefix tokens and a 129-token prompt)
     n_tok = cfg.adapter.num_views * sam_grid_side(cfg) ** 2
     kv_lens = ((vv.n_blocks, n_tok // vv.compression_factor),
                (vv.n_blocks, n_tok),
                (vl.n_blocks, vl.n_queries),
                (vl.n_blocks, cfg.bev_hw[0] * cfg.bev_hw[1]),
-               (llm.num_layers, cache_tokens(cfg) - NEW_TOKENS - 8))
+               (llm.num_layers, _prefix_len(cfg) + prompt_len))
     want = collections.Counter({
         "norm": encode + per_llm_pass * (1 + NEW_TOKENS),
         # every Qwen norm but the first layer's input norm follows an add
@@ -1409,11 +1516,20 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp") -> dict:
         want["ln_mlp_residual"] = s.depth + c.num_layers
     else:
         want["ln_mlp_residual_q8"] = s.depth + c.num_layers
-        want["int8_matmul"] = 4 * llm.num_layers * NEW_TOKENS
-        want["int8_matmul_nk"] = NEW_TOKENS
         if "dense" in names:
             want["w8a8_matmul"] = 2 * s.depth
+    if packed:
+        want["int8_matmul"] = 4 * llm.num_layers * NEW_TOKENS
+        want["int8_matmul_nk"] = NEW_TOKENS
     return dict(want)
+
+
+def decode_step_launches(cfg) -> dict:
+    """Kernel launches of one packed int8 decode step (every row of a
+    batch or a slab at once)."""
+    per_llm_pass = 2 * cfg.llm.num_layers + 1
+    return {"norm": per_llm_pass, "norm[add]": per_llm_pass - 1,
+            "int8_matmul": 4 * cfg.llm.num_layers, "int8_matmul_nk": 1}
 
 
 @contextlib.contextmanager
@@ -1533,11 +1649,12 @@ def drive(torch, model, args, params_decode, want) -> dict:
                 peak_mem_gib=peak / 2 ** 30, launches=counts)
 
 
-def cache_tokens(cfg) -> int:
-    """KV-cache length of one generate, as greedy_generate sizes it (1,996
-    prefill tokens at SAM 1280², 1,564 at 1024²)."""
+def cache_tokens(cfg, prompt_len: int = PROMPT_LEN) -> int:
+    """KV-cache length of one generate on prompts `prompt_len` wide, as
+    greedy_generate sizes it (1,996 prefill tokens at SAM 1280², 1,564 at
+    1024², 901 on the serving preset's 129-token prompts)."""
     from lvv_tpu_torch.models.vqa import _prefix_len
-    return _prefix_len(cfg) + PROMPT_LEN + NEW_TOKENS + 8
+    return _prefix_len(cfg) + prompt_len + NEW_TOKENS + 8
 
 
 def prefill_logits(torch, model, args, cache=None):
@@ -1546,8 +1663,8 @@ def prefill_logits(torch, model, args, cache=None):
     with torch.inference_mode():
         if cache is None:
             cache = init_cache(model.cfg.llm, args[3].shape[0],
-                               cache_tokens(model.cfg), dtype=model.dtype,
-                               device="cuda")
+                               cache_tokens(model.cfg, args[3].shape[1]),
+                               dtype=model.dtype, device="cuda")
         return model.prefill(args[0], args[1], args[2], args[3],
                              args[4].int(), cache).float()
 
@@ -1563,7 +1680,8 @@ def first_logits(torch, model, args, packed, token=None) -> tuple:
     from lvv_tpu_torch.models.decode_fused import fused_decode_step
     from lvv_tpu_torch.models.qwen import init_cache
     cfg = model.cfg
-    cache = init_cache(cfg.llm, args[3].shape[0], cache_tokens(cfg),
+    cache = init_cache(cfg.llm, args[3].shape[0],
+                       cache_tokens(cfg, args[3].shape[1]),
                        dtype=model.dtype, device="cuda")
     pre = prefill_logits(torch, model, args, cache)
     nxt = pre.argmax(-1) if token is None else token
@@ -1833,6 +1951,555 @@ def run_u8_check(torch, served) -> dict:
                 lengths=lens[:, 0].tolist())
 
 
+# ------------------------------------------------------- serving runtime --
+
+# The serving preset the repository ships (configs/vqa_nuscenes_serving.json,
+# `_base_` vqa_nuscenes_large.json): quant8 SAM and CLIP, VATVision
+# compression 4, 384 LiDAR queries, LoRA ranks 16 / 8 from the defaults; a
+# 772-token prefix. The engines pack each question into a 129-token prompt
+# (max_prompt 128 + 1) with the port's ByteTokenizer.
+SERVING_PRESET = "configs/vqa_nuscenes_serving.json"
+PRESET_DIR = REPO / "build" / "serving_preset"
+ENGINE_BATCH, ENGINE_THREADS, ENGINE_FRAMES, ENGINE_PROMPT = 8, 3, 4, 129
+# the buckets the phases below dispatch: serving-engine's warm-up, its
+# partial and full buckets, serve-http's and infer-cli's single requests,
+# the continuous engine's admissions of 1 and 8 and its 8-slot decode
+PRESET_BATCHES = (1, 4, 8)
+# long enough that the 12 submissions of the three threads meet in one
+# full bucket and one of 4
+ENGINE_WAIT_MS = 200.0
+QUESTIONS = (
+    "What is directly ahead of the ego vehicle?",
+    "How many pedestrians are near the crosswalk?",
+    "Is there a parked truck on the right?",
+    "What color is the traffic light?",
+    "Are there cyclists behind the car?",
+    "Is the road wet?",
+    "Which lane is the bus in?",
+    "How far away is the nearest car?",
+    "Is there construction on the left?",
+    "What is the ego vehicle doing?",
+    "Are any vehicles turning?",
+    "Is it safe to change lanes?")
+
+
+def preset_config():
+    """SERVING_PRESET read by the port's `config.load`."""
+    from lvv_tpu_torch import config as C
+    return C.load(C.VQAConfig, REPO / SERVING_PRESET)
+
+
+def preset_checkpoint(torch) -> tuple:
+    """serving-checkpoint: the serving preset read by the port's `load`, a
+    model with seeded weights built from it as ModelLoader builds one,
+    `save_checkpoint` under build/, then `ModelLoader(...).load_all()` on
+    the card; every tensor must come back bit-equal. Returns (report,
+    loader, loaded model); the saved model is freed."""
+    from lvv_tpu_torch import config as C
+    from lvv_tpu_torch.inference import ModelLoader, save_checkpoint
+    from lvv_tpu_torch.models.vqa import _prefix_len
+    cfg = preset_config()
+    shutil.rmtree(PRESET_DIR, ignore_errors=True)
+    PRESET_DIR.mkdir(parents=True)
+    C.save(cfg, PRESET_DIR / "config.json")
+    model = ModelLoader(PRESET_DIR).build_model()
+    want = model.state_dict()
+    t0 = time.perf_counter()
+    save_checkpoint(model, cfg, PRESET_DIR)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = ModelLoader(PRESET_DIR)
+    loaded, _ = loader.load_all()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = loaded.state_dict()
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if got.keys() != want.keys() or differ:
+        raise AssertionError(f"serving-checkpoint: tensors differ after the "
+                             f"round trip: {differ[:5]}")
+    m = cfg.model
+    report = dict(
+        config=SERVING_PRESET, dtype=m.dtype,
+        lora_ranks=dict(llm=m.llm_lora.r, clip=m.clip_lora.r),
+        prefix_tokens=_prefix_len(m), tensors=len(want),
+        parameters=sum(v.numel() for v in want.values()),
+        model_pt_bytes=(PRESET_DIR / "model.pt").stat().st_size,
+        save_s=save_s, load_s=load_s, device=str(loaded.device),
+        bit_equal=True)
+    del model, want
+    torch.cuda.empty_cache()
+    return report, loader, loaded
+
+
+def engine_requests(cfg, tok) -> list:
+    """len(QUESTIONS) requests over ENGINE_FRAMES frames (numpy
+    default_rng(1): BEV N(0, 1), six uint8 views of nuScenes' size), one
+    distinct question each, packed by `tok` into 129-token prompts; host
+    arrays, as a client sends them."""
+    import numpy as np
+    from lvv_tpu_torch.data import pack_text
+    rng = np.random.default_rng(1)
+    c, (h, w) = cfg.bev_channels, cfg.bev_hw
+    frames = [(rng.normal(size=(c, h, w)).astype(np.float32),
+               rng.integers(0, 256, (6, *NUSCENES_HW, 3), dtype=np.uint8))
+              for _ in range(ENGINE_FRAMES)]
+    out = []
+    for i, q in enumerate(QUESTIONS):
+        ids, _, n, _ = pack_text(tok, q, None, 128, 0)
+        bev, u8 = frames[i % ENGINE_FRAMES]
+        out.append(dict(bev=bev, images=u8, view_valid=np.ones(6, bool),
+                        text_ids=ids, text_len=n))
+    return out
+
+
+def bucket_args(torch, model, rows, bucket) -> list:
+    """`rows` padded to `bucket` with clones of row 0, as the engines pad
+    them, on the card (uint8 views preprocessed there) -> greedy_generate's
+    five inputs."""
+    from lvv_tpu_torch.inference.server import _preprocess
+    rows = list(rows) + [rows[0]] * (bucket - len(rows))
+
+    def stack(key):
+        return torch.stack([torch.as_tensor(r[key], device="cuda")
+                            for r in rows])
+    images = stack("images")
+    if images.dtype == torch.uint8:
+        images = _preprocess(images, model.cfg.sam.img_size)
+    lens = torch.tensor([r["text_len"] for r in rows], dtype=torch.int32,
+                        device="cuda")
+    return [stack("bev").float(), images, stack("view_valid"),
+            stack("text_ids"), lens]
+
+
+def direct_generate(torch, model, rows, bucket, packed, max_cache=None):
+    """greedy_generate on `rows` padded to `bucket` (bucket_args) -> each
+    real row's tokens up to its length."""
+    from lvv_tpu_torch import greedy_generate
+    from lvv_tpu_torch.data import ByteTokenizer
+    toks, out = greedy_generate(
+        model, *bucket_args(torch, model, rows, bucket),
+        max_new_tokens=NEW_TOKENS,
+        eos_id=ByteTokenizer(model.cfg.llm.special_tokens).eos_id,
+        params_decode=packed, max_cache=max_cache)
+    toks, out = toks.cpu().tolist(), out.cpu().tolist()
+    return [toks[i][:out[i]] for i in range(len(rows))]
+
+
+def first_difference(a, b):
+    """The first step at which two token lists differ (None if equal)."""
+    if a == b:
+        return None
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items() if v * n}
+
+
+def added(*parts: dict) -> dict:
+    out = collections.Counter()
+    for p in parts:
+        out.update(p)
+    return {k: v for k, v in out.items() if v}
+
+
+def engine_workload(eng, reqs) -> tuple:
+    """ENGINE_THREADS client threads, started together, submit `reqs` to
+    `eng` (request i from thread i mod ENGINE_THREADS) -> (tokens, futures,
+    wall s, latency s a request)."""
+    import threading
+    n = len(reqs)
+    futs, t_sub, t_done = [None] * n, [0.0] * n, [0.0] * n
+    start = threading.Barrier(ENGINE_THREADS)
+
+    def client(c):
+        start.wait()
+        for i in range(c, n, ENGINE_THREADS):
+            r = reqs[i]
+            t_sub[i] = time.perf_counter()
+            futs[i] = eng.submit(r["bev"], r["images"], r["view_valid"],
+                                 r["text_ids"], r["text_len"])
+            futs[i].add_done_callback(
+                lambda _, i=i: t_done.__setitem__(i, time.perf_counter()))
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(ENGINE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serving-engine: a client hung")
+    got = [f.result(timeout=600)[0] for f in futs]
+    wall = time.perf_counter() - t0
+    return got, futs, wall, sorted(d - s for s, d in zip(t_sub, t_done))
+
+
+def run_serving_engine(torch, model, tok, packed) -> dict:
+    """serving-engine[8]: ServingEngine(max_batch=8, max_new_tokens=32) over
+    the loaded preset with the packed int8 decode (the serve CLI's
+    defaults), LVV_Q8_SCOPE "mlp". After a one-request warm-up, three
+    threads submit the 12 requests (host arrays, uint8 views). Launches
+    must equal `expected_launches` of the preset for every dispatched
+    bucket; each answer must equal greedy_generate's on its padded bucket
+    (the engine's dispatches are recorded), and each bucket's prefill and
+    first-step logits are held to the same batch with every kernel swapped
+    for its plain version; the share equal to the request's batch-1 answer
+    is reported. A second, profiled run of the same workload gives the
+    device's busy time; a third, on an engine with pipeline_depth 2 (the
+    next bucket issued before the last one's tokens are fetched), its
+    latencies for comparison."""
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.inference import ServingEngine
+    cfg = model.cfg
+    reqs = engine_requests(cfg, tok)
+    width = reqs[0]["text_ids"].shape[0]
+    per_bucket = expected_launches(cfg, serving=True, prompt_len=width)
+    kw = dict(max_batch=ENGINE_BATCH, max_wait_ms=ENGINE_WAIT_MS,
+              max_new_tokens=NEW_TOKENS, params_decode=packed)
+    dispatched = []
+    with q8_scope_env("mlp"):
+        with ServingEngine(model, tok, **kw) as eng:
+            dispatch = eng._dispatch
+
+            def recorded(batch):       # the futures of each bucket, in order
+                dispatched.append([r.future for r in batch])
+                return dispatch(batch)
+            eng._dispatch = recorded
+            r = reqs[0]
+            eng.submit(r["bev"], r["images"], r["view_valid"], r["text_ids"],
+                       r["text_len"]).result(timeout=600)      # warm-up
+            before = eng.stats()["batches"]
+            dispatched.clear()
+            kernels.launches.clear()
+            got, futs, wall, lat = engine_workload(eng, reqs)
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            buckets = list(dispatched)
+            n_batches = eng.stats()["batches"] - before
+            busy = device_busy(torch, lambda: engine_workload(eng, reqs))
+            stats = eng.stats()
+            bucket_sizes, depth = eng.buckets, eng.pipeline_depth
+        with ServingEngine(model, tok, pipeline_depth=2, **kw) as eng:
+            got2, _, wall2, lat2 = engine_workload(eng, reqs)
+            buckets2 = eng.stats()["batch_sizes"]
+        if counts != scaled(per_bucket, n_batches):
+            raise AssertionError(f"serving-engine: launch counts {counts} "
+                                 f"!= {n_batches} x {per_bucket}")
+        index = {id(f): i for i, f in enumerate(futs)}
+        vs_plain = []
+        for bucket in buckets:
+            rows = [index[id(f)] for f in bucket]
+            size = next(b for b in bucket_sizes if b >= len(rows))
+            mine = [reqs[i] for i in rows]
+            want = direct_generate(torch, model, mine, size, packed)
+            for i, w in zip(rows, want):
+                if got[i] != w:
+                    raise AssertionError(
+                        f"serving-engine: request {i} (bucket {rows}) "
+                        f"differs from greedy_generate on its padded bucket "
+                        f"at step {first_difference(got[i], w)}")
+            checks, _ = against_plain_kernels(
+                torch, model, bucket_args(torch, model, mine, size), packed)
+            vs_plain.append(dict(bucket=size, **checks))
+        alone = [direct_generate(torch, model, [r], 1, packed)[0]
+                 for r in reqs]
+    worst = {key: max(c[key] for c in vs_plain)
+             for key in ("logits_rel_l2_vs_plain",
+                         "step_logits_rel_l2_vs_plain")}
+    by_row = {f"{key}_by_row": [x for c in vs_plain
+                                for x in c.get(f"{key}_by_row", [])]
+              for key in worst}
+    return dict(
+        config=SERVING_PRESET, requests=len(reqs), threads=ENGINE_THREADS,
+        max_batch=ENGINE_BATCH, max_wait_ms=ENGINE_WAIT_MS,
+        pipeline_depth=depth, prompt_width=width,
+        buckets=[len(b) for b in buckets],
+        equal_to_padded_bucket=len(reqs),
+        equal_to_batch1=sum(a == b for a, b in zip(got, alone)),
+        first_difference_vs_batch1=[first_difference(a, b)
+                                    for a, b in zip(got, alone)],
+        wall_s=wall, frames_per_s=len(reqs) / wall,
+        request_latency_p50_s=lat[len(lat) // 2],
+        request_latency_max_s=lat[-1],
+        **busy, device_idle_share=1 - busy["device_busy_s"] / wall,
+        answer_lengths=[len(t) for t in got], stats=stats,
+        **worst, **by_row,
+        vs_plain_by_bucket=vs_plain,
+        depth2=dict(buckets=buckets2, wall_s=wall2,
+                    frames_per_s=len(reqs) / wall2,
+                    request_latency_p50_s=lat2[len(lat2) // 2],
+                    request_latency_max_s=lat2[-1],
+                    tokens_equal=got2 == got),
+        launches=per_bucket, launches_total=counts)
+
+
+def run_continuous(torch, model, tok, packed) -> dict:
+    """continuous[8]: ContinuousServingEngine(slots=8, chunk_steps=8) on the
+    same model and decode tree. A burst of 8 requests (sensors already on
+    the card, submitted with the interpreter's switch interval raised so
+    that they reach the queue together) is admitted at once and must give
+    greedy_generate's tokens on those 8 at the slab's cache length; then 4
+    staggered admissions (each submitted once the one before has streamed
+    its first chunk), reported against their batch-1 answers. Launches:
+    the prefill's of `expected_launches` per admission and one packed
+    decode step's per slab step."""
+    import threading
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.inference import ContinuousServingEngine
+    cfg = model.cfg
+    reqs = [dict(r, bev=torch.as_tensor(r["bev"], device="cuda"),
+                 images=torch.as_tensor(r["images"], device="cuda"),
+                 view_valid=torch.as_tensor(r["view_valid"], device="cuda"))
+            for r in engine_requests(cfg, tok)]
+    width = reqs[0]["text_ids"].shape[0]
+    step = decode_step_launches(cfg)
+    prefill = added(expected_launches(cfg, serving=True, prompt_len=width),
+                    scaled(step, -NEW_TOKENS))
+    slots, chunk = ENGINE_BATCH, 8
+
+    def want_counts(st, before):
+        adm = st["admission_batches"] - before["admission_batches"]
+        steps = chunk * (st["decode_chunks"] - before["decode_chunks"])
+        return added(scaled(prefill, adm), scaled(step, steps))
+
+    with q8_scope_env("mlp"), ContinuousServingEngine(
+            model, tok, slots=slots, chunk_steps=chunk,
+            max_new_tokens=NEW_TOKENS, params_decode=packed) as eng:
+        def submit(r, **kw):
+            return eng.submit(r["bev"], r["images"], r["view_valid"],
+                              r["text_ids"], r["text_len"], **kw)
+        max_cache = eng.max_cache(width)
+        before = eng.stats()
+        kernels.launches.clear()
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1.0)
+        try:
+            t0 = time.perf_counter()
+            futs = [submit(r) for r in reqs[:slots]]
+        finally:
+            sys.setswitchinterval(interval)
+        burst = [f.result(timeout=600)[0] for f in futs]
+        burst_s = time.perf_counter() - t0
+        st = eng.stats()
+        burst_counts = {k: v for k, v in kernels.launches.items() if v}
+        if st["admission_batches"] - before["admission_batches"] != 1:
+            raise AssertionError("continuous: the burst was not admitted at "
+                                 "once")
+        if burst_counts != want_counts(st, before):
+            raise AssertionError(f"continuous: burst launches {burst_counts}"
+                                 f" != {want_counts(st, before)}")
+        before = st
+        kernels.launches.clear()
+        staggered, t0 = [], time.perf_counter()
+        for r in reqs[slots:slots + 4]:
+            streamed = threading.Event()
+            f = submit(r, on_tokens=lambda _, e=streamed: e.set())
+            while not (streamed.wait(0.01) or f.done()):
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("continuous: no chunk streamed")
+            staggered.append(f)
+        stag = [f.result(timeout=600)[0] for f in staggered]
+        stag_s = time.perf_counter() - t0
+        st = eng.stats()
+        stag_counts = {k: v for k, v in kernels.launches.items() if v}
+    if stag_counts != want_counts(st, before):
+        raise AssertionError(f"continuous: staggered launches {stag_counts}"
+                             f" != {want_counts(st, before)}")
+    want = direct_generate(torch, model, reqs[:slots], slots, packed,
+                           max_cache)
+    for i, (a, b) in enumerate(zip(burst, want)):
+        if a != b:
+            raise AssertionError(
+                f"continuous: burst request {i} differs from greedy_generate "
+                f"of the 8 at step {first_difference(a, b)}")
+    alone = [direct_generate(torch, model, [r], 1, packed, max_cache)[0]
+             for r in reqs[slots:slots + 4]]
+    return dict(
+        slots=slots, chunk_steps=chunk, max_cache=max_cache,
+        burst=slots, burst_equal_to_greedy=slots, burst_s=burst_s,
+        burst_frames_per_s=slots / burst_s,
+        staggered=len(stag), staggered_s=stag_s,
+        staggered_equal_to_batch1=sum(a == b for a, b in zip(stag, alone)),
+        staggered_first_difference=[first_difference(a, b)
+                                    for a, b in zip(stag, alone)],
+        stats=st, launches=added(burst_counts, stag_counts))
+
+
+@contextlib.contextmanager
+def ids_as_text():
+    """ByteTokenizer.decode gives the ids themselves ("id id ..."), so an
+    answer's text carries its tokens: random weights pick ids that the
+    byte decode mostly drops, and two empty answers would compare equal."""
+    from lvv_tpu_torch.data import tokenizer as T
+    decode = T.ByteTokenizer.decode
+    T.ByteTokenizer.decode = lambda self, ids: " ".join(map(str, ids))
+    try:
+        yield
+    finally:
+        T.ByteTokenizer.decode = decode
+
+
+def text_request(model, tok, question, bev) -> dict:
+    """The request the engines and the infer CLI make of a question and a
+    BEV with no camera paths (every view zero and invalid)."""
+    from lvv_tpu_torch.inference.server import _text_request_arrays
+    images, valid, ids, n = _text_request_arrays(model.cfg, tok, question,
+                                                 None)
+    return dict(bev=bev, images=images, view_valid=valid, text_ids=ids,
+                text_len=n)
+
+
+def run_serve_http(torch, model, tok, packed) -> dict:
+    """serve-http: the serve CLI's handler over a ServingEngine (packed
+    decode, LVV_Q8_SCOPE "mlp") on 127.0.0.1, port 0, in a thread: /healthz,
+    one POST /v1/vqa on a BEV .npy under build/ (its answer, the ids under
+    `ids_as_text`, must equal the engine's for the same question, views
+    invalid as the CLI submits them, and greedy_generate's on that
+    request), /v1/stats, a 400 (missing BEV) and a 404. Launches: one
+    bucket for the POST and one for the engine's own answer."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    import numpy as np
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.inference import ServingEngine
+    from lvv_tpu_torch.tools.serve_vqa import make_handler
+    bev = engine_requests(model.cfg, tok)[0]["bev"]
+    root = REPO / "build" / "serve_http"
+    root.mkdir(parents=True, exist_ok=True)
+    np.save(root / "frame.npy", bev)
+    per_bucket = expected_launches(model.cfg, serving=True,
+                                   prompt_len=ENGINE_PROMPT)
+    with q8_scope_env("mlp"), ids_as_text(), ServingEngine(
+            model, tok, max_batch=ENGINE_BATCH, max_new_tokens=NEW_TOKENS,
+            params_decode=packed) as eng:
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(eng, root))
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_port}"
+
+        def call(path, body=None):
+            data = None if body is None else json.dumps(body).encode()
+            try:
+                with urllib.request.urlopen(base + path, data,
+                                            timeout=600) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+        try:
+            kernels.launches.clear()
+            health = call("/healthz")
+            t0 = time.perf_counter()
+            post = call("/v1/vqa", {"question": QUESTIONS[0],
+                                    "bev_path": "frame.npy"})
+            post_s = time.perf_counter() - t0
+            stats = call("/v1/stats")
+            missing = call("/v1/vqa", {"question": QUESTIONS[0],
+                                       "bev_path": "missing.npy"})
+            unknown = call("/v2/nothing")
+            want = eng.generate(QUESTIONS[0], bev, timeout=600)
+            counts = {k: v for k, v in kernels.launches.items() if v}
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        direct = direct_generate(torch, model, [text_request(
+            model, tok, QUESTIONS[0], bev)], 1, packed)[0]
+    checks = {"healthz": health == (200, {"ok": True}),
+              "post": post[0] == 200 and post[1].get("answer") == want,
+              "answer = greedy_generate": bool(direct) and want == " ".join(
+                  map(str, direct)),
+              "stats": stats[0] == 200 and stats[1].get("requests") == 1,
+              "missing bev 400": missing[0] == 400,
+              "unknown path 404": unknown[0] == 404,
+              "launches": counts == scaled(per_bucket, 2)}
+    if not all(checks.values()):
+        raise AssertionError(f"serve-http: {checks}; post {post}, launches "
+                             f"{counts}")
+    return dict(checks=checks, post_latency_s=post_s,
+                server_latency_s=post[1]["latency_s"],
+                answer_tokens=len(direct), launches=per_bucket)
+
+
+def run_infer_cli(torch, model, tok) -> dict:
+    """infer-cli: the infer CLI on build/serving_preset with two questions
+    (its defaults: the float decode, LVV_Q8_SCOPE "mlp"), run twice: as
+    `python -m lvv_tpu_torch.tools.infer_vqa ...` in a subprocess on the
+    card, which must exit 0, and through its `main` in this process under
+    `ids_as_text`, the launch counts reset just before and read just
+    after, which must be those of `expected_launches` with the float
+    decode for each question. The in-process answers must be
+    greedy_generate's tokens on each question's request, and each
+    subprocess answer their byte decode; both write their rows to
+    --out."""
+    import io
+    import numpy as np
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.tools import infer_vqa
+    root = REPO / "build" / "infer_cli"
+    root.mkdir(parents=True, exist_ok=True)
+    reqs = [text_request(model, tok, q, r["bev"]) for q, r in zip(
+        QUESTIONS, engine_requests(model.cfg, tok)[:2])]
+    rows = []
+    for i, r in enumerate(reqs):
+        np.save(root / f"bev{i}.npy", r["bev"])
+        rows.append({"question": QUESTIONS[i],
+                     "bev_path": str(root / f"bev{i}.npy")})
+    (root / "questions.json").write_text(json.dumps(rows))
+
+    def argv(out):
+        return ["--checkpoint", str(PRESET_DIR), "--questions",
+                str(root / "questions.json"), "--max-new-tokens",
+                str(NEW_TOKENS), "--out", str(root / out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lvv_tpu_torch.tools.infer_vqa",
+         *argv("answers.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"infer-cli exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    buf = io.StringIO()
+    with q8_scope_env("mlp"), ids_as_text(), contextlib.redirect_stdout(buf):
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        infer_vqa.main(argv("answers_in_process.json"))
+        main_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launches.items() if v}
+    torch.cuda.empty_cache()
+    with q8_scope_env("mlp"):
+        want = [direct_generate(torch, model, [r], 1, None)[0] for r in reqs]
+
+    def printed(text):
+        return [json.loads(ln) for ln in text.splitlines()
+                if ln.startswith("{")]
+    sub, mine = printed(proc.stdout), printed(buf.getvalue())
+    checks = {
+        "rows written": sub == json.loads(
+            (root / "answers.json").read_text()) and mine == json.loads(
+            (root / "answers_in_process.json").read_text()),
+        "questions": [r["question"] for r in sub] == [
+            r["question"] for r in mine] == list(QUESTIONS[:len(rows)]),
+        "in-process = greedy_generate": all(want) and [
+            r["answer"] for r in mine] == [" ".join(map(str, w))
+                                           for w in want],
+        "subprocess = its byte decode": [r["answer"] for r in sub] == [
+            tok.decode(w) for w in want]}
+    per_generate = expected_launches(model.cfg, serving=True,
+                                     prompt_len=ENGINE_PROMPT, packed=False)
+    checks["launches"] = counts == scaled(per_generate, len(rows))
+    if not all(checks.values()):
+        raise AssertionError(f"infer-cli: {checks}; subprocess rows {sub}, "
+                             f"in-process rows {mine}, launches {counts}")
+    return dict(checks=checks, rows=len(sub), subprocess_s=cli_s,
+                in_process_s=main_s, answer_tokens=[len(w) for w in want],
+                launches=per_generate, launches_total=counts)
+
+
 # kernels printed by device_busy wherever they rank: PyTorch's bf16 adds
 # (the residual adds that K-a's add form takes in) and K-a itself
 PROFILE_WATCH = re.compile(r"CUDAFunctor_add<c10::BFloat16>|norm_kernel")
@@ -1967,6 +2634,20 @@ def main() -> int:
                                       large_logits, f"float_{large}")
     emit(f"serving-path[{name}]", paths[name])
     del served
+    torch.cuda.empty_cache()
+    report, loader, preset = preset_checkpoint(torch)
+    emit("serving-checkpoint", report)
+    from lvv_tpu_torch import prepare_serving_params_fused
+    packed = prepare_serving_params_fused(preset)
+    for name, run in ((f"serving-engine[{ENGINE_BATCH}]", run_serving_engine),
+                      (f"continuous[{ENGINE_BATCH}]", run_continuous),
+                      ("serve-http", run_serve_http)):
+        paths[name] = run(torch, preset, loader.tokenizer, packed)
+        emit(name, paths[name])
+    paths["infer-cli"] = run_infer_cli(torch, preset, loader.tokenizer)
+    emit("infer-cli", paths["infer-cli"])
+    del preset, packed
+    shutil.rmtree(PRESET_DIR)
     print("phase-seconds", json.dumps(phase_s), flush=True)
     for name, e2e in paths.items():
         for key in ("logits_rel_l2_vs_plain", "step_logits_rel_l2_vs_plain"):
@@ -1975,7 +2656,9 @@ def main() -> int:
                 raise AssertionError(f"{name} path: {key} = {worst:.4f}")
 
     def at(res) -> str:
-        return (f"SAM {res}²" if isinstance(res, int)
+        if isinstance(res, int):
+            return f"SAM {res}²"
+        return (f"the serving preset, batch {res[1]}" if res[0] == "preset"
                 else f"SAM {res[0]}², batch {res[1]}")
     out = []
     for name, (route, source, replaces) in ROWS.items():
@@ -1985,9 +2668,11 @@ def main() -> int:
         by_path = {p: e["launches"].get(name, 0) for p, e in paths.items()}
         row = dict(
             name=name, route=route, source=source, replaces=replaces,
-            # per generate, as ms: a bench-stream dispatch runs G of them
+            # per generate (or bucket), as ms: a bench-stream dispatch runs
+            # G of them, the continuous engine's run is a total
             launches=max(k for p, k in by_path.items()
-                         if p != "bench-stream"),
+                         if p not in ("bench-stream",
+                                      f"continuous[{ENGINE_BATCH}]")),
             launches_by_path=by_path,
             max_abs_err=max(t["max_abs_err"] for t in by_res.values()),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -1,16 +1,24 @@
 """lvv_tpu_torch: the PyTorch / CUDA port of lvv_tpu for NVIDIA Hopper.
 
-The serving path of the VQA model (SAM-B -> CLIP-L -> projector -> adapter
--> VATVision, VATLiDAR, Qwen2.5-0.5B prefill and KV-cached greedy decode,
-with bench.py's serving levers: W8A8 SAM/CLIP MLPs under `quant8` and the
-int8 decode trees, and the rest of the JAX package's generate family with
-its uint8 preprocessing) in plain PyTorch, with the JAX package's Pallas
-kernels replaced by kernels written by hand for sm_90a (`kernels/`). Entry
-points run on the card unless given `device="cpu"`, where every kernel
-wrapper computes its plain PyTorch version.
+The VQA model (SAM-B -> CLIP-L -> projector -> adapter -> VATVision,
+VATLiDAR, Qwen2.5-0.5B prefill and KV-cached greedy decode, with bench.py's
+serving levers: W8A8 SAM/CLIP MLPs under `quant8` and the int8 decode
+trees, and the rest of the JAX package's generate family with its uint8
+preprocessing) in plain PyTorch, with the JAX package's Pallas kernels
+replaced by kernels written by hand for sm_90a (`kernels/`); its config
+files (`config.load`, `_base_` inheritance), weight converters
+(`convert`), tokenizers and collator (`data`), and serving runtime
+(`inference`): `ModelLoader` over a checkpoint directory,
+`InferenceEngine`, the dynamic-batching `ServingEngine`, the
+continuous-batching `ContinuousServingEngine`, and the CLIs
+`python -m lvv_tpu_torch.tools.infer_vqa` / `.serve_vqa`. Entry points run
+on the card unless given `device="cpu"`, where every kernel wrapper
+computes its plain PyTorch version.
 """
 from .config import VQAConfig, ModelConfig, default_config, tiny_config
 from .convert import from_jax_params
+from .inference import (ContinuousServingEngine, InferenceEngine,
+                        ModelLoader, ServingEngine)
 from .models.vqa import (VQAModel, encode_prefix_fn, generate_from_prefix,
                          greedy_generate, greedy_generate_multi,
                          pipelined_serving_step, prepare_serving_params,
@@ -22,4 +30,5 @@ __all__ = ["VQAConfig", "ModelConfig", "default_config", "tiny_config",
            "greedy_generate_multi", "encode_prefix_fn",
            "generate_from_prefix", "pipelined_serving_step",
            "sample_generate", "preprocess_views", "prepare_serving_params",
-           "prepare_serving_params_fused"]
+           "prepare_serving_params_fused", "ModelLoader", "InferenceEngine",
+           "ServingEngine", "ContinuousServingEngine"]

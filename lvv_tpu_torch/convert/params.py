@@ -7,6 +7,9 @@ layout except convolution kernels: flax HWIO (and the depthwise (k, k, 1, C)
 kernel) become torch OIHW. Dense kernels stay [in, out] and embedding
 tables [V, D]. A leaf with no port parameter, a shape that does not match,
 or a port parameter left unfilled raises.
+
+`merge` overlays a partial state_dict from one of the checkpoint converters
+(`convert_*_state`) onto a model's, with the same shape checks.
 """
 from __future__ import annotations
 
@@ -15,18 +18,49 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .config import ModelConfig
-from .models.layers import resolve_device
+from ..config import ModelConfig
+from ..models.layers import resolve_device
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Mapping, prefix: str = "",
+             sep: str = ".") -> Dict[str, np.ndarray]:
+    """Nested dicts -> {path joined with `sep`: numpy leaf}."""
     out = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
         if isinstance(v, Mapping):
-            out.update(_flatten(v, key + "."))
+            out.update(_flatten(v, key + sep, sep))
         else:
             out[key] = np.asarray(v)
+    return out
+
+
+def tensors(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested numpy dicts -> a flat {"a.b.c": tensor} state_dict (CPU),
+    each leaf copied."""
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in _flatten(tree).items()}
+
+
+def merge(state: Mapping[str, torch.Tensor],
+          converted: Mapping[str, torch.Tensor],
+          prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Overlay `converted` (keys relative to `prefix`, e.g.
+    "deepencoder.sam.") onto `state`: every converted key must name a
+    parameter of the same shape, and takes its dtype and device. Keys that
+    `converted` lacks keep their value (e.g. VARY net_2 / net_3 when loading
+    a raw SAM checkpoint)."""
+    out = dict(state)
+    for k, v in converted.items():
+        key = prefix + k
+        if key not in out:
+            raise KeyError(f"converted key {key!r} is not a model parameter")
+        if tuple(out[key].shape) != tuple(v.shape):
+            raise ValueError(f"shape mismatch at {key}: model "
+                             f"{tuple(out[key].shape)} vs checkpoint "
+                             f"{tuple(v.shape)}")
+        out[key] = torch.as_tensor(v).to(dtype=out[key].dtype,
+                                         device=out[key].device)
     return out
 
 
@@ -42,7 +76,7 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, *,
     """JAX VQAModel params -> the port's VQAModel state_dict, on `device`
     (the card unless told otherwise), in the arrays' own dtype
     (`load_state_dict` casts to the model's)."""
-    from .models.vqa import VQAModel
+    from ..models.vqa import VQAModel
     device = resolve_device(device)
     flat = _flatten(params)
     # the port model built on the meta device lists every parameter to fill

@@ -1,18 +1,23 @@
-"""CLIP ViT-L/14 vision transformer fed by SAM's patch bypass (counterpart
-of lvv_tpu/models/clip.py).
+"""CLIP ViT-L/14 vision transformer (counterpart of lvv_tpu/models/clip.py).
 
-SAM's [B, 1024, 16, 16] map becomes 256 tokens, the CLS token is prepended
+In the VQA stack it is fed by SAM's patch bypass: SAM's [B, 1024, 16, 16]
+map becomes 256 tokens. A tower built with `patcher=True` also takes
+`pixel_values` [B, 3, H, W] through its own patch conv (stride = patch,
+no bias), as the JAX module does when called on pixels; the VQA stack's
+tower has no patch conv, as the JAX tree has none. The CLS token is prepended
 and the (bicubically resampled) position table added, then 24 pre-LN layers
 (hidden 1024, 16 heads, FFN 4096, QuickGELU) give [B, 257, 1024]. The
 attention over 257 tokens stays on the plain path, as in the JAX package
 (`attention` sends kv < 1024 there); the MLP half runs the fused kernel
 with QuickGELU on the card: K-b, or K-f with `quant8`. LoRA adapters sit
-on the attention projections (Dense). Only the SAM bypass is ported: CLIP's
-own patch conv is not on the path.
+on the attention projections (Dense).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import q8_scope
@@ -68,12 +73,18 @@ class CLIPVisionTower(nn.Module):
                  hidden_size: int = 1024, num_layers: int = 24,
                  num_heads: int = 16, intermediate_size: int = 4096,
                  layer_norm_eps: float = 1e-5, lora_rank: int = 0,
-                 lora_alpha: float = 1.0, quant8: bool = False, *, dtype,
-                 device):
+                 lora_alpha: float = 1.0, quant8: bool = False,
+                 patcher: bool = False, *, dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.hidden_size = hidden_size
+        self.patch_size = patch_size
         self.num_layers = num_layers
+        if patcher:
+            self.patch_embed = nn.Module()
+            self.patch_embed.kernel = new_param(
+                (hidden_size, 3, patch_size, patch_size),
+                ("lecun", 3 * patch_size * patch_size), **kw)
         n_pos = (image_size // patch_size) ** 2 + 1
         self.cls_token = new_param((hidden_size,), ("normal", 0.02), **kw)
         self.pos_embed = new_param((n_pos, hidden_size), ("normal", 0.02),
@@ -84,8 +95,17 @@ class CLIPVisionTower(nn.Module):
                 hidden_size, num_heads, intermediate_size, layer_norm_eps,
                 lora_rank, lora_alpha, quant8, **kw))
 
-    def forward(self, patch_embeds):
-        """patch_embeds [B, hidden, Gh, Gw] -> [B, 1 + Gh·Gw, hidden]."""
+    def forward(self, patch_embeds: Optional[torch.Tensor] = None,
+                pixel_values: Optional[torch.Tensor] = None):
+        """patch_embeds [B, hidden, Gh, Gw] (SAM's bypass) or pixel_values
+        [B, 3, H, W] (the tower's own patcher) -> [B, 1 + Gh·Gw, hidden]."""
+        if patch_embeds is None:
+            if not hasattr(self, "patch_embed"):
+                raise ValueError("this CLIP tower has no patcher: build it "
+                                 "with patcher=True to feed pixel_values")
+            patch_embeds = F.conv2d(
+                pixel_values.to(self.patch_embed.kernel.dtype),
+                self.patch_embed.kernel, stride=self.patch_size)
         b, c, gh, gw = patch_embeds.shape
         if c != self.hidden_size:
             raise ValueError(f"CLIP bypass expects {self.hidden_size} "

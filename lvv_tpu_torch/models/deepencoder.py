@@ -73,7 +73,9 @@ def build_deepencoder(cfg, *, dtype, device, clip_lora_rank: int = 0,
         num_heads=c.num_heads, intermediate_size=c.intermediate_size,
         layer_norm_eps=c.layer_norm_eps, lora_rank=clip_lora_rank,
         lora_alpha=clip_lora_alpha, quant8=c.quant8, **kw)
-    projector = MlpProjector(c.hidden_size + s.vary_dims[-1],
-                             cfg.projector.kind, cfg.projector.n_embed, **kw)
+    pc = cfg.projector
+    projector = MlpProjector(c.hidden_size + s.vary_dims[-1], pc.kind,
+                             pc.n_embed, pc.depth, pc.mlp_ratio,
+                             pc.downsample_ratio, **kw)
     chunk = cfg.views_chunk or (1 if cfg.sequential_views else 0)
     return DeepEncoder(sam, clip, projector, views_chunk=chunk)

@@ -3,7 +3,9 @@ lvv_tpu/models/qwen.py).
 
 RMSNorm, SwiGLU, RoPE (theta 1e6, neox half split), q/k/v biases, GQA
 (14 query / 2 kv heads at 0.5B) and a tied unembedding whose table carries
-4 extra rows for the multimodal special tokens. The model takes
+4 extra rows for the multimodal special tokens (or, with
+`tie_word_embeddings=False`, an untied `lm_head` Dense over the same
+vocabulary). The model takes
 `inputs_embeds` so the VQA stack can splice its prefix in. Prefill runs the
 flash kernel (K-e, causal with kv_len) on the card; single-token decode
 attends over the cache on the plain path, as in the JAX package.
@@ -162,14 +164,12 @@ class QwenLayer(nn.Module):
 
 
 class QwenModel(nn.Module):
-    """Decoder stack over inputs_embeds -> logits (tied unembedding)."""
+    """Decoder stack over inputs_embeds -> logits."""
 
     def __init__(self, cfg: LLMConfig, lora_rank: int = 0,
                  lora_alpha: float = 1.0, extra_tokens: int = 0, *, dtype,
                  device):
         super().__init__()
-        if not cfg.tie_word_embeddings:
-            raise NotImplementedError("only tied word embeddings are ported")
         kw = dict(dtype=dtype, device=device)
         self.cfg = cfg
         self.embed_tokens = nn.Module()
@@ -180,13 +180,20 @@ class QwenModel(nn.Module):
             setattr(self, f"layer_{i}", QwenLayer(cfg, lora_rank, lora_alpha,
                                                   **kw))
         self.final_ln = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = Dense(cfg.hidden_size,
+                                 cfg.vocab_size + extra_tokens,
+                                 use_bias=False, **kw)
 
     def embed(self, input_ids):
         return self.embed_tokens.embedding[input_ids]
 
     def unembed(self, hidden, table_q=None):
         """Tied unembedding; with `table_q` ({"q": int8 [V, H], "s": f32
-        [V]}) through kernel K-k, the table read as stored."""
+        [V]}) through kernel K-k, the table read as stored. An untied model
+        runs its float lm_head and ignores `table_q`, as JAX does."""
+        if not self.cfg.tie_word_embeddings:
+            return self.lm_head(hidden)
         if table_q is not None:
             return quant.quantized_matmul_nk(hidden, table_q["q"],
                                              table_q["s"])

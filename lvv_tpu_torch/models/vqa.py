@@ -22,7 +22,7 @@ pack, through kernels K-j and K-k on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -35,6 +35,18 @@ from .vat import VATLiDAR, VATVision, VisionAdapter
 
 # special-token order matches config.LLMConfig.special_tokens
 VISION_START, VISION_END, LIDAR_START, LIDAR_END = range(4)
+
+
+class VQABatch(NamedTuple):
+    """One batch of tensors (made by `data.collate.Collator`)."""
+    bev: torch.Tensor          # [B, C, H, W] float
+    images: torch.Tensor       # [B, 6, 3, S, S] float in [-1, 1]
+    view_valid: torch.Tensor   # [B, 6] bool
+    text_ids: torch.Tensor     # [B, T] int32, prompt ++ answer, right-padded
+    text_len: torch.Tensor     # [B] int32
+    labels: torch.Tensor       # [B, T] int32, -100 outside the answer
+    use_vision: torch.Tensor   # [] bool modality toggles
+    use_lidar: torch.Tensor
 
 
 def sam_grid_side(cfg: ModelConfig) -> int:
@@ -188,12 +200,14 @@ def _cache_len(prefix_len: int, prompt_ids, max_new_tokens: int,
 
 def _generate(model: VQAModel, bev, images, view_valid, prompt_ids,
               prompt_len, *, cache_len: int, max_new_tokens: int,
-              eos_id: int, params_decode, pick=None):
+              eos_id: int, params_decode, pick=None, use_vision=True,
+              use_lidar=True):
     """Encode, prefill and decode one batch of device tensors."""
     cache = init_cache(model.cfg.llm, prompt_ids.shape[0], cache_len,
                        dtype=model.dtype, device=model.device)
     logits = model.prefill(bev, images, view_valid, prompt_ids.long(),
-                           prompt_len.to(torch.int32), cache)
+                           prompt_len.to(torch.int32), cache, use_vision,
+                           use_lidar)
     return _decode_loop(model, params_decode, logits, cache,
                         max_new_tokens=max_new_tokens, eos_id=eos_id,
                         pick=pick)
@@ -202,17 +216,21 @@ def _generate(model: VQAModel, bev, images, view_valid, prompt_ids,
 @torch.inference_mode()
 def greedy_generate(model: VQAModel, bev, images, view_valid, prompt_ids,
                     prompt_len, *, max_new_tokens: int, eos_id: int,
-                    max_cache: Optional[int] = None, params_decode=None):
+                    max_cache: Optional[int] = None, params_decode=None,
+                    use_vision=True, use_lidar=True):
     """Greedy answer generation on the model's device.
     Returns (tokens [B, N] int32, lengths [B] int32): a sequence stops at its
     first eos (later tokens are eos), and its length counts the tokens
     before it. `params_decode` (from prepare_serving_params or
-    prepare_serving_params_fused) swaps what the decode loop reads."""
+    prepare_serving_params_fused) swaps what the decode loop reads.
+    `use_vision` / `use_lidar` False zero that part of the prefix
+    (`encode_prefix`'s toggles)."""
     args = tuple(_on(model, bev, images, view_valid, prompt_ids, prompt_len))
     return _generate(model, *args, cache_len=_cache_len(
         _prefix_len(model.cfg), args[3], max_new_tokens, max_cache),
         max_new_tokens=max_new_tokens, eos_id=eos_id,
-        params_decode=params_decode)
+        params_decode=params_decode, use_vision=use_vision,
+        use_lidar=use_lidar)
 
 
 @torch.inference_mode()

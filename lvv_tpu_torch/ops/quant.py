@@ -315,7 +315,8 @@ def quantize_llm_params(llm) -> Dict:
     and MLP projection kernel, and the tied embedding table with per-row
     scales. The decode reads its weight matrices from this tree; biases,
     norms, LoRA and the embedding gather stay the module's (the JAX tree
-    carries copies of the same values)."""
+    carries copies of the same values). An untied lm_head stays float, and
+    the decode then reads it, not "unembed_q" (as JAX's tree does)."""
     out: Dict = {}
     for i in range(llm.cfg.num_layers):
         layer = getattr(llm, f"layer_{i}")

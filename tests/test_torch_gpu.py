@@ -15,6 +15,9 @@ at different points, one ulp each), as chip_smoke.py states. The W8A8 MLP
 (K-i); the int8 p@v arm (K-d8) allows one p8 step elementwise (chip_smoke
 states why).
 """
+import queue
+import threading
+
 import pytest
 import torch
 
@@ -998,3 +1001,105 @@ def test_serving_batch_with_ragged_prompts_against_plain_kernels(gen):
                 "step_logits_rel_l2_vs_plain_by_row"):
         assert len(report[key]) == 4
         assert max(report[key]) <= C.LOGITS_REL_TOL, report
+
+
+def _tiny_on_card(monkeypatch):
+    """The tiny model on the card in fp32 (TF32 off) and four requests of
+    129-token ByteTokenizer prompts (the engines' width)."""
+    import numpy as np
+    from lvv_tpu_torch import VQAModel, tiny_config
+    from lvv_tpu_torch.data import ByteTokenizer, pack_text
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = tiny_config().model
+    model = VQAModel(cfg, dtype=torch.float32, device="cuda", seed=4)
+    tok = ByteTokenizer(cfg.llm.special_tokens)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for q in ("what is ahead?", "any cyclists?", "is it raining?",
+              "how many lanes?"):
+        ids, _, n, _ = pack_text(tok, q, None, 128, 0)
+        reqs.append(dict(
+            bev=rng.standard_normal((32, 24, 24)).astype(np.float32),
+            images=rng.uniform(-1, 1, (6, 3, 64, 64)).astype(np.float32),
+            view_valid=np.ones(6, bool), text_ids=ids, text_len=n))
+    return model, tok, reqs
+
+
+class _HeldQueue(queue.Queue):
+    """A request queue that reads as empty until `release` is set: the
+    continuous engine's worker, which polls it, then admits everything
+    queued before at once, however the threads interleave."""
+
+    def __init__(self):
+        super().__init__()
+        self.release = threading.Event()
+
+    def empty(self):
+        return not self.release.is_set() or super().empty()
+
+
+def _padded_greedy(model, rows, n, eos, **kw):
+    import numpy as np
+    from lvv_tpu_torch import greedy_generate
+    rows = rows + [rows[0]] * (n - len(rows))
+    args = [torch.as_tensor(np.stack([r[k] for r in rows]), device="cuda")
+            for k in ("bev", "images", "view_valid", "text_ids")]
+    lens = torch.tensor([r["text_len"] for r in rows], device="cuda")
+    toks, out = greedy_generate(model, *args, lens, max_new_tokens=6,
+                                eos_id=eos, **kw)
+    return [toks[i, :out[i]].tolist() for i in range(len(rows))]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_serving_engines_on_card(gen, monkeypatch, packed):
+    """ServingEngine: three requests in one bucket of 4 answer as
+    greedy_generate on that padded batch; ContinuousServingEngine: a burst
+    of three answers as greedy_generate on the padded batch at the slab's
+    cache length; with the float decode and the packed int8 decode
+    (kernels K-j, K-k launched)."""
+    from lvv_tpu_torch import prepare_serving_params_fused
+    from lvv_tpu_torch.inference import (ContinuousServingEngine,
+                                         ServingEngine)
+    model, tok, reqs = _tiny_on_card(monkeypatch)
+    pd = prepare_serving_params_fused(model) if packed else None
+
+    with ServingEngine(model, tok, max_batch=4, max_wait_ms=2000,
+                       max_new_tokens=6, params_decode=pd) as eng:
+        futs = [eng.submit(r["bev"], r["images"], r["view_valid"],
+                           r["text_ids"], r["text_len"]) for r in reqs[:3]]
+        got = [f.result(timeout=300)[0] for f in futs]
+        assert eng.stats()["batch_sizes"] == [3]
+    assert got == _padded_greedy(model, reqs[:3], 4, tok.eos_id,
+                                 params_decode=pd)[:3]
+    before = dict(kernels.launches)
+    with ContinuousServingEngine(model, tok, slots=4, chunk_steps=2,
+                                 max_new_tokens=6, params_decode=pd) as eng:
+        eng._queue = held = _HeldQueue()
+        futs = [eng.submit(r["bev"], r["images"], r["view_valid"],
+                           r["text_ids"], r["text_len"]) for r in reqs[:3]]
+        held.release.set()
+        got = [f.result(timeout=300)[0] for f in futs]
+        max_cache = eng.max_cache(reqs[0]["text_ids"].shape[0])
+        assert eng.stats()["admission_batches"] == 1
+    assert got == _padded_greedy(model, reqs[:3], 4, tok.eos_id,
+                                 params_decode=pd, max_cache=max_cache)[:3]
+    assert (kernels.launches["int8_matmul"] > before.get("int8_matmul", 0)
+            ) == packed
+
+
+def test_model_loader_round_trip_on_card(gen, monkeypatch, tmp_path):
+    """save_checkpoint, then ModelLoader.load_all() with no device: the
+    model comes back on the card, every tensor bit-equal."""
+    from lvv_tpu_torch import config as C
+    from lvv_tpu_torch.inference import ModelLoader, save_checkpoint
+    model, _, _ = _tiny_on_card(monkeypatch)
+    cfg = C.override(C.tiny_config(), "model.dtype", "float32")
+    for path in ("model.llm_lora.enabled", "model.clip_lora.enabled"):
+        cfg = C.override(cfg, path, False)
+    save_checkpoint(model, cfg, tmp_path)
+    again, _ = ModelLoader(tmp_path).load_all()
+    assert again.device.type == "cuda"
+    want = model.state_dict()
+    for k, v in again.state_dict().items():
+        assert torch.equal(v, want[k]), k

@@ -263,9 +263,10 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke, loads nothing of
-    jax, flax or lvv_tpu (the CPU box has no triton: norm_triton imports
-    it only at launch)."""
+    """Importing every module of the port (its `tools` CLIs included), and
+    chip_smoke, loads nothing of jax, flax or lvv_tpu; modules that need
+    PIL or transformers import them only inside the functions that use
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "class Block:\n"
