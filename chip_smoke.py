@@ -97,11 +97,29 @@
    give empty byte strings). The kernels of these phases are checked at
    the preset's shapes in 2 (VATVision's and VATLiDAR's 384 queries, the
    901-token prefill, buckets of 1, 4 and 8 frames).
+8. Trains at full width: default_config() in bf16 with fp32 masters,
+   TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
+   ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
+   sequence, one row shorter). "train-step": step 1's loss and each
+   optimizer group's gradient against the same step with every kernel
+   swapped for its plain version (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and
+   against a trap (the LoRA scaling dropped) that the bound has to fail;
+   one step to warm up, after which every trainable tensor's gradient is
+   non-zero; TRAIN_STEPS timed steps (launches of one counted and equal to
+   the forward's: the backward recomputes in plain PyTorch, as the JAX
+   package's VJPs do), s/step, answer tokens/s, peak memory, one profiled
+   step's device busy and idle; the frozen weights bit-equal afterwards.
+   "trainer": Trainer.train() for one epoch over 16 synthetic QA rows on 8
+   BEV .npy files under build/ (3 steps, a validation batch, 2 inference
+   samples), its checkpoints, and a second Trainer that resumes bit-equal;
+   the checkpoint's bytes and the save / load times. The kernels of the
+   step are also checked at its shapes in 2 (the LLM's causal attention
+   with a ragged row, its add + RMS norms, CLIP's MLP over 24 views).
 
-Prints the per-kernel JSON line (`launches`: the most of one generate in
-any driven path, the run that `ms` times; each path's own, bench-stream's
-dispatch of G generates and the continuous engine's totals included, in
-`launches_by_path`), then the card
+Prints the per-kernel JSON line (`launches`: the most of one generate or
+train step in any driven path, the run that `ms` times; each path's own,
+bench-stream's dispatch of G generates and the continuous engine's and the
+trainer's totals included, in `launches_by_path`), then the card
 line, then as its last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no result
 line). TF32 is off for matmuls and convolutions (both paths compute in the
@@ -113,6 +131,7 @@ import collections
 import contextlib
 import functools
 import json
+import math
 import os
 import pathlib
 import re
@@ -166,6 +185,9 @@ SCOPES = ("mlp,dense,attn", "mlp,dense,qk")
 # the 1280² paths: the float path, and the serving model under this scope
 LARGE, LARGE_SCOPE = 1280, "mlp,dense,attn"
 NEW_TOKENS, PROMPT_LEN, EOS_ID = 32, 24, 2
+# a train step: TrainConfig's batch and its text block, 128 prompt tokens,
+# 96 answer tokens and eos
+TRAIN_BATCH, TRAIN_TEXT = 4, 128 + 96 + 1
 # (views or windows, grid side, heads, head dim) of the JAX package's A/B
 # benchmarks of K-l (benchmarks/winattn_*_micro.py: SAM-B's 150 windows of
 # 14x14 at 1024²) and K-m (benchmarks/gattn_prep_micro.py: 6 views of 64x64)
@@ -1175,6 +1197,23 @@ def kernel_cases(torch):
         if dict(got) != want:
             raise AssertionError(f"the preset's cases at batch {n} launch "
                                  f"{dict(got)}, its path {want}")
+    # a train step at batch TRAIN_BATCH (default_config(), TrainConfig's 128
+    # prompt and 96 answer tokens: a 1,765-token sequence, one row cut
+    # short): the LLM forward's causal attention and its add + RMS norms, and
+    # CLIP's MLP over 6 views a row (its other shapes are the 1024² path's
+    # at 4x the rows); launches per step
+    t_seq = _prefix_len(config(1024, False)) + TRAIN_TEXT
+    train = [
+        ("flash_attention",
+         f"train causal {TRAIN_BATCH}x{t_seq} 14/2h d64 ragged", 24,
+         flash_case(t_seq, t_seq, 14, 2, 64, True, b=TRAIN_BATCH,
+                    short=(TRAIN_BATCH - 1, t_seq - 65))),
+        ("norm[add]", f"train add + RMS [{TRAIN_BATCH * t_seq},896]", adds,
+         add_norm_case(TRAIN_BATCH * t_seq, 896)),
+        ("ln_mlp_residual",
+         f"train CLIP [{TRAIN_BATCH * 6 * 257},1024]x[1024,4096] quick_gelu",
+         24, mlp_case(TRAIN_BATCH * 6 * 257, 1024, 4096, "quick_gelu")),
+    ]
     # the 1024² list: every shape of its four batch-1 paths
     return [c + (1024,) for c in [
         ("norm", "LN SAM [24576,768]", 12, norm_case(24576, 768, False)),
@@ -1234,7 +1273,8 @@ def kernel_cases(torch):
     ]] + [c + ((1024, n),) for c in batch] + [
         c + (LARGE,) for c in large] + [
         c + (("preset", b),) for b, cases in by_preset.items()
-        for c in cases] + [c + (None,) for c in unused]
+        for c in cases] + [c + (("train", TRAIN_BATCH),) for c in train] + [
+        c + (None,) for c in unused]
 
 
 ROWS = {
@@ -1472,10 +1512,12 @@ def global_kind(cfg, names) -> str:
 
 def expected_launches(cfg, serving: bool = False, scope: str = "mlp",
                       prompt_len: int = PROMPT_LEN,
-                      packed: bool = None) -> dict:
+                      packed: bool = None, new_tokens: int = None) -> dict:
     """Kernel launches of one greedy_generate at batch 1, from the model's
     structure (every norm width there is a multiple of 128), for prompts
-    `prompt_len` wide. The serving path runs the W8A8 MLP in place of the
+    `prompt_len` wide and `new_tokens` decode steps (NEW_TOKENS; 0: the
+    forward of a train step over a text block `prompt_len` wide, whose
+    backward launches no kernel). The serving path runs the W8A8 MLP in place of the
     bf16 one and (unless `packed` is False) the packed int8 decode: 4 int8
     products a layer and one int8 unembed a step. Its other SAM scopes add
     the W8A8 qkv / proj projections ("dense", 2 a block) and change the
@@ -1485,6 +1527,7 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp",
     s, c, vv, vl, llm = (cfg.sam, cfg.clip, cfg.vat_vision, cfg.vat_lidar,
                          cfg.llm)
     packed = serving if packed is None else packed
+    steps = NEW_TOKENS if new_tokens is None else new_tokens
     n_global = len(s.global_attn_indexes)
     encode = (s.depth + 2                       # ln1 per block + neck LNs
               + 1 + c.num_layers                # pre_ln + ln1 per layer
@@ -1505,9 +1548,9 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp",
                (vl.n_blocks, cfg.bev_hw[0] * cfg.bev_hw[1]),
                (llm.num_layers, _prefix_len(cfg) + prompt_len))
     want = collections.Counter({
-        "norm": encode + per_llm_pass * (1 + NEW_TOKENS),
+        "norm": encode + per_llm_pass * (1 + steps),
         # every Qwen norm but the first layer's input norm follows an add
-        "norm[add]": (per_llm_pass - 1) * (1 + NEW_TOKENS),
+        "norm[add]": (per_llm_pass - 1) * (1 + steps),
         "flash_attention": sum(n for n, kv in kv_lens if kv >= 1024),
         f"relpos_attention[{s.window_size}x{s.window_size}]":
             s.depth - n_global})
@@ -1518,9 +1561,9 @@ def expected_launches(cfg, serving: bool = False, scope: str = "mlp",
         want["ln_mlp_residual_q8"] = s.depth + c.num_layers
         if "dense" in names:
             want["w8a8_matmul"] = 2 * s.depth
-    if packed:
-        want["int8_matmul"] = 4 * llm.num_layers * NEW_TOKENS
-        want["int8_matmul_nk"] = NEW_TOKENS
+    if packed and steps:
+        want["int8_matmul"] = 4 * llm.num_layers * steps
+        want["int8_matmul_nk"] = steps
     return dict(want)
 
 
@@ -2502,6 +2545,350 @@ def run_infer_cli(torch, model, tok) -> dict:
 
 # kernels printed by device_busy wherever they rank: PyTorch's bf16 adds
 # (the residual adds that K-a's add form takes in) and K-a itself
+# ---------------------------------------------------------------- training --
+
+TRAIN_DIR = REPO / "build" / "train_smoke"
+# A train step with the kernels against the same step with every kernel
+# swapped for its plain version, on the same weights and batch: the loss
+# within TRAIN_LOSS_TOL relative, each optimizer group's gradient (all its
+# tensors as one vector) within TRAIN_GRAD_TOL relative L2. The two
+# forwards differ by bf16 rounding at different points through ~70 layers
+# (the generate paths' logits sit ~1.5% apart, LOGITS_REL_TOL 5%); the
+# plain side differentiates its norms and MLPs natively and its attention
+# through the same recompute (plain_training). The trap, the plain step
+# with every LoRA branch's alpha / r dropped (1 in place of 2), halves the
+# LoRA B gradients and has to fail the group bound.
+TRAIN_LOSS_TOL = 0.01
+TRAIN_GRAD_TOL = 0.05
+TRAIN_STEPS = 3
+
+
+def train_config(**train):
+    """default_config() with TrainConfig's batch 4, 128 prompt and 96
+    answer tokens; `train` overrides train.* fields."""
+    from lvv_tpu_torch import config as C
+    cfg = C.default_config()
+    for key, value in train.items():
+        cfg = C.override(cfg, f"train.{key}", value)
+    return cfg
+
+
+def train_batch(torch, cfg):
+    """TRAIN_BATCH rows on the card: six 1024² views in [-1, 1], all valid,
+    a BEV grid [128, 180, 180] (seeded normal), ByteTokenizer text packed as
+    the collator packs it: a question cut to the 128 prompt tokens and an
+    answer to the 96 answer tokens and eos (a 225-token text block), the
+    last row's answer shorter (a ragged kv_len)."""
+    import numpy as np
+    from lvv_tpu_torch.data import ByteTokenizer, pack_text
+    from lvv_tpu_torch.models.vqa import VQABatch
+    t, m = cfg.train, cfg.model
+    tok = ByteTokenizer(m.llm.special_tokens)
+    rows = []
+    for i in range(TRAIN_BATCH):
+        question = (f"What stands at the front right of the ego car in scene "
+                    f"{i}, and how far away is it? ") * 3
+        answer = (f"A white truck parked {i + 9} m ahead at [1.5, 2.0, 0.0, "
+                  f"4.2, 1.9, 1.6, 0.3], beside a barrier. ")
+        rows.append(pack_text(tok, question, answer * (
+            3 if i < TRAIN_BATCH - 1 else 1), t.max_prompt_tokens,
+            t.max_answer_tokens))
+    ids, labels, lens, _ = (np.stack(x) for x in zip(*rows))
+    rng = np.random.default_rng(11)
+    s, b = m.sam.img_size, TRAIN_BATCH
+    batch = VQABatch(
+        bev=rng.standard_normal((b, m.bev_channels, *m.bev_hw),
+                                dtype=np.float32),
+        images=rng.uniform(-1, 1, (b, 6, 3, s, s)).astype(np.float32),
+        view_valid=np.ones((b, 6), bool), text_ids=ids, text_len=lens,
+        labels=labels, use_vision=np.asarray(True),
+        use_lidar=np.asarray(True))
+    return batch.to("cuda")
+
+
+def group_grads(torch, model, labels, batch) -> tuple:
+    """One forward / backward of the model's loss on `batch`, no update ->
+    (loss, {group: every gradient of the group in one fp32 vector},
+    {tensor name: whether its gradient has a non-zero element})."""
+    params = dict(model.named_parameters())
+    loss, _, _ = model(batch)
+    loss.backward()
+    flat, nonzero = {}, {}
+    for name, group in labels.items():
+        if group == "frozen":
+            continue
+        g = params[name].grad
+        params[name].grad = None
+        g = (torch.zeros(params[name].numel(), device="cuda") if g is None
+             else g.float().flatten())
+        flat.setdefault(group, []).append(g)
+        nonzero[name] = bool(g.any())
+    return float(loss.detach()), {k: torch.cat(v) for k, v in flat.items()}, nonzero
+
+
+@contextlib.contextmanager
+def plain_training(lora_scaling=None):
+    """plain_kernels() for a train step: every kernel swapped for its plain
+    version; the norms and the fused MLPs then differentiate natively
+    (autograd through the plain versions), the flash attention through
+    FlashAttentionFn around its plain forward (native autograd would keep
+    every layer's fp32 [B, H, Sq, Sk] scores: ~100 GB at batch 4).
+    `lora_scaling`: the trap's value for every LoRA branch's alpha / r."""
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.models import layers
+    from lvv_tpu_torch.ops import attention as A
+    from lvv_tpu_torch.ops import fused_mlp as M
+    from lvv_tpu_torch.ops.autograd import FlashAttentionFn
+
+    def flash(q, k, v, *, causal=False, kv_len=None, scale=None):
+        if kernels.wants_grad(q, k, v):
+            return FlashAttentionFn.apply(q, k, v, causal, kv_len, scale)
+        return A.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                       scale=scale)
+    with plain_kernels():
+        saved = (layers.norm_fast, layers.add_norm_fast, A.flash_attention,
+                 layers.Dense.forward)
+        layers.norm_fast = M.norm_plain
+        layers.add_norm_fast = M.add_norm_plain
+        A.flash_attention = flash
+        if lora_scaling is not None:
+            def forward(self, x, kernel=None):
+                if self.lora_rank:
+                    self.scaling, keep = lora_scaling, self.scaling
+                    try:
+                        return saved[3](self, x, kernel)
+                    finally:
+                        self.scaling = keep
+                return saved[3](self, x, kernel)
+            layers.Dense.forward = forward
+        try:
+            yield
+        finally:
+            (layers.norm_fast, layers.add_norm_fast, A.flash_attention,
+             layers.Dense.forward) = saved
+
+
+def grads_against_plain(torch, model, labels, batch) -> dict:
+    """Step 1's loss and group gradients: the kernels against the plain
+    versions (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and against the trap."""
+    loss, fast, _ = group_grads(torch, model, labels, batch)
+    with plain_training():
+        plain_loss, slow, _ = group_grads(torch, model, labels, batch)
+    scaling = {m.scaling for m in model.modules()
+               if getattr(m, "lora_rank", 0)}
+    with plain_training(lora_scaling=1.0):
+        trap_loss, trap, _ = group_grads(torch, model, labels, batch)
+    out = dict(loss=loss, plain_loss=plain_loss, trap_loss=trap_loss,
+               loss_rel_vs_plain=abs(loss - plain_loss) / abs(plain_loss),
+               lora_scalings=sorted(scaling),
+               grad_rel_l2_vs_plain={g: rel_l2(fast[g], slow[g])
+                                     for g in slow},
+               trap_grad_rel_l2={g: rel_l2(trap[g], slow[g]) for g in slow},
+               grad_norm_by_group={g: float(v.norm()) for g, v in
+                                   fast.items()},
+               tol=dict(loss_rel=TRAIN_LOSS_TOL, group_rel_l2=TRAIN_GRAD_TOL))
+    if not all(map(math.isfinite, (loss, plain_loss))):
+        raise AssertionError(f"train-step: non-finite loss {out}")
+    if out["loss_rel_vs_plain"] > TRAIN_LOSS_TOL or any(
+            v > TRAIN_GRAD_TOL for v in out["grad_rel_l2_vs_plain"].values()):
+        raise AssertionError(f"train-step: kernels vs plain versions {out}")
+    if all(v <= TRAIN_GRAD_TOL for v in out["trap_grad_rel_l2"].values()):
+        raise AssertionError(f"train-step: the tolerance passes the trap "
+                             f"{out['trap_grad_rel_l2']}")
+    return out
+
+
+def run_train_step(torch) -> dict:
+    """train-step: make_train_step on default_config() at full width
+    (LoRA 16 on the LLM, 8 on CLIP, bf16 working weights, fp32 masters),
+    batch 4. Step 1's gradients against the plain versions, then the step
+    run once to warm up, every trainable tensor's gradient non-zero after
+    that update, TRAIN_STEPS timed steps (launches per step against the
+    model's), one profiled step, and the frozen weights bit-equal to their
+    values before the steps."""
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.models.vqa import _prefix_len
+    from lvv_tpu_torch.train import (build_model, create_state,
+                                     make_optimizer, make_train_step)
+    cfg = train_config()
+    model = build_model(cfg, "cuda")
+    # the schedule of a 1,000-step run: step 1 is in its 30-step warmup
+    tx, labels = make_optimizer(cfg.train.optim, model, 1000)
+    state = create_state(model, tx,
+                         torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, tx)
+    batch = train_batch(torch, cfg)
+    params = dict(model.named_parameters())
+    frozen = {n: params[n].detach().clone() for n, g in labels.items()
+              if g == "frozen"}
+    report = grads_against_plain(torch, model, labels, batch)
+
+    def one_step():
+        out = step(state, batch)[1]
+        torch.cuda.synchronize()
+        return out
+    t0 = time.perf_counter()
+    first = one_step()
+    report["first_step_s"] = time.perf_counter() - t0
+    _, _, nonzero = group_grads(torch, model, labels, batch)
+    zero = sorted(n for n, ok in nonzero.items() if not ok)
+    if zero:
+        raise AssertionError(f"train-step: zero gradients after an update: "
+                             f"{zero[:10]} ({len(zero)})")
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], [first]
+    kernels.launches.clear()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(one_step())
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = {k: v for k, v in kernels.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg.model, prompt_len=batch.text_ids.shape[1],
+                             new_tokens=0)
+    if counts != want:
+        raise AssertionError(f"train-step launches {counts} != {want}")
+    device = device_busy(torch, one_step)
+    changed = [n for n, t in frozen.items() if not torch.equal(params[n], t)]
+    if changed:
+        raise AssertionError(f"train-step: frozen weights changed: "
+                             f"{changed[:10]}")
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train-step: losses {losses}")
+    tokens = float(metrics[-1]["tokens"])
+    p50 = sorted(times)[len(times) // 2]
+    report.update(
+        batch=TRAIN_BATCH,
+        seq_len=_prefix_len(cfg.model) + int(batch.text_ids.shape[1]),
+        text_len=batch.text_len.tolist(),
+        trainable_tensors=len(nonzero), frozen_tensors=len(frozen),
+        trainable_params=sum(t.numel() for t in state.masters.values()),
+        losses=losses, grad_norms=[float(m["grad_norm"]) for m in metrics],
+        answer_tokens_per_step=tokens, times_s=times, s_per_step_p50=p50,
+        answer_tokens_per_s=tokens / p50, peak_mem_gib=peak / 2 ** 30,
+        **device, device_idle_share=1 - device["device_busy_s"] / p50,
+        frozen_bit_equal=True, every_trainable_grad_nonzero=True,
+        launches=counts)
+    del model, state, step, batch, frozen, params
+    torch.cuda.empty_cache()
+    return report
+
+
+def write_train_rows(root: pathlib.Path, cfg):
+    """The fixture of tests/test_train_loop.py at full width under `root`:
+    8 BEV grids [128, 180, 180] as float16 .npy (seeded normal), a caption
+    and a det_area grounding QA row for each; returns cfg pointed at them
+    (no nuScenes root: the views are missing, so zero-filled and invalid)."""
+    import numpy as np
+    from lvv_tpu_torch import config as C
+    bev_dir = root / "bev"
+    bev_dir.mkdir(parents=True)
+    c, (h, w) = cfg.model.bev_channels, cfg.model.bev_hw
+    rng = np.random.default_rng(0)
+    cap, grd = [], []
+    for i in range(8):
+        tok = f"tok{i:02d}"
+        np.save(bev_dir / f"{tok}.npy",
+                rng.standard_normal((c, h, w), dtype=np.float32).astype(
+                    np.float16))
+        cap.append({"sample_token": tok, "question": f"What is in scene {i}?",
+                    "answer": f"A car number {i}."})
+        grd.append({"sample_token": tok, "question": "Where is the car?",
+                    "answer_lidar": "[1, 2, 0, 4, 2, 1.5, 0.1]",
+                    "template_type": "det_area"})
+    (root / "cap.json").write_text(json.dumps(cap))
+    (root / "grd.json").write_text(json.dumps(grd))
+    for path, value in (("data.bev_features_dir", str(bev_dir)),
+                        ("data.caption_json", str(root / "cap.json")),
+                        ("data.grounding_json", str(root / "grd.json")),
+                        ("data.nuscenes_root", ""),
+                        ("data.val_fraction", 0.25)):
+        cfg = C.override(cfg, path, value)
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_calls(cls, name: str, into: list):
+    """Append the wall time (ending in a synchronise) of every call of
+    cls.name while the block runs."""
+    import torch
+    orig = getattr(cls, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+    setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def run_trainer(torch) -> dict:
+    """trainer: Trainer.train() on default_config() at full width over
+    write_train_rows' 16 QA rows (12 train, 4 held out: 3 steps of 4, a
+    validation batch, 2 inference samples of up to 96 tokens), one epoch,
+    its best and latest checkpoints under build/; then a second Trainer on
+    the same config resumes from `latest`: its step, masters and working
+    weights bit-equal to the first's. Reports the checkpoint's bytes and
+    the save / load times, and the run's launches."""
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.train import CheckpointManager, Trainer
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    cfg = train_config(epochs=1, inference_samples=2, log_every=1,
+                       output_dir=str(TRAIN_DIR / "run"))
+    cfg = write_train_rows(TRAIN_DIR, cfg)
+    saves, loads = [], []
+    with timed_calls(CheckpointManager, "save", saves), \
+            timed_calls(CheckpointManager, "restore", loads):
+        t0 = time.perf_counter()
+        first = Trainer(cfg)
+        build_s = time.perf_counter() - t0
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        result = first.train()
+        train_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        t0 = time.perf_counter()
+        second = Trainer(cfg)
+        resume_s = time.perf_counter() - t0
+    if second.start_step != result["steps"] or not loads:
+        raise AssertionError(f"trainer: resumed at {second.start_step}, "
+                             f"trained {result['steps']} steps")
+    got = dict(second.model.named_parameters())
+    for name, t in first.model.named_parameters():
+        if not torch.equal(got[name], t):
+            raise AssertionError(f"trainer: {name} differs after resume")
+    for name, t in first.state.masters.items():
+        if not torch.equal(second.state.masters[name], t):
+            raise AssertionError(f"trainer: master {name} differs")
+    for name in ("norm", "ln_mlp_residual", "flash_attention",
+                 "relpos_attention[14x14]", "relpos_attention[64x64]"):
+        if not counts.get(name):
+            raise AssertionError(f"trainer: {name} never launched")
+    hist = result["history"][0]
+    latest = TRAIN_DIR / "run" / "checkpoints" / "latest"
+    report = dict(
+        steps=result["steps"], train_loss=hist["train_loss"],
+        val_loss=hist["val_loss"], epoch_s=hist["epoch_seconds"],
+        inference=hist["inference"], trainer_build_s=build_s,
+        train_s=train_s, resume_trainer_s=resume_s, saves_s=saves,
+        load_s=loads[0], checkpoint_bytes=sum(
+            f.stat().st_size for f in latest.rglob("*") if f.is_file()),
+        checkpoints=sorted(p.name for p in latest.parent.iterdir()),
+        history_written=(TRAIN_DIR / "run" / "history.json").exists(),
+        resumed_at=second.start_step, launches=counts)
+    del first, second
+    shutil.rmtree(TRAIN_DIR)
+    torch.cuda.empty_cache()
+    return report
+
+
 PROFILE_WATCH = re.compile(r"CUDAFunctor_add<c10::BFloat16>|norm_kernel")
 
 
@@ -2648,6 +3035,11 @@ def main() -> int:
     emit("infer-cli", paths["infer-cli"])
     del preset, packed
     shutil.rmtree(PRESET_DIR)
+    torch.cuda.empty_cache()
+    for name, run in (("train-step", run_train_step),
+                      ("trainer", run_trainer)):
+        paths[name] = run(torch)
+        emit(name, paths[name])
     print("phase-seconds", json.dumps(phase_s), flush=True)
     for name, e2e in paths.items():
         for key in ("logits_rel_l2_vs_plain", "step_logits_rel_l2_vs_plain"):
@@ -2658,6 +3050,9 @@ def main() -> int:
     def at(res) -> str:
         if isinstance(res, int):
             return f"SAM {res}²"
+        if res[0] == "train":
+            return (f"a train step at batch {res[1]} (its causal attention, "
+                    "add + RMS and CLIP MLP shapes only)")
         return (f"the serving preset, batch {res[1]}" if res[0] == "preset"
                 else f"SAM {res[0]}², batch {res[1]}")
     out = []
@@ -2668,10 +3063,11 @@ def main() -> int:
         by_path = {p: e["launches"].get(name, 0) for p, e in paths.items()}
         row = dict(
             name=name, route=route, source=source, replaces=replaces,
-            # per generate (or bucket), as ms: a bench-stream dispatch runs
-            # G of them, the continuous engine's run is a total
+            # per generate (or bucket, or train step), as ms: a
+            # bench-stream dispatch runs G of them, the continuous engine's
+            # and the trainer's runs are totals
             launches=max(k for p, k in by_path.items()
-                         if p not in ("bench-stream",
+                         if p not in ("bench-stream", "trainer",
                                       f"continuous[{ENGINE_BATCH}]")),
             launches_by_path=by_path,
             max_abs_err=max(t["max_abs_err"] for t in by_res.values()),

@@ -11,9 +11,13 @@ files (`config.load`, `_base_` inheritance), weight converters
 (`inference`): `ModelLoader` over a checkpoint directory,
 `InferenceEngine`, the dynamic-batching `ServingEngine`, the
 continuous-batching `ContinuousServingEngine`, and the CLIs
-`python -m lvv_tpu_torch.tools.infer_vqa` / `.serve_vqa`. Entry points run
-on the card unless given `device="cpu"`, where every kernel wrapper
-computes its plain PyTorch version.
+`python -m lvv_tpu_torch.tools.infer_vqa` / `.serve_vqa`; and VQA training
+on one card (`train`: the five-group AdamW, the train step with fp32
+masters, checkpoints, the `Trainer`, `python -m
+lvv_tpu_torch.tools.train_vqa`), differentiating through the kernels by
+their autograd Functions (`ops.autograd`). Entry points run on the card
+unless given `device="cpu"`, where every kernel wrapper computes its plain
+PyTorch version.
 """
 from .config import VQAConfig, ModelConfig, default_config, tiny_config
 from .convert import from_jax_params

@@ -1,8 +1,9 @@
 """Config schema of the port: the JAX package's sections and fields with
 their defaults (counterpart of lvv_tpu/config/schema.py), so that one
-config file drives both stacks. The port runs the model sections; it reads
-and keeps the others (`train`, `data`, `mesh`, `voxelize`,
-`model.voxelnext`, `model.remat`, `debug_level`) without acting on them.
+config file drives both stacks. The port runs the model sections and
+`train`, `data` and `model.remat` (its Trainer); `mesh` beyond one device
+raises there; it reads and keeps the others (`voxelize`, `model.voxelnext`,
+`debug_level`) without acting on them.
 """
 from __future__ import annotations
 
@@ -250,7 +251,9 @@ class ModelConfig:
     bev_channels: int = 128       # reference trainer.py:197-199
     bev_hw: Tuple[int, int] = (180, 180)
     dtype: str = "bfloat16"       # the port's compute and weight dtype
-    # gradient checkpointing in training (read, not used, by the port)
+    # gradient checkpointing in training: each LLM layer recomputed in the
+    # backward (JAX also rematerialises SAM's blocks, which keep no
+    # activations in the port: its frozen trunk runs under no_grad)
     remat: bool = False
 
 

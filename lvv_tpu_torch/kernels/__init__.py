@@ -9,6 +9,13 @@ rebuilt when its sources change (the file name carries a hash of them).
 `launches` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that it went
 through the kernels.
+
+A launch through ctypes is opaque to autograd: its output would be a leaf,
+and the graph cut without a word. K-a, K-b, K-e and K-f have autograd
+Functions (`ops/autograd.py`), which their wrappers take where
+`wants_grad` holds; every launch calls `refuse_grad` on its inputs, so a
+kernel without one (as in the JAX package, which has no VJP for them)
+raises instead.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lvv_tpu_torch"
@@ -122,6 +131,24 @@ def lib(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[name] = handle
         return _libs[name]
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these tensors (None skipped):
+    grad mode on and one of them requiring a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise before a launch of `name` whose inputs autograd would have to
+    differentiate: the kernel has no backward, and its output would cut the
+    graph."""
+    if wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward (nor has the JAX package's "
+            "Pallas kernel); run it under torch.no_grad() or on inputs that "
+            "need no gradient")
 
 
 def check(err: int, name: str) -> None:

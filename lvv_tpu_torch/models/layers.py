@@ -6,9 +6,12 @@ Conventions:
   and the port's state_dict share their keys (`convert.from_jax_params`);
 - a Dense kernel keeps the JAX layout [in, out] (y = x @ kernel);
 - parameters are random from a seed, drawn as flax's initialisers draw them
-  (`init_parameters`); this slice is inference only, so no parameter
-  requires a gradient;
-- norms and attention go through `ops` (the hand-written kernels on the card).
+  (`init_parameters`), and made with requires_grad False: training marks
+  its trainable ones (`set_trainable`, from `train.optim.group_labels`);
+- norms and attention go through `ops` (the hand-written kernels on the
+  card, with their autograd Functions where a gradient is needed);
+- dropout (`dropout`) draws its mask from an explicit torch.Generator and
+  runs only with `deterministic=False`, as flax's nn.Dropout.
 """
 from __future__ import annotations
 
@@ -75,6 +78,26 @@ def init_parameters(module: nn.Module, seed: int) -> None:
                 nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                       generator=gen)
             p.copy_(t)
+
+
+def set_trainable(module: nn.Module, names) -> None:
+    """requires_grad True for the parameters named in `names` (state_dict
+    names), False for every other one."""
+    names = set(names)
+    for name, p in module.named_parameters():
+        p.requires_grad_(name in names)
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's nn.Dropout: with deterministic False and rate > 0, each
+    element kept with probability 1 - rate (a uniform draw from
+    `generator`, on x's device) and scaled by 1 / (1 - rate); else x."""
+    if deterministic or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def quick_gelu(x):
@@ -181,18 +204,21 @@ class Dense(nn.Module):
 
 
 class MLP(nn.Module):
-    """fc1 -> act (exact erf GELU by default) -> fc2."""
+    """fc1 -> act (exact erf GELU by default) -> fc2 -> dropout."""
 
     def __init__(self, dim: int, hidden: int, act=F.gelu,
-                 out: Optional[int] = None, *, dtype, device):
+                 out: Optional[int] = None, dropout: float = 0.0, *, dtype,
+                 device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.fc1 = Dense(dim, hidden, **kw)
         self.fc2 = Dense(hidden, dim if out is None else out, **kw)
         self.act = act
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x, deterministic: bool = True, generator=None):
+        return dropout(self.fc2(self.act(self.fc1(x))), self.dropout,
+                       deterministic, generator)
 
 
 class MultiHeadAttention(nn.Module):

@@ -23,6 +23,12 @@ while norms, biases, LoRA and the embedding gather stay the module's.
 The KV cache is updated in place (prefill writes rows [0, S), each decode
 step writes row `length` of every sequence); the JAX package returns a new
 cache instead.
+
+Training runs `forward` over the whole sequence with `seq_len` and no
+cache, building an autograd graph (the causal flash kernel through its
+Function on the card); with `remat` each layer's activations are
+recomputed in the backward (`torch.utils.checkpoint`, JAX's nn.remat).
+`cross_entropy_loss` is the masked mean of the next-token loss.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
 from ..ops import quant
@@ -167,11 +174,12 @@ class QwenModel(nn.Module):
     """Decoder stack over inputs_embeds -> logits."""
 
     def __init__(self, cfg: LLMConfig, lora_rank: int = 0,
-                 lora_alpha: float = 1.0, extra_tokens: int = 0, *, dtype,
-                 device):
+                 lora_alpha: float = 1.0, extra_tokens: int = 0,
+                 remat: bool = False, *, dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.cfg = cfg
+        self.remat = remat
         self.embed_tokens = nn.Module()
         self.embed_tokens.embedding = new_param(
             (cfg.vocab_size + extra_tokens, cfg.hidden_size),
@@ -212,10 +220,15 @@ class QwenModel(nn.Module):
                 None].expand(b, s)
         x = inputs_embeds.to(self.embed_tokens.embedding.dtype)
         delta = None
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
-            x, delta = getattr(self, f"layer_{i}").forward_pending(
-                x, delta, positions, seq_len, cache, i,
-                params.get(f"layer_{i}"))
+            layer = getattr(self, f"layer_{i}").forward_pending
+            if remat:
+                x, delta = checkpoint(layer, x, delta, positions, seq_len,
+                                      None, i, None, use_reentrant=False)
+            else:
+                x, delta = layer(x, delta, positions, seq_len, cache, i,
+                                 params.get(f"layer_{i}"))
         x = self.final_ln(x) if delta is None else self.final_ln.add(
             x, delta)[1]
         if last_pos is not None:
@@ -232,6 +245,18 @@ class QwenModel(nn.Module):
             else:
                 cache.length = cache.length + 1
         return logits
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Masked next-token cross entropy (JAX qwen.py:261-271): log_softmax in
+    fp32, the mean over positions whose label is not `ignore_index`.
+    Returns (loss, count) with count = max(number of such positions, 1)."""
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    count = mask.sum().clamp_min(1)
+    return (nll * mask).sum() / count, count
 
 
 def greedy_loop(step, last_logits, *, max_new_tokens: int, eos_id: int,

@@ -29,6 +29,7 @@ path.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Sequence, Tuple
 
 import torch
@@ -270,8 +271,9 @@ class SAMImageEncoder(nn.Module):
         self.neck_ln1 = LayerNorm(out_chans, 1e-6, **kw)
         self.neck_ln2 = LayerNorm(out_chans, 1e-6, **kw)
 
-    def forward(self, images):
-        """[B, 3, S, S] in [-1, 1] -> [B, vary_dims[-1], S/64, S/64]."""
+    def trunk(self, images):
+        """Patch embedding, blocks and neck: [B, 3, S, S] -> the neck's
+        [B, out_chans, S/16, S/16]."""
         dtype = self.pos_embed.dtype
         x = F.conv2d(images.to(dtype), self.patch_embed.kernel,
                      self.patch_embed.bias, stride=self.patch_size)
@@ -282,9 +284,15 @@ class SAMImageEncoder(nn.Module):
         x = self.neck_ln1(x.permute(0, 2, 3, 1))                # LayerNorm2d
         x = F.conv2d(x.permute(0, 3, 1, 2), self.neck_conv2.kernel,
                      padding=1)
-        x = self.neck_ln2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        if self.frozen_trunk:
-            x = x.detach()
+        return self.neck_ln2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+    def forward(self, images):
+        """[B, 3, S, S] in [-1, 1] -> [B, vary_dims[-1], S/64, S/64]. With
+        `frozen_trunk` the blocks and the neck run under torch.no_grad()
+        (JAX's stop_gradient: no activation is kept for them); the VARY
+        head stays in the graph."""
+        with torch.no_grad() if self.frozen_trunk else nullcontext():
+            x = self.trunk(images)
         # VARY head: explicit (1, 1) padding at stride 2, as the reference
         x = F.conv2d(x, self.net_2.kernel, stride=2, padding=1)
         return F.conv2d(x, self.net_3.kernel, stride=2, padding=1)

@@ -11,7 +11,9 @@
 
 On the card the cross-attentions (kv 1536 and 32,400) run the flash kernel
 (K-e) through `attention`; the self-attention over 768 queries stays plain,
-as in the JAX package.
+as in the JAX package. Dropout sits where JAX has it (the blocks' MLPs, the
+post and projection heads, the adapter after its LN), at rate 0 unless the
+caller sets one, and runs only with `deterministic=False`.
 """
 from __future__ import annotations
 
@@ -23,15 +25,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MLP, Dense, LayerNorm, MultiHeadAttention, new_param
+from .layers import (MLP, Dense, LayerNorm, MultiHeadAttention, dropout,
+                     new_param)
 
 NUM_VIEWS = 6   # nuScenes camera / sector count
 _LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the reference
 
 
 class VATBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, *, dtype,
-                 device):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 dropout: float = 0.0, *, dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.ln_self = LayerNorm(dim, _LN_EPS, **kw)
@@ -39,12 +42,12 @@ class VATBlock(nn.Module):
         self.ln_cross_q = LayerNorm(dim, _LN_EPS, **kw)
         self.cross_attn = MultiHeadAttention(dim, num_heads, **kw)
         self.ln_mlp = LayerNorm(dim, _LN_EPS, **kw)
-        self.mlp = MLP(dim, int(dim * mlp_ratio), **kw)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dropout=dropout, **kw)
 
-    def forward(self, q, kv):
+    def forward(self, q, kv, deterministic: bool = True, generator=None):
         q = q + self.self_attn(self.ln_self(q))
         q = q + self.cross_attn(self.ln_cross_q(q), kv)
-        return q + self.mlp(self.ln_mlp(q))
+        return q + self.mlp(self.ln_mlp(q), deterministic, generator)
 
 
 def bev_geometry(h: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -74,10 +77,12 @@ class VATLiDAR(nn.Module):
 
     def __init__(self, bev_channels: int, d_model: int, n_queries: int,
                  n_blocks: int = 4, n_heads: int = 8, mlp_ratio: float = 4.0,
-                 pe_hidden: int = 0, dw_kernel: int = 3, *, dtype, device):
+                 pe_hidden: int = 0, dw_kernel: int = 3,
+                 dropout: float = 0.0, *, dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         c, k = bev_channels, dw_kernel
+        self.dropout = dropout
         self.dw_refine = nn.Module()   # depthwise conv, OIHW [C, 1, k, k]
         self.dw_refine.kernel = new_param((c, 1, k, k), ("lecun", k * k), **kw)
         self.dw_refine.bias = new_param((c,), "zeros", **kw)
@@ -92,13 +97,13 @@ class VATLiDAR(nn.Module):
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             setattr(self, f"block_{i}", VATBlock(d_model, n_heads, mlp_ratio,
-                                                 **kw))
+                                                 dropout, **kw))
         self.final_ln = LayerNorm(d_model, _LN_EPS, **kw)
         self.post_ln = LayerNorm(d_model, _LN_EPS, **kw)
         self.post_fc1 = Dense(d_model, d_model, **kw)
         self.post_fc2 = Dense(d_model, d_model, **kw)
 
-    def forward(self, bev):
+    def forward(self, bev, deterministic: bool = True, generator=None):
         b, c, h, w = bev.shape
         dtype = self.queries.dtype
         k = self.dw_refine.kernel.shape[-1]
@@ -119,9 +124,12 @@ class VATLiDAR(nn.Module):
         q = (self.queries + self.sector_embed[q_sector])[None].expand(
             b, -1, -1)
         for i in range(self.n_blocks):
-            q = getattr(self, f"block_{i}")(q, tokens)
+            q = getattr(self, f"block_{i}")(q, tokens, deterministic,
+                                            generator)
         q = self.post_ln(self.final_ln(q))
-        return self.post_fc2(F.gelu(self.post_fc1(q)))
+        q = dropout(F.gelu(self.post_fc1(q)), self.dropout, deterministic,
+                    generator)
+        return self.post_fc2(q)
 
 
 class VATVision(nn.Module):
@@ -130,9 +138,11 @@ class VATVision(nn.Module):
     def __init__(self, d_in: int, d_model: int, n_tokens: int,
                  compression_factor: int = 2, n_blocks: int = 4,
                  n_heads: int = 8, mlp_ratio: float = 4.0,
-                 per_view_queries: bool = True, *, dtype, device):
+                 per_view_queries: bool = True, dropout: float = 0.0, *,
+                 dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.dropout = dropout
         n_q = n_tokens // compression_factor
         self.queries = new_param((n_q, d_in), ("normal", 0.02), **kw)
         # per-view query groups need n_q % NUM_VIEWS == 0
@@ -143,7 +153,7 @@ class VATVision(nn.Module):
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             setattr(self, f"block_{i}", VATBlock(d_in, n_heads, mlp_ratio,
-                                                 **kw))
+                                                 dropout, **kw))
         self.final_ln = LayerNorm(d_in, _LN_EPS, **kw)
         self.post_ln = LayerNorm(d_in, _LN_EPS, **kw)
         self.post_fc1 = Dense(d_in, d_in, **kw)
@@ -153,7 +163,7 @@ class VATVision(nn.Module):
         self.proj_fc2 = Dense(d_model, d_model, **kw)
         self.out_ln = LayerNorm(d_model, _LN_EPS, **kw)
 
-    def forward(self, kv):
+    def forward(self, kv, deterministic: bool = True, generator=None):
         b = kv.shape[0]
         kv = kv.to(self.queries.dtype)
         queries = self.queries
@@ -163,29 +173,35 @@ class VATVision(nn.Module):
             queries = queries + self.view_embed[q_view]
         q = queries[None].expand(b, -1, -1)
         for i in range(self.n_blocks):
-            q = getattr(self, f"block_{i}")(q, kv)
+            q = getattr(self, f"block_{i}")(q, kv, deterministic, generator)
         q = self.post_ln(self.final_ln(q))
-        q = self.post_fc2(F.gelu(self.post_fc1(q)))
+        q = self.post_fc2(dropout(F.gelu(self.post_fc1(q)), self.dropout,
+                                  deterministic, generator))
         q = self.proj_ln(q)
-        q = self.proj_fc2(F.gelu(self.proj_fc1(q)))
+        q = self.proj_fc2(dropout(F.gelu(self.proj_fc1(q)), self.dropout,
+                                  deterministic, generator))
         return self.out_ln(q)
 
 
 class VisionAdapter(nn.Module):
-    """Per-camera view embedding + LN: [B, V, T, d] -> [B, V·T, d]."""
+    """Per-camera view embedding + LN (+ dropout): [B, V, T, d] ->
+    [B, V·T, d]."""
 
-    def __init__(self, d_model: int, num_views: int = NUM_VIEWS, *, dtype,
-                 device):
+    def __init__(self, d_model: int, num_views: int = NUM_VIEWS,
+                 dropout: float = 0.0, *, dtype, device):
         super().__init__()
+        self.dropout = dropout
         self.view_embed = new_param((num_views, d_model), ("normal", 0.02),
                                     dtype=dtype, device=device)
         self.ln = LayerNorm(d_model, _LN_EPS, dtype=dtype, device=device)
 
-    def forward(self, view_tokens):
+    def forward(self, view_tokens, deterministic: bool = True,
+                generator=None):
         b, v, t, d = view_tokens.shape
         if v != self.view_embed.shape[0]:
             raise ValueError(f"expected {self.view_embed.shape[0]} views, "
                              f"got {v}")
         x = view_tokens.to(self.view_embed.dtype) + self.view_embed[None, :,
                                                                     None, :]
-        return self.ln(x).reshape(b, v * t, d)
+        x = dropout(self.ln(x), self.dropout, deterministic, generator)
+        return x.reshape(b, v * t, d)

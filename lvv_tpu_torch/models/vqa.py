@@ -14,6 +14,11 @@ batches, uint8 frames preprocessed per group), `encode_prefix_fn`,
 `generate_from_prefix`, `pipelined_serving_step` and `sample_generate`
 (temperature / top-k / top-p over Gumbel noise from a torch.Generator).
 
+Training: `VQAModel.forward(batch, deterministic)` is JAX's
+`VQAModel.__call__`: prefix ++ text through the LLM, the next-token loss
+over the answer -> (loss, logits [B, P+T, V], count). The generation entry
+points run under `torch.inference_mode()`.
+
 Serving: `prepare_serving_params` (weight-only int8 Qwen tree) and
 `prepare_serving_params_fused` (the packed int8 decode) make a
 `params_decode` for greedy_generate. Prefill always reads the float weights;
@@ -30,7 +35,8 @@ from torch import nn
 from ..config import ModelConfig
 from .deepencoder import build_deepencoder
 from .layers import init_parameters, resolve_device
-from .qwen import KVCache, QwenModel, greedy_loop, init_cache
+from .qwen import (KVCache, QwenModel, cross_entropy_loss, greedy_loop,
+                   init_cache)
 from .vat import VATLiDAR, VATVision, VisionAdapter
 
 # special-token order matches config.LLMConfig.special_tokens
@@ -47,6 +53,12 @@ class VQABatch(NamedTuple):
     labels: torch.Tensor       # [B, T] int32, -100 outside the answer
     use_vision: torch.Tensor   # [] bool modality toggles
     use_lidar: torch.Tensor
+
+    def to(self, device, non_blocking: bool = False) -> "VQABatch":
+        """Every field on `device`."""
+        return VQABatch(*(torch.as_tensor(t).to(device,
+                                                non_blocking=non_blocking)
+                          for t in self))
 
 
 def sam_grid_side(cfg: ModelConfig) -> int:
@@ -79,8 +91,11 @@ class VQAModel(nn.Module):
         self.deepencoder = build_deepencoder(
             cfg, clip_lora_rank=clip_lora_rank,
             clip_lora_alpha=clip_lora_alpha, **kw)
+        # dropout as JAX's VQAModel passes it: the adapter's alone (the
+        # VATs' configured rates are not handed on there either)
         self.adapter = VisionAdapter(cfg.adapter.d_model,
-                                     cfg.adapter.num_views, **kw)
+                                     cfg.adapter.num_views,
+                                     cfg.adapter.dropout, **kw)
         vv = cfg.vat_vision
         self.vat_vision = VATVision(
             vv.d_in, vv.d_model,
@@ -92,7 +107,8 @@ class VQAModel(nn.Module):
                                   vl.n_blocks, vl.n_heads, vl.mlp_ratio,
                                   vl.pe_hidden, vl.dw_kernel, **kw)
         self.llm = QwenModel(cfg.llm, llm_lora_rank, llm_lora_alpha,
-                             extra_tokens=len(cfg.llm.special_tokens), **kw)
+                             extra_tokens=len(cfg.llm.special_tokens),
+                             remat=cfg.remat, **kw)
         init_parameters(self, seed)
 
     @property
@@ -104,17 +120,19 @@ class VQAModel(nn.Module):
         return self.llm.embed_tokens.embedding[self.cfg.llm.vocab_size + which]
 
     def encode_prefix(self, bev, images, view_valid, use_vision=True,
-                      use_lidar=True) -> torch.Tensor:
+                      use_lidar=True, deterministic: bool = True,
+                      generator=None) -> torch.Tensor:
         """-> prefix embeddings [B, P, D]. The modality toggles zero their
-        part of the prefix and keep its shape."""
+        part of the prefix and keep its shape; `deterministic` False turns
+        on dropout, drawn from `generator`."""
         c = self.cfg
         b = bev.shape[0]
         kw = dict(dtype=self.dtype, device=self.device)
         scale = torch.tensor(c.prefix_scale, **kw)   # rounded, as in JAX
         view_tokens = self.deepencoder.encode_views(images, view_valid)
-        kv = self.adapter(view_tokens)
-        v_prefix = self.vat_vision(kv) * scale
-        l_prefix = self.vat_lidar(bev) * scale
+        kv = self.adapter(view_tokens, deterministic, generator)
+        v_prefix = self.vat_vision(kv, deterministic, generator) * scale
+        l_prefix = self.vat_lidar(bev, deterministic, generator) * scale
         v_prefix = v_prefix * torch.as_tensor(use_vision, **kw)
         l_prefix = l_prefix * torch.as_tensor(use_lidar, **kw)
 
@@ -124,6 +142,25 @@ class VQAModel(nn.Module):
 
         return torch.cat([tok(VISION_START), v_prefix, tok(VISION_END),
                           tok(LIDAR_START), l_prefix, tok(LIDAR_END)], dim=1)
+
+    def forward(self, batch: VQABatch, deterministic: bool = True,
+                generator=None):
+        """Training / validation forward (JAX `VQAModel.__call__`) on a
+        batch on the model's device -> (loss, logits [B, P+T, V], count):
+        the next-token loss over the answer tokens (labels -100 elsewhere,
+        the prefix included)."""
+        prefix = self.encode_prefix(batch.bev, batch.images,
+                                    batch.view_valid, batch.use_vision,
+                                    batch.use_lidar, deterministic, generator)
+        embeds = torch.cat([prefix, self.llm.embed(batch.text_ids.long())],
+                           dim=1)
+        b, p = prefix.shape[:2]
+        logits = self.llm(embeds, seq_len=p + batch.text_len)
+        labels = torch.cat([torch.full((b, p), -100, dtype=torch.long,
+                                       device=self.device),
+                            batch.labels.long()], dim=1)
+        loss, count = cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+        return loss, logits, count
 
     def prefill(self, bev, images, view_valid, prompt_ids, prompt_len,
                 cache: KVCache, use_vision=True, use_lidar=True):

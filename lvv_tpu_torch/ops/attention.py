@@ -27,6 +27,11 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
 - `attention` keeps the JAX dispatch: the flash kernel once the kv sequence
   reaches 1024, without bias, and causal only for sq == sk; the reference
   otherwise. `decode_attention` is the reference over the cache, as in JAX.
+- Where autograd needs a gradient (`kernels.wants_grad`), `flash_attention`
+  runs through `ops.autograd.FlashAttentionFn` (the kernel forward,
+  `attention_reference` recomputed for the backward, as JAX's
+  `_flash_diff_bwd`); every other kernel raises there (`kernels.refuse_grad`:
+  the JAX package has no VJP for them either).
 """
 from __future__ import annotations
 
@@ -221,6 +226,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     """Kernel K-e: flash attention forward (causal with the sk - sq offset,
     per-batch kv_len, GQA by head index; the kv axis split across blocks
     as `flash_splits` says)."""
+    if kernels.wants_grad(q, k, v):
+        from .autograd import FlashAttentionFn
+        return FlashAttentionFn.apply(q, k, v, causal, kv_len, scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      scale=scale)
@@ -233,6 +241,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ops = (q, k, v)
     if any(t.dtype != torch.bfloat16 or t.device != q.device for t in ops):
         raise ValueError("flash_attention: q, k, v must be bf16 on one device")
+    kernels.refuse_grad("flash_attention", *ops)
     # TMA reads the views where they lie: unit stride on D, 16-byte aligned
     # base and strides (size-1 axes aside)
     ops = tuple(t if t.stride(-1) == 1 and t.data_ptr() % 16 == 0
@@ -360,6 +369,7 @@ def pv8_v_launch(v: torch.Tensor):
             or v.stride(-1) != 1 or v.data_ptr() % 16
             or any(st % 8 for st in v.stride()[:3])):
         raise ValueError(f"pv8_v_launch: unsupported v {tuple(v.shape)}")
+    kernels.refuse_grad("pv8_v_launch", v)
     v8t, sv, amax = _pv8_buffers(b, heads, d, s, v.device)
     strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
     fn = kernels.lib("flash_attention_relpos").lvv_pv8_quantize_v
@@ -446,6 +456,7 @@ def _relpos_launch(qkv, rel_h, rel_w, *, heads: int, scale: float,
     b, s, c3 = qkv.shape
     d = c3 // 3 // heads
     gh, gw = rel_h.shape[0], rel_w.shape[0]
+    kernels.refuse_grad("relpos_attention", qkv, rel_h, rel_w)
     v8t = sv = amax = None
     if pv_group:
         v8t, sv, amax = (_pv8_buffers(b, heads, d, s, qkv.device)
@@ -559,6 +570,7 @@ def qk8_prep(qkv, rel_h, rel_w, *, heads: int, scale: float):
     if not qkv.is_cuda:
         raise ValueError("qk8_prep: the prep kernel runs on the card")
     qkv, rel_h, rel_w = _qk8_check("qk8_prep", qkv, rel_h, rel_w, heads)
+    kernels.refuse_grad("qk8_prep", qkv, rel_h, rel_w)
     b, s, _ = qkv.shape
     gh, gw = rel_h.shape[0], rel_w.shape[0]
     ops = _qk8_buffers(b, s, heads, gw, qkv.device)
@@ -593,6 +605,7 @@ def qk8_attend(qkv, ops, *, heads: int, grid_w: int) -> torch.Tensor:
     `qk8_prep`), v read from qkv [B, S, 3C] (contiguous bf16 on the card).
     Returns [B, S, C]."""
     b, s, c3 = qkv.shape
+    kernels.refuse_grad("qk8_attend", qkv, *ops)
     out = torch.empty(b, s, c3 // 3, dtype=qkv.dtype, device=qkv.device)
     err = kernels.lib("relpos_attention_qk8").lvv_qk8_attention(
         *(t.data_ptr() for t in ops), qkv.data_ptr(), out.data_ptr(), b, s,
@@ -614,6 +627,7 @@ def relpos_attention_qk8(qkv, rel_h, rel_w, *, heads: int,
                                           scale=scale)
     qkv, rel_h, rel_w = _qk8_check("relpos_attention_qk8", qkv, rel_h, rel_w,
                                    heads)
+    kernels.refuse_grad("relpos_attention_qk8", qkv, rel_h, rel_w)
     b, s, c3 = qkv.shape
     gh, gw = rel_h.shape[0], rel_w.shape[0]
     ops = _qk8_buffers(b, s, heads, gw, qkv.device)
@@ -865,6 +879,7 @@ def _kh_launch(mode: int, name: str, q, k, v, qrh, qrw, *, scale: float,
     token-major, so the caller's head merge is a free view)."""
     b, heads, s, _ = q.shape
     gh = s // grid_w
+    kernels.refuse_grad(name, q, k, v, qrh, qrw)
     ops = [t if t.stride(-1) == 1 and t.data_ptr() % 16 == 0
            and all(st % 8 == 0 for st in t.stride()[:3]) else t.contiguous()
            for t in (q, k, v)]
@@ -1072,6 +1087,7 @@ _QR_ROWS, _QR_QK, _QR_V = 0, 1, 2
 def _qr_prep_launch(mode: int, qkv, tab_h, tab_w, outs, *, heads: int,
                     gh: int, gw: int, width: int, cs: float = 0.0):
     b, s, c3 = qkv.shape
+    kernels.refuse_grad("qr_prep", qkv, tab_h, tab_w)
     fn = kernels.lib("qr_prep").lvv_qr_prep
     err = fn(qkv.data_ptr(), *(None if t is None else t.data_ptr()
                                for t in (tab_h, tab_w)),
@@ -1158,6 +1174,8 @@ def _win_launch(name: str, mode: str, q, out, *, cs: float, heads: int = 0,
     but `hmaj`: q is qkv [B, S, 3C] and out [B, S, C], both contiguous;
     `hmaj`: q, k, v, out [B, H, S, d] views. rh / rw [B, H, S, cols]
     views."""
+    kernels.refuse_grad(f"window_attention_rows[{name}]", q, k, v, rh, rw,
+                        eh, ew)
     if mode == "hmaj":
         b, heads, s, d = q.shape
         views = (q, k, v, out)

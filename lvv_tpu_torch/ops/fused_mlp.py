@@ -12,6 +12,11 @@
   plain path otherwise.
 - `mlp_plan` is the MLP kernels' schedule (tile widths, tiles, blocks,
   K-f's chunk slices), from the shapes alone.
+- Where autograd needs a gradient (`kernels.wants_grad`), `norm`,
+  `add_norm`, their `_fast` entries, `ln_mlp_residual` and
+  `ln_mlp_residual_q8` run through their Functions in `ops/autograd.py`:
+  the kernel forward, a plain recompute backward (`norm_plain`,
+  `add_norm_plain`, `ln_mlp_residual_xla`), as the JAX package's VJPs do.
 """
 from __future__ import annotations
 
@@ -72,6 +77,7 @@ def _norm_launch(x, y, scale, bias, eps: float, rms: bool):
     """K-a's launch (kernels/csrc/norm.cu) on x [..., C] (and y, the add
     form): returns (s or None, n)."""
     c = x.shape[-1]
+    kernels.refuse_grad("norm", x, y, scale, bias)
     ops = (scale,) if bias is None or rms else (scale, bias)
     if (x.dtype not in _NORM_TYPES or c > 8192
             or any(p.shape != (c,) or p.dtype != x.dtype
@@ -104,6 +110,9 @@ def _norm_launch(x, y, scale, bias, eps: float, rms: bool):
 def norm(x, scale, bias=None, *, eps: float, rms: bool = False):
     """Kernel K-a: row LayerNorm (RMSNorm when rms) of x [..., C], bf16 or
     fp32, C <= 8192."""
+    if kernels.wants_grad(x, scale, bias):
+        from .autograd import NormFn
+        return NormFn.apply(norm, x, scale, bias, eps, rms)
     if not x.is_cuda:
         return norm_plain(x, scale, bias, eps=eps, rms=rms)
     return _norm_launch(x, None, scale, bias, eps, rms)[1]
@@ -114,6 +123,9 @@ def add_norm(x, y, scale, bias=None, *, eps: float, rms: bool = False):
     (bit-equal to PyTorch's add) and n = norm(s), in one launch; x and y
     [..., C] of one shape and dtype. Counted under "norm" and
     "norm[add]"."""
+    if kernels.wants_grad(x, y, scale, bias):
+        from .autograd import AddNormFn
+        return AddNormFn.apply(add_norm, x, y, scale, bias, eps, rms)
     if not x.is_cuda:
         return add_norm_plain(x, y, scale, bias, eps=eps, rms=rms)
     return _norm_launch(x, y, scale, bias, eps, rms)
@@ -122,6 +134,9 @@ def add_norm(x, y, scale, bias=None, *, eps: float, rms: bool = False):
 def norm_fast(x, scale, bias=None, *, eps: float = 1e-6, rms: bool = False):
     """The JAX package's norm entry: kernel for lane-aligned widths on the
     card, plain path otherwise."""
+    if kernels.wants_grad(x, scale, bias):
+        from .autograd import NormFn
+        return NormFn.apply(norm_fast, x, scale, bias, eps, rms)
     c = x.shape[-1]
     if kernel_ok(x, c, c):
         return norm(x, scale, bias, eps=eps, rms=rms)
@@ -133,6 +148,9 @@ def add_norm_fast(x, y, scale, bias=None, *, eps: float = 1e-6,
     """A residual add and the norm after it, (x + y, norm_fast(x + y)):
     the add form of the kernel where norm_fast takes the kernel, else
     PyTorch's add and the plain norm."""
+    if kernels.wants_grad(x, y, scale, bias):
+        from .autograd import AddNormFn
+        return AddNormFn.apply(add_norm_fast, x, y, scale, bias, eps, rms)
     c = x.shape[-1]
     if kernel_ok(x, c, c):
         return add_norm(x, y, scale, bias, eps=eps, rms=rms)
@@ -152,6 +170,25 @@ def ln_mlp_residual_plain(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
     if b2 is not None:
         o = o + b2.float()
     return (x.float() + o).to(x.dtype)
+
+
+def ln_mlp_residual_xla(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
+                        act: str = "gelu"):
+    """The fused MLP as the JAX package's backward recomputes it
+    (`_xla_forward`, lvv_tpu/ops/fused_mlp.py:290-298): fp32 LN rounded to
+    x's dtype, z = y @ w1 in fp32 plus b1, act(z) rounded to x's dtype, then
+    x + h @ w2 + b2 in fp32. It differs from the kernel's arithmetic
+    (`ln_mlp_residual_plain`) only in that z is not rounded before the
+    activation. K-b's and K-f's backward differentiate it."""
+    y = _ln_f32(x, ls, lb, eps).to(x.dtype)
+    z = torch.matmul(y.float(), w1.float())
+    if b1 is not None:
+        z = z + b1.float()
+    h = _act(act, z).to(x.dtype)
+    o = x.float() + torch.matmul(h.float(), w2.float())
+    if b2 is not None:
+        o = o + b2.float()
+    return o.to(x.dtype)
 
 
 def mlp_plan(n: int, c: int, h: int, block_h=None) -> dict:
@@ -182,6 +219,10 @@ def ln_mlp_residual(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
     if quant8:
         return ln_mlp_residual_q8(x, ls, lb, w1, b1, w2, b2, eps=eps,
                                   act=act)
+    if kernels.wants_grad(x, ls, lb, w1, b1, w2, b2):
+        from .autograd import LnMlpResidualFn
+        return LnMlpResidualFn.apply(ln_mlp_residual, x, ls, lb, w1, b1, w2,
+                                     b2, eps, act)
     if not x.is_cuda:
         return ln_mlp_residual_plain(x, ls, lb, w1, b1, w2, b2, eps=eps,
                                      act=act)
@@ -201,6 +242,7 @@ def ln_mlp_residual(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
     if c % _LANE or c > 1024 or h % 64 or act not in _ACTS:
         raise ValueError(f"ln_mlp_residual: unsupported C={c} H={h} "
                          f"act={act!r}")
+    kernels.refuse_grad("ln_mlp_residual", *ops)
     x2 = x.reshape(-1, c).contiguous()
     n = x2.shape[0]
     out = torch.empty_like(x2)
@@ -274,6 +316,10 @@ def ln_mlp_residual_q8(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
     """Kernel K-f: the W8A8 form of ln_mlp_residual, x [..., C] bf16 with
     float weights w1 [C, H], w2 [H, C], quantized per output column here on
     every call (as the JAX package does, outside its kernel)."""
+    if kernels.wants_grad(x, ls, lb, w1, b1, w2, b2):
+        from .autograd import LnMlpResidualQ8Fn
+        return LnMlpResidualQ8Fn.apply(ln_mlp_residual_q8, x, ls, lb, w1, b1,
+                                       w2, b2, eps, act)
     if not x.is_cuda:
         return ln_mlp_residual_q8_plain(x, ls, lb, w1, b1, w2, b2, eps=eps,
                                         act=act)
@@ -308,6 +354,7 @@ def quantize_weight_t(w):
     quant_weight.cuh. Part of K-f's wrapper (its launch is not counted
     apart); K-i's launch runs the same kernels itself."""
     k, n = w.shape
+    kernels.refuse_grad("quantize_weight_t", w)
     if w.dtype not in quant._KINDS:
         raise ValueError(f"quantize_weight_t: unsupported {w.dtype}")
     wt = torch.empty(n, k, dtype=torch.int8, device=w.device)
@@ -327,6 +374,7 @@ def ln_mlp_residual_q8_launch(x, ls, lb, w1t, s1, b1, w2t, s2, b2, *,
     w2t [C, H] int8, s1 [H], s2 [C] fp32), as ln_mlp_residual_q8 hands them
     over after checking its operands; b1 / b2 bf16."""
     c, h = x.shape[-1], w1t.shape[0]
+    kernels.refuse_grad("ln_mlp_residual_q8", x, ls, lb, b1, b2)
     x2 = x.reshape(-1, c).contiguous()
     n = x2.shape[0]
     out = torch.empty_like(x2)

@@ -106,6 +106,7 @@ def w8a8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     m, k = x.shape
     if x.dtype not in _KINDS or k % 128 or k > 1536 or m == 0:
         raise ValueError(f"w8a8_rows: unsupported {tuple(x.shape)} {x.dtype}")
+    kernels.refuse_grad("w8a8_rows", x)
     xc = _aligned(x)
     x8 = torch.empty(m, k, dtype=torch.int8, device=x.device)
     sx = torch.empty(m, dtype=torch.float32, device=x.device)
@@ -133,6 +134,7 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor,
                          f"{x.dtype} / weight {tuple(w.shape)} {w.dtype}")
     if any(t is not None and t.device != x.device for t in (w, bias)):
         raise ValueError("w8a8_matmul: operands must be on one device")
+    kernels.refuse_grad("w8a8_matmul", x, w, bias)
     lead = x.shape[:-1]
     x2 = _aligned(x.reshape(-1, k))
     m = x2.shape[0]
@@ -258,6 +260,7 @@ def _launch(name: str, x, q, scale, n: int, k: int, *, nk: bool):
                          f"scale {tuple(scale.shape)}")
     if q.data_ptr() % 16:
         raise ValueError(f"{name}: the weight must be 16-byte aligned")
+    kernels.refuse_grad(name, x, scale)
     lead = x.shape[:-1]
     x2 = _aligned(x.reshape(-1, k))          # rows are read 16 bytes a time
     out = torch.empty(x2.shape[0], n, dtype=x.dtype, device=x.device)
