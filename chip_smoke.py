@@ -20,7 +20,9 @@
    quantized; K-g also `prep_ms` and its prep's agreement with
    `qk8_operands`), K-a's add form `norm[add]` (a residual add and the
    RMS norm after it, one launch) is also held bit-equal to x + y on its
-   s, K-b prints
+   s; K-a (both forms), K-b and K-f take fp32 scale and bias, as the
+   model keeps its norms' parameters, each with a trap (the parameters
+   rounded to bf16 first) its tolerance must fail, K-b prints
    `unfused_ms`, the unfused bf16 sequence (F.layer_norm, F.linear, GELU,
    F.linear, add) on its inputs, a reference the port never calls, and K-i
    its own `unfused_ms` (quantize_rows, quantize_weight, torch._int_mm, the
@@ -97,6 +99,19 @@
    give empty byte strings). The kernels of these phases are checked at
    the preset's shapes in 2 (VATVision's and VATLiDAR's 384 queries, the
    901-token prefill, buckets of 1, 4 and 8 frames).
+3a. Right after the float path, on its model, the LiDAR BEV producer
+   ("lidar-bev"): VoxelNeXtDetector at default_config()'s full width
+   (a seeded 300,000-point surface cloud, 0.075 m voxels over +-54 m,
+   160,000 voxels, channels 16-128, fp32) on the card: the stage split
+   (voxelize, backbone, head, decode + NMS; p50 of 3 after a warm-up), the
+   call's p50, peak memory, one profiled call's device busy and idle, each
+   stage's demand against its capacity (telemetry on); the same cloud and
+   weights through the port on the CPU (every stage's active ids equal,
+   the BEV within BEV_REL_TOL, the same detections within BOX_ABS_TOL);
+   the [128, 180, 180] BEV through greedy_generate (launches as derived,
+   logits against the plain kernels); and `python -m
+   lvv_tpu_torch.tools.precompute_bev` as a subprocess over 2 synthetic
+   sweeps under build/ (two float16 files, then a rerun that skips both).
 8. Trains at full width: default_config() in bf16 with fp32 masters,
    TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
    ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
@@ -166,6 +181,14 @@ REL_L2_TOL = 1.0 / 128
 # gives ~7e-3, which the elementwise rule alone would pass
 # (tests/test_torch_gpu.py::test_q8_tolerance_sees_a_wrong_h_scale).
 Q8_REL_L2_TOL = 1.0 / 512
+# K-a and K-b with fp32 scale and bias, as the model keeps its norms'
+# parameters: a relative L2 of 1e-3. The kernels take the parameters as
+# they are, so they sit near 1e-5 (K-a) and 3e-4 (K-b, its pre-activation
+# rounded at another point); the same parameters rounded to bf16 first (the
+# trap `bf16_params`, at a scale of 1 + 0.1·N) move the output ~3e-3 and
+# have to fail it. K-f keeps Q8_REL_L2_TOL, which the trap (~8e-3) fails
+# too.
+PARAM_REL_L2_TOL = 1e-3
 # The int8 p@v arm (K-d8) against its plain version: both take q·k as exact
 # products summed in fp32 in another order, so a p on a rounding boundary of
 # p8 may land one step apart; one step moves an output by at most
@@ -458,23 +481,42 @@ def kernel_cases(torch):
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(bf)
 
+    def fp32(*shape, std=1.0):      # a norm parameter, fp32 as the model's
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def param_trap(plain, *params):
+        # the plain version with the fp32 norm parameters rounded to bf16
+        # first: the tolerance has to see it
+        return {"bf16_params": lambda: plain(*(
+            None if t is None else t.to(bf).float() for t in params))}
+
     def norm_case(n, c, rms):
         def setup():
-            x, s, b = rnd(n, c), 1 + rnd(c, std=0.1), rnd(c, std=0.1)
+            x, s, b = rnd(n, c), 1 + fp32(c, std=0.1), fp32(c, std=0.1)
             bias = None if rms else b
-            lib = ((lambda: F.rms_norm(x, (c,), s, 1e-6)) if rms else
-                   (lambda: F.layer_norm(x, (c,), s, b, 1e-6)))
+            # PyTorch's fused CUDA norms take no fp32 parameters beside
+            # bf16 x (layer_norm refuses them, rms_norm falls back to
+            # several kernels): the yardstick call gets them in bf16
+            sb, bb = s.to(bf), b.to(bf)
+            lib = ((lambda: F.rms_norm(x, (c,), sb, 1e-6)) if rms else
+                   (lambda: F.layer_norm(x, (c,), sb, bb, 1e-6)))
             return dict(
+                notes={"library": ("F.rms_norm" if rms else "F.layer_norm")
+                       + ", parameters in bf16"},
                 kernel=lambda: M.norm(x, s, bias, eps=1e-6, rms=rms),
                 plain=lambda: M.norm_plain(x, s, bias, eps=1e-6, rms=rms),
                 library=lib, flops=7 * n * c, peak=FP32_FLOPS,
-                bytes=2 * (2 * n * c + 2 * c))
+                bytes=2 * 2 * n * c + 4 * 2 * c,
+                rel_l2_tol=PARAM_REL_L2_TOL,
+                traps=param_trap(lambda s, b: M.norm_plain(
+                    x, s, b, eps=1e-6, rms=rms), s, bias))
         return setup
 
     def add_norm_case(n, c):
         # K-a's add form as Qwen calls it: a residual add, then RMSNorm
         def setup():
-            x, y, s = rnd(n, c), rnd(n, c), 1 + rnd(c, std=0.1)
+            x, y, s = rnd(n, c), rnd(n, c), 1 + fp32(c, std=0.1)
+            sb = s.to(bf)               # the yardstick's scale, as norm_case
 
             def exact(got):
                 if not torch.equal(got[:n * c].view(n, c), x + y):
@@ -488,24 +530,28 @@ def kernel_cases(torch):
                 timed_kernel=lambda: M.add_norm(x, y, s, eps=1e-6, rms=True),
                 timed_plain=lambda: M.add_norm_plain(x, y, s, eps=1e-6,
                                                      rms=True),
-                library=lambda: F.rms_norm(x + y, (c,), s, 1e-6),
+                library=lambda: F.rms_norm(x + y, (c,), sb, 1e-6),
                 notes={"library": "a sequence of two calls: x + y, then "
-                                  "F.rms_norm"},
+                                  "F.rms_norm, its scale in bf16"},
                 check=exact, flops=8 * n * c, peak=FP32_FLOPS,
-                bytes=2 * (4 * n * c + c))
+                bytes=2 * 4 * n * c + 4 * c,
+                rel_l2_tol=PARAM_REL_L2_TOL,
+                traps=param_trap(lambda s: flat(M.add_norm_plain(
+                    x, y, s, eps=1e-6, rms=True)), s))
         return setup
 
     def mlp_case(n, c, h, act):
         def setup():
             x = rnd(n, c)
-            p = (1 + rnd(c, std=0.1), rnd(c, std=0.1),
+            p = (1 + fp32(c, std=0.1), fp32(c, std=0.1),
                  rnd(c, h, std=c ** -0.5), rnd(h, std=0.1),
                  rnd(h, c, std=h ** -0.5), rnd(c, std=0.1))
             ls, lb, w1, b1, w2, b2 = p
             w1t, w2t = w1.t(), w2.t()       # F.linear's [out, in] views
+            lsb, lbb = ls.to(bf), lb.to(bf)
 
             def unfused():                  # a reference of several calls
-                y = F.layer_norm(x, (c,), ls, lb, 1e-6)
+                y = F.layer_norm(x, (c,), lsb, lbb, 1e-6)
                 z = F.linear(y, w1t, b1)
                 z = (F.gelu(z, approximate="tanh") if act == "gelu"
                      else z * torch.sigmoid(1.702 * z))
@@ -515,7 +561,10 @@ def kernel_cases(torch):
                 plain=lambda: M.ln_mlp_residual_plain(x, *p, eps=1e-6,
                                                       act=act),
                 library=None, flops=4 * n * c * h, peak=BF16_FLOPS,
-                bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h),
+                bytes=2 * (2 * n * c + 2 * c * h + c + h) + 4 * 2 * c,
+                rel_l2_tol=PARAM_REL_L2_TOL,
+                traps=param_trap(lambda ls, lb: M.ln_mlp_residual_plain(
+                    x, ls, lb, *p[2:], eps=1e-6, act=act), ls, lb),
                 info={"unfused_ms": unfused})
         return setup
 
@@ -524,7 +573,7 @@ def kernel_cases(torch):
         # per call by the wrapper, then the kernel
         def setup():
             x = rnd(n, c)
-            p = (1 + rnd(c, std=0.1), rnd(c, std=0.1),
+            p = (1 + fp32(c, std=0.1), fp32(c, std=0.1),
                  rnd(c, h, std=c ** -0.5), rnd(h, std=0.1),
                  rnd(h, c, std=h ** -0.5), rnd(c, std=0.1))
             block_h = M.q8_block_h(c, h, 2)
@@ -535,15 +584,17 @@ def kernel_cases(torch):
                 plain=lambda: M.ln_mlp_residual_q8_plain(x, *p, eps=1e-6,
                                                          act=act),
                 library=None, flops=4 * n * c * h, peak=INT8_OPS,
-                bytes=2 * (2 * n * c + 2 * c * h + 3 * c + h),
+                bytes=2 * (2 * n * c + 2 * c * h + c + h) + 4 * 2 * c,
                 rel_l2_tol=Q8_REL_L2_TOL,
+                traps=param_trap(lambda ls, lb: M.ln_mlp_residual_q8_plain(
+                    x, ls, lb, *p[2:], eps=1e-6, act=act), p[0], p[1]),
                 kernel_only=lambda: M.ln_mlp_residual_q8_launch(
                     x, p[0], p[1], w1t, s1, p[3], w2t, s2, p[5],
                     block_h=block_h, eps=1e-6, act=act))
             if block_h < h:                    # h has per-chunk row scales
-                case["traps"] = {"whole_row_h_scale":
-                                 lambda: M.ln_mlp_residual_q8_plain(
-                                     x, *p, eps=1e-6, act=act, block_h=h)}
+                case["traps"]["whole_row_h_scale"] = (
+                    lambda: M.ln_mlp_residual_q8_plain(
+                        x, *p, eps=1e-6, act=act, block_h=h))
             return case
         return setup
 
@@ -1786,7 +1837,7 @@ def run_float_path(torch, img_size: int = 1024) -> tuple:
     (materialised rel-pos bias); at 1280², where that bias would take
     5.9 GB a layer, its prefill and first-step logits are held to the same
     path with every kernel swapped for its plain version. Returns its
-    report and its prefill logits."""
+    report, its prefill logits and the model."""
     from lvv_tpu_torch import VQAModel
     cfg = config(img_size, quant8=False)
     model = VQAModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
@@ -1795,7 +1846,7 @@ def run_float_path(torch, img_size: int = 1024) -> tuple:
     if img_size != 1024:
         checks, fast = against_plain_kernels(torch, model, args, None)
         report.update(img_size=img_size, **checks)
-        return report, fast
+        return report, fast, model
     fast = prefill_logits(torch, model, args)
     with plain_path():
         slow = prefill_logits(torch, model, args)
@@ -1804,7 +1855,7 @@ def run_float_path(torch, img_size: int = 1024) -> tuple:
     report.update(logits_shape=list(fast.shape),
                   logits_rel_l2_vs_plain=rel_l2(fast, slow),
                   logits_max_abs_vs_plain=float((fast - slow).abs().max()))
-    return report, fast
+    return report, fast, model
 
 
 def serving_model(torch, img_size: int = 1024):
@@ -2543,6 +2594,314 @@ def run_infer_cli(torch, model, tok) -> dict:
                 launches=per_generate, launches_total=counts)
 
 
+# -------------------------------------------------------------- lidar-bev --
+
+LIDAR_DIR = REPO / "build" / "lidar_bev"
+LIDAR_POINTS = 300000
+# The producer on the card against the same cloud and weights through the
+# port on the CPU: every stage's active ids equal (they come from sorts and
+# cumsums), the dense BEV within BEV_REL_TOL relative L2 (fp32 sums in
+# another order through 25 conv layers), and the detections: the same
+# count and, ordered by position, boxes within BOX_ABS_TOL (metres,
+# radians, m/s). Seeded weights leave every heatmap score at about
+# sigmoid(-4.6), under the 0.1 threshold, so both copies take a heatmap
+# bias of -1 and a size bias of -1.5: the decode then keeps boxes ~0.2 m
+# wide, apart at the 0.6 m stride-8 spacing, and NMS suppresses a site's
+# other classes (IoU 1) without IoUs near its 0.2 threshold. The
+# precompute tool's float16 file is held to the card's BEV within
+# BEV_F16_REL_TOL (float16 rounding).
+BEV_REL_TOL = 1e-4
+BOX_ABS_TOL = 1e-3
+BEV_F16_REL_TOL = 1e-3
+
+
+def surface_cloud(rng, n: int, extent: float, z0: float = -2.0,
+                  z1: float = 2.0):
+    """A max-density surface scene: ground disc, walls, vehicle boxes (the
+    script's own copy of benchmarks/capacity_stress.py:36-63)."""
+    import numpy as np
+    parts = []
+    n_ground = int(n * 0.45)
+    r = extent * np.sqrt(rng.uniform(0, 1, n_ground))
+    th = rng.uniform(0, 2 * np.pi, n_ground)
+    parts.append(np.stack([r * np.cos(th), r * np.sin(th),
+                           z0 + rng.normal(0, 0.03, n_ground)], 1))
+    n_wall = int(n * 0.35)
+    for seg in np.array_split(np.arange(n_wall), 12):
+        cx, cy = rng.uniform(-extent * 0.9, extent * 0.9, 2)
+        ang = rng.uniform(0, np.pi)
+        along = rng.uniform(-8, 8, len(seg))
+        parts.append(np.stack(
+            [cx + along * np.cos(ang) + rng.normal(0, 0.02, len(seg)),
+             cy + along * np.sin(ang) + rng.normal(0, 0.02, len(seg)),
+             rng.uniform(z0, z1, len(seg))], 1))
+    n_box = n - n_ground - n_wall
+    for seg in np.array_split(np.arange(n_box), 24):
+        cx, cy = rng.uniform(-extent * 0.8, extent * 0.8, 2)
+        parts.append(np.stack(
+            [cx + rng.uniform(-2.2, 2.2, len(seg)),
+             cy + rng.uniform(-1.0, 1.0, len(seg)),
+             z0 + rng.uniform(0, 1.8, len(seg))], 1))
+    pts = np.concatenate(parts)[:n]
+    return np.concatenate([pts, rng.uniform(0, 1, (len(pts), 1))],
+                          1).astype(np.float32)
+
+
+def lidar_cloud(cfg, seed: int = 0):
+    """(points [max_points, 4] float32, n): a seeded surface cloud of
+    LIDAR_POINTS points over +-54 m, zero-padded to the voxelizer's
+    max_points."""
+    import numpy as np
+    pts = surface_cloud(np.random.default_rng(seed), LIDAR_POINTS, 54.0)
+    out = np.zeros((cfg.voxelize.max_points, 4), np.float32)
+    out[:len(pts)] = pts
+    return out, len(pts)
+
+
+def write_sweeps(root, clouds, version: str = "v1.0-mini") -> list:
+    """Minimal nuScenes tables under root/version for `clouds` ([N, 4]
+    arrays): one keyframe sample each, its LIDAR_TOP sweep written as a
+    .pcd.bin of N x 5 float32 (x, y, z, intensity, ring 0). Returns the
+    sample tokens."""
+    import numpy as np
+    root = pathlib.Path(root)
+    (root / version).mkdir(parents=True, exist_ok=True)
+    (root / "samples" / "LIDAR_TOP").mkdir(parents=True, exist_ok=True)
+    samples, sweeps = [], []
+    for i, pts in enumerate(clouds):
+        name = f"samples/LIDAR_TOP/sweep{i}.pcd.bin"
+        raw = np.zeros((len(pts), 5), np.float32)
+        raw[:, :4] = pts[:, :4]
+        raw.tofile(root / name)
+        samples.append(dict(token=f"sample-{i}", scene_token="scene-0",
+                            timestamp=i, prev="", next=""))
+        sweeps.append(dict(token=f"sd-{i}", sample_token=f"sample-{i}",
+                           calibrated_sensor_token="cs-lidar",
+                           ego_pose_token=f"pose-{i}", filename=name,
+                           fileformat="pcd", is_key_frame=True,
+                           timestamp=i, prev="", next=""))
+    tables = dict(
+        category=[], instance=[], sample_annotation=[],
+        ego_pose=[dict(token=f"pose-{i}", translation=[0.0, 0.0, 0.0],
+                       rotation=[1.0, 0.0, 0.0, 0.0], timestamp=i)
+                  for i in range(len(clouds))],
+        scene=[dict(token="scene-0", name="scene-0000", log_token="log-0",
+                    nbr_samples=len(clouds),
+                    first_sample_token=samples[0]["token"],
+                    last_sample_token=samples[-1]["token"])],
+        sensor=[dict(token="sensor-lidar", channel="LIDAR_TOP",
+                     modality="lidar")],
+        calibrated_sensor=[dict(token="cs-lidar", sensor_token="sensor-lidar",
+                                translation=[0.0, 0.0, 0.0],
+                                rotation=[1.0, 0.0, 0.0, 0.0],
+                                camera_intrinsic=[])],
+        sample=samples, sample_data=sweeps)
+    for name, rows in tables.items():
+        (root / version / f"{name}.json").write_text(json.dumps(rows))
+    return [s["token"] for s in samples]
+
+
+def lidar_detector(torch, cfg, device):
+    """The producer at default_config()'s width with seeded weights, the
+    heatmap and size biases set as BEV_REL_TOL's note says."""
+    from lvv_tpu_torch.models.voxelnext import VoxelNeXtDetector
+    det = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize,
+                            device=device, seed=0)
+    with torch.no_grad():
+        det.head.hm_head_bias.fill_(-1.0)
+        det.head.dim_head_bias.fill_(-1.5)
+    return det
+
+
+def produce(torch, det, pts, n, trace=None):
+    """points -> (the forward's dict, detections), synchronised."""
+    from lvv_tpu_torch.models.voxelnext import decode_detections
+    with torch.no_grad():
+        out = det(pts, n, trace=trace)
+        dets = decode_detections(out["preds"], det.det_cfg, det.vox_cfg,
+                                 det.det_cfg.spatial_stride)
+    if pts.is_cuda:
+        torch.cuda.synchronize()
+    return out, dets
+
+
+def lidar_stage_s(torch, det, pts, n) -> dict:
+    """One producer call on the card stage by stage, each ending in a
+    synchronise: seconds of voxelize, backbone (its dense BEV included),
+    head, decode + NMS."""
+    from lvv_tpu_torch.models.voxelnext import decode_detections
+    from lvv_tpu_torch.ops.sparse import to_dense
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return res
+
+    def backbone(st):
+        bev = det.backbone(st)
+        to_dense(bev)
+        return bev
+    with torch.no_grad():
+        st = timed("voxelize", lambda: det.voxelize(pts, n))
+        bev = timed("backbone", lambda: backbone(st))
+        preds = timed("head", lambda: det.head(bev))
+        timed("decode_nms", lambda: decode_detections(
+            preds, det.det_cfg, det.vox_cfg, det.det_cfg.spatial_stride))
+    return out
+
+
+def by_position(dets):
+    """The kept boxes [count, 9] on the host, ordered by (x, y)."""
+    import numpy as np
+    boxes = dets.boxes[:int(dets.count)].cpu().numpy()
+    return boxes[np.lexsort((boxes[:, 1], boxes[:, 0]))]
+
+
+def run_precompute(torch, clouds, want_bev) -> dict:
+    """The port's precompute_bev as a subprocess over 2 sweeps under
+    LIDAR_DIR: two float16 [128, 180, 180] files (the first held to
+    `want_bev`, the card's BEV of the same cloud and seed), then a rerun
+    that skips both."""
+    import numpy as np
+    shutil.rmtree(LIDAR_DIR, ignore_errors=True)
+    root, out = LIDAR_DIR / "nusc", LIDAR_DIR / "bev"
+    tokens = write_sweeps(root, clouds)
+    cmd = [sys.executable, "-m", "lvv_tpu_torch.tools.precompute_bev",
+           "--dataroot", str(root), "--version", "v1.0-mini", "--out",
+           str(out), "--split", "val", "--batch", "2"]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(REPO)))
+        runs.append((proc, time.perf_counter() - t0))
+        if proc.returncode:
+            raise AssertionError(f"precompute_bev exit {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+    files = [out / "val" / f"{t}.npy" for t in tokens]
+    bevs = [np.load(f) for f in files]
+    first = torch.from_numpy(bevs[0].astype(np.float32))
+    checks = {
+        "files": all(b.shape == (128, 180, 180) and b.dtype == np.float16
+                     and np.isfinite(b).all() for b in bevs),
+        "first run wrote 2": "2 samples to process" in runs[0][0].stdout,
+        "rerun skipped both": "0 samples to process" in runs[1][0].stdout}
+    f16_rel = rel_l2(first, want_bev.cpu())
+    checks["first file = the card's BEV"] = f16_rel <= BEV_F16_REL_TOL
+    if not all(checks.values()):
+        raise AssertionError(f"precompute_bev: {checks} (rel L2 {f16_rel}); "
+                             f"{runs[0][0].stdout[-1000:]}")
+    shutil.rmtree(LIDAR_DIR)
+    return dict(checks=checks, first_file_rel_l2=f16_rel,
+                stdout=runs[0][0].stdout.strip().splitlines(),
+                run_s=runs[0][1], rerun_s=runs[1][1])
+
+
+def run_lidar_bev(torch, model) -> dict:
+    """The LiDAR BEV producer at default_config()'s full width on the card
+    (300,000 points, 160,000 voxels, [128, 180, 180] out): p50 of 3 runs of
+    each stage after a warm-up, the whole call's p50, peak memory, one
+    profiled call's device busy and idle; each stage's demand against its
+    capacity (telemetry on); the same cloud and weights through the port on
+    the CPU (ids, BEV, detections); the BEV through greedy_generate of the
+    float model `model` (launches as derived, logits against the plain
+    kernels); the precompute tool as a subprocess."""
+    from lvv_tpu_torch import default_config, greedy_generate, kernels
+    from lvv_tpu_torch.ops import sparse as S
+    cfg = default_config()
+    pts_np, n = lidar_cloud(cfg)
+    det = lidar_detector(torch, cfg, "cuda")
+    pts = torch.from_numpy(pts_np).to(det.device)
+    produce(torch, det, pts, n)                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    trace = []
+    t0 = time.perf_counter()
+    out, dets = produce(torch, det, pts, n, trace)
+    call_s = [time.perf_counter() - t0]
+    peak = torch.cuda.max_memory_allocated()
+    bev = out["bev_dense"]
+    nx, ny, _ = det.voxel_grid().grid_size
+    stride = cfg.model.voxelnext.spatial_stride
+    shape = (cfg.model.voxelnext.out_channels, ny // stride, nx // stride)
+    if tuple(bev.shape) != shape or not torch.isfinite(bev).all():
+        raise AssertionError(f"bev_dense {tuple(bev.shape)}: not finite "
+                             f"{list(shape)}")
+    # the BEV into the VQA model: launches counted from the producer's run
+    args = [torch.as_tensor(a, device=bev.device)
+            for a in bench_inputs(model.cfg)]
+    args[0] = bev[None]
+    toks, lens = greedy_generate(model, *args, max_new_tokens=NEW_TOKENS,
+                                 eos_id=EOS_ID)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    if counts != expected_launches(model.cfg):
+        raise AssertionError(f"lidar-bev launches {counts} != expected "
+                             f"{expected_launches(model.cfg)}")
+    vqa, _ = against_plain_kernels(torch, model, args, None)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        produce(torch, det, pts, n)
+        call_s.append(time.perf_counter() - t0)
+    stages = [lidar_stage_s(torch, det, pts, n) for _ in range(3)]
+    stage_p50 = {k: sorted(s[k] for s in stages)[1] for k in stages[0]}
+    device = device_busy(torch, lambda: produce(torch, det, pts, n))
+    S.reset_overflow_log()
+    S.set_overflow_debug(True)
+    try:
+        produce(torch, det, pts, n)
+    finally:
+        S.set_overflow_debug(False)
+    capacity = S.overflow_log()
+    S.reset_overflow_log()
+    # the same cloud and weights through the port on the CPU
+    cpu = lidar_detector(torch, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    trace_cpu = []
+    t0 = time.perf_counter()
+    out_cpu, dets_cpu = produce(torch, cpu, torch.from_numpy(pts_np), n,
+                                trace_cpu)
+    cpu_s = time.perf_counter() - t0
+    ids_equal = {name: torch.equal(a.ids.cpu(), b.ids)
+                 for (name, a), (_, b) in zip(trace, trace_cpu)}
+    bev_rel = rel_l2(bev.cpu(), out_cpu["bev_dense"])
+    boxes, boxes_cpu = by_position(dets), by_position(dets_cpu)
+    box_err = (float(abs(boxes - boxes_cpu).max())
+               if boxes.shape == boxes_cpu.shape and len(boxes) else None)
+    checks = {"stage ids equal": all(ids_equal.values()),
+              "bev within BEV_REL_TOL": bev_rel <= BEV_REL_TOL,
+              "detection count": int(dets.count) == int(dets_cpu.count),
+              "boxes within BOX_ABS_TOL": box_err is not None
+              and box_err <= BOX_ABS_TOL}
+    if not all(checks.values()):
+        raise AssertionError(f"lidar-bev vs the CPU: {checks}; ids "
+                             f"{ids_equal}, bev rel L2 {bev_rel}, counts "
+                             f"{int(dets.count)} / {int(dets_cpu.count)}, "
+                             f"box err {box_err}")
+    del cpu, out_cpu, dets_cpu, trace_cpu
+    active = {name: int(t.num_active()) for name, t in trace}
+    report = dict(
+        points=n, voxels=active["stage1"], grid=list(det.voxel_grid().grid_size),
+        capacities=[cfg.voxelize.max_voxels, *det.backbone.capacities],
+        active_sites=active, bev_shape=list(bev.shape),
+        call_s=sorted(call_s), call_p50_s=sorted(call_s)[1],
+        stage_p50_s=stage_p50, peak_mem_gib=peak / 2 ** 30, **device,
+        device_idle_share=1 - device["device_busy_s"] / sorted(call_s)[1],
+        capacity_demand={k: v for k, v in sorted(capacity.items())},
+        checks=checks, stage_ids_equal_cpu=ids_equal,
+        bev_rel_l2_vs_cpu=bev_rel, detections=int(dets.count),
+        box_max_abs_vs_cpu=box_err, cpu_call_s=cpu_s,
+        tokens=toks[0].tolist(), launches=counts, **vqa)
+    second, n2 = lidar_cloud(cfg, seed=1)
+    report["precompute_bev"] = run_precompute(
+        torch, [pts_np[:n], second[:n2]], bev)
+    return report
+
+
 # kernels printed by device_busy wherever they rank: PyTorch's bf16 adds
 # (the residual adds that K-a's add form takes in) and K-a itself
 # ---------------------------------------------------------------- training --
@@ -2991,8 +3350,11 @@ def main() -> int:
     clock[0] = time.perf_counter()
     torch.cuda.empty_cache()
     paths = {}
-    paths["float"], float_logits = run_float_path(torch)
+    paths["float"], float_logits, model = run_float_path(torch)
     emit("main-path", paths["float"])
+    paths["lidar-bev"] = run_lidar_bev(torch, model)
+    emit("lidar-bev", paths["lidar-bev"])
+    del model
     torch.cuda.empty_cache()
     served = serving_model(torch)
     paths["serving"], mlp_logits = run_serving_path(
@@ -3012,7 +3374,7 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     large = f"sam{LARGE}"
-    paths[large], large_logits = run_float_path(torch, LARGE)
+    paths[large], large_logits, _ = run_float_path(torch, LARGE)
     emit(f"main-path[{large}]", paths[large])
     torch.cuda.empty_cache()
     served = serving_model(torch, LARGE)

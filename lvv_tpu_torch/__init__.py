@@ -15,7 +15,11 @@ continuous-batching `ContinuousServingEngine`, and the CLIs
 on one card (`train`: the five-group AdamW, the train step with fp32
 masters, checkpoints, the `Trainer`, `python -m
 lvv_tpu_torch.tools.train_vqa`), differentiating through the kernels by
-their autograd Functions (`ops.autograd`). Entry points run on the card
+their autograd Functions (`ops.autograd`); and the LiDAR BEV producer
+(`models.voxelnext.VoxelNeXtDetector` on the sparse ops `ops.voxelize`,
+`ops.sparse`, `ops.nms`; `python -m lvv_tpu_torch.tools.precompute_bev`),
+which makes the model's [128, 180, 180] BEV input from a point cloud.
+Entry points run on the card
 unless given `device="cpu"`, where every kernel wrapper computes its plain
 PyTorch version.
 """

@@ -8,6 +8,12 @@ kernel) become torch OIHW. Dense kernels stay [in, out] and embedding
 tables [V, D]. A leaf with no port parameter, a shape that does not match,
 or a port parameter left unfilled raises.
 
+`from_jax_detector_params` does the same for the JAX package's
+VoxelNeXtDetector variables, `{"params": ..., "batch_stats": ...}` (the
+running statistics of the "bn" norm, when the config has it): the port's
+buffers take the `batch_stats` leaves, its sparse conv kernels keep the
+[K, Cin, Cout] layout.
+
 `merge` overlays a partial state_dict from one of the checkpoint converters
 (`convert_*_state`) onto a model's, with the same shape checks.
 """
@@ -18,7 +24,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, VoxelizeConfig, VoxelNeXtConfig
 from ..models.layers import resolve_device
 
 
@@ -77,12 +83,32 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, *,
     (the card unless told otherwise), in the arrays' own dtype
     (`load_state_dict` casts to the model's)."""
     from ..models.vqa import VQAModel
-    device = resolve_device(device)
     flat = _flatten(params)
     # the port model built on the meta device lists every parameter to fill
     ref = VQAModel(cfg, dtype=torch.float32, device="meta",
                    llm_lora_rank=_lora_rank(flat, "llm."),
                    clip_lora_rank=_lora_rank(flat, "deepencoder.clip."))
+    return _convert(flat, ref, resolve_device(device))
+
+
+def from_jax_detector_params(variables: Mapping, det_cfg: VoxelNeXtConfig,
+                             vox_cfg: VoxelizeConfig, *,
+                             device=None) -> Dict[str, torch.Tensor]:
+    """JAX VoxelNeXtDetector variables ({"params"} and, with norm "bn",
+    {"batch_stats"}) -> the port's VoxelNeXtDetector(det_cfg, vox_cfg)
+    state_dict, on `device` (the card unless told otherwise)."""
+    from ..models.voxelnext import VoxelNeXtDetector
+    flat = {**_flatten(variables["params"]),
+            **_flatten(variables.get("batch_stats", {}))}
+    ref = VoxelNeXtDetector(det_cfg, vox_cfg, device="meta")
+    return _convert(flat, ref, resolve_device(device))
+
+
+def _convert(flat: Dict[str, np.ndarray], ref: torch.nn.Module,
+             device) -> Dict[str, torch.Tensor]:
+    """Flat JAX leaves -> tensors under the state_dict keys of `ref` (a
+    model on the meta device), each checked against its shape; every key
+    of `ref` must be filled."""
     expected = {k: tuple(v.shape) for k, v in ref.state_dict().items()}
     out = {}
     for key, arr in flat.items():

@@ -42,10 +42,10 @@ launches: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "lvv_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _P],
+    "lvv_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _I, _P],
     "lvv_flash_attention": [_P] * 7 + [_I] * 8 + [_F, _P, _P],
     "lvv_relpos_attention": [_P] * 7 + [_I] * 13 + [_F, _P],
-    "lvv_ln_mlp_residual_q8": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
+    "lvv_ln_mlp_residual_q8": [_P] * 17 + [_I] * 4 + [_F, _I, _I, _P],
     "lvv_ln_mlp_residual_q8_weight": [_P] * 4 + [_I] * 3 + [_P],
     "lvv_int8_matmul": [_P] * 4 + [_I] * 11 + [_P],
     "lvv_int8_matmul_nk": [_P] * 4 + [_I] * 7 + [_P],
@@ -58,7 +58,7 @@ _ARGTYPES = {
     "lvv_pv8_quantize_v": [_P] * 2 + [_I] * 5 + [_P] * 4,
     "lvv_window_attention_rows": [_P] * 9 + [_I] * 6 + [_F, _P],
     "lvv_qr_prep": [_P] * 5 + [_I] * 8 + [_F, _P],
-    "lvv_norm": [_P] * 6 + [_I] * 2 + [_F] + [_I] * 2 + [_P],
+    "lvv_norm": [_P] * 6 + [_I] * 2 + [_F] + [_I] * 3 + [_P],
 }
 # C entry points beside a library's own `lvv_{name}`
 _ENTRIES = {"ln_mlp_residual_q8": ("lvv_ln_mlp_residual_q8_weight",),

@@ -42,6 +42,10 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
+// a norm parameter, bf16 or fp32, as a float
+__device__ __forceinline__ float param_f(bf16 v) { return bf(v); }
+__device__ __forceinline__ float param_f(float v) { return v; }
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }

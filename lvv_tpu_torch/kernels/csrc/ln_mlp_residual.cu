@@ -1,4 +1,5 @@
-// Fused pre-LN transformer MLP for the port (bf16 in and out):
+// Fused pre-LN transformer MLP for the port (bf16 in and out; the LN's
+// scale and bias bf16 or fp32):
 //   out = x + act(LN(x) @ W1 + b1) @ W2 + b2
 // with the LayerNorm and both accumulations in fp32, act = tanh-GELU (SAM)
 // or x / (1 + exp(-1.702 x)) (CLIP's QuickGELU).
@@ -39,11 +40,12 @@
 using namespace sm90;
 
 // y = bf16(LN(x)), one warp per row; each lane holds NI groups of 4
-// columns (C = 128 NI).
-template <int NI>
+// columns (C = 128 NI). ls / lb of type P: bf16, or fp32 as the model
+// keeps them.
+template <int NI, typename P>
 __global__ void __launch_bounds__(256)
-mlp_ln_bf16(const bf16* __restrict__ x, const bf16* __restrict__ ls,
-            const bf16* __restrict__ lb, bf16* __restrict__ y, int n,
+mlp_ln_bf16(const bf16* __restrict__ x, const P* __restrict__ ls,
+            const P* __restrict__ lb, bf16* __restrict__ y, int n,
             float eps) {
   constexpr int C = NI * 128;
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -77,7 +79,8 @@ mlp_ln_bf16(const bf16* __restrict__ x, const bf16* __restrict__ ls,
     float o[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      o[k] = (v[i][k] - mean) * rstd * bf(ls[c + k]) + bf(lb[c + k]);
+      o[k] = (v[i][k] - mean) * rstd * param_f(ls[c + k]) +
+             param_f(lb[c + k]);
     *reinterpret_cast<uint2*>(y + (long long)row * C + c) =
         make_uint2(pack_f32(o[0], o[1]), pack_f32(o[2], o[3]));
   }
@@ -142,14 +145,19 @@ struct EpiResidual {
 
 template <int NI>
 static int launch_ln(const void* x, const void* ls, const void* lb, void* y,
-                     int n, float eps, cudaStream_t st) {
-  mlp_ln_bf16<NI><<<(n + 7) / 8, 256, 0, st>>>(
-      (const bf16*)x, (const bf16*)ls, (const bf16*)lb, (bf16*)y, n, eps);
+                     int n, float eps, int pfp32, cudaStream_t st) {
+  if (pfp32)
+    mlp_ln_bf16<NI, float><<<(n + 7) / 8, 256, 0, st>>>(
+        (const bf16*)x, (const float*)ls, (const float*)lb, (bf16*)y, n, eps);
+  else
+    mlp_ln_bf16<NI, bf16><<<(n + 7) / 8, 256, 0, st>>>(
+        (const bf16*)x, (const bf16*)ls, (const bf16*)lb, (bf16*)y, n, eps);
   return (int)cudaGetLastError();
 }
 
-// x / out [n, c], ls / lb / b2 [c], w1 [c, h], b1 [h], w2 [h, c], all
-// contiguous bf16, 16-byte aligned; y [n, c] and hb [n, h] bf16 scratch.
+// x / out [n, c], b2 [c], w1 [c, h], b1 [h], w2 [h, c], all contiguous
+// bf16, 16-byte aligned; ls / lb [c] bf16 (pfp32 = 0) or fp32 (pfp32 = 1);
+// y [n, c] and hb [n, h] bf16 scratch.
 // c a multiple of 128 up to 1024, h a multiple of 64. act 0 = tanh GELU,
 // 1 = QuickGELU; bn2 the second product's tile width, 128 or 256. Returns
 // a cudaError_t (0 on success).
@@ -158,7 +166,8 @@ extern "C" int lvv_ln_mlp_residual(const void* x, const void* ls,
                                    const void* b1, const void* w2,
                                    const void* b2, void* out, void* y,
                                    void* hb, int n, int c, int h, float eps,
-                                   int act, int bn2, void* stream) {
+                                   int act, int bn2, int pfp32,
+                                   void* stream) {
   if (n <= 0 || c % 128 || c > 1024 || h <= 0 || h % 64 || act < 0 ||
       act > 1 || (bn2 != 128 && bn2 != 256))
     return (int)cudaErrorInvalidValue;
@@ -167,7 +176,7 @@ extern "C" int lvv_ln_mlp_residual(const void* x, const void* ls,
   switch (c / 128) {
 #define LVV_LN(NI) \
   case NI:         \
-    e = launch_ln<NI>(x, ls, lb, y, n, eps, st); \
+    e = launch_ln<NI>(x, ls, lb, y, n, eps, pfp32, st); \
     break;
     LVV_LN(1) LVV_LN(2) LVV_LN(3) LVV_LN(4)
     LVV_LN(5) LVV_LN(6) LVV_LN(7) LVV_LN(8)

@@ -59,11 +59,12 @@
 using namespace sm90;
 
 // LayerNorm (fp32) and per-row int8 quantization, one warp per row; each
-// lane holds NI groups of 4 columns (C = 128 NI).
-template <int NI>
+// lane holds NI groups of 4 columns (C = 128 NI). ls / lb of type P: bf16,
+// or fp32 as the model keeps them.
+template <int NI, typename P>
 __global__ void __launch_bounds__(256)
-mlp_ln_q8(const bf16* __restrict__ x, const bf16* __restrict__ ls,
-          const bf16* __restrict__ lb, signed char* __restrict__ y8,
+mlp_ln_q8(const bf16* __restrict__ x, const P* __restrict__ ls,
+          const P* __restrict__ lb, signed char* __restrict__ y8,
           float* __restrict__ sy, int n, float eps) {
   constexpr int C = NI * 128;
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -98,8 +99,8 @@ mlp_ln_q8(const bf16* __restrict__ x, const bf16* __restrict__ ls,
     for (int k = 0; k < 4; ++k) {
       const int c = 128 * i + 4 * lane + k;
       v[i][k] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][k] - mean, rstd),
-                                    bf(ls[c])),
-                          bf(lb[c]));
+                                    param_f(ls[c])),
+                          param_f(lb[c]));
       amax = fmaxf(amax, fabsf(v[i][k]));
     }
   const float s = row_scale(warp_max(amax));
@@ -260,14 +261,21 @@ mlp_combine(const float* __restrict__ part, const bf16* __restrict__ x,
 
 template <int NI>
 static int launch_ln(const void* x, const void* ls, const void* lb,
-                     void* y8, void* sy, int n, float eps, cudaStream_t st) {
-  mlp_ln_q8<NI><<<(n + 7) / 8, 256, 0, st>>>(
-      (const bf16*)x, (const bf16*)ls, (const bf16*)lb, (signed char*)y8,
-      (float*)sy, n, eps);
+                     void* y8, void* sy, int n, float eps, int pfp32,
+                     cudaStream_t st) {
+  if (pfp32)
+    mlp_ln_q8<NI, float><<<(n + 7) / 8, 256, 0, st>>>(
+        (const bf16*)x, (const float*)ls, (const float*)lb, (signed char*)y8,
+        (float*)sy, n, eps);
+  else
+    mlp_ln_q8<NI, bf16><<<(n + 7) / 8, 256, 0, st>>>(
+        (const bf16*)x, (const bf16*)ls, (const bf16*)lb, (signed char*)y8,
+        (float*)sy, n, eps);
   return (int)cudaGetLastError();
 }
 
-// x / out [n, c] bf16; ls / lb / b2 [c] bf16; w1t [h, c] and w2t [c, h]
+// x / out [n, c] bf16; ls / lb [c] bf16 (pfp32 = 0) or fp32 (pfp32 = 1);
+// b2 [c] bf16; w1t [h, c] and w2t [c, h]
 // int8 (the per-column quantized W1 [c, h] and W2 [h, c], transposed);
 // s1 [h], s2 [c] fp32; b1 [h] bf16; all contiguous and 16-byte aligned.
 // Scratch: y8 [n, c] int8, sy [n] fp32, hb [n, h] bf16, pmax [n, h / 64]
@@ -281,7 +289,7 @@ extern "C" int lvv_ln_mlp_residual_q8(
     const void* s1, const void* b1, const void* w2t, const void* s2,
     const void* b2, void* out, void* y8, void* sy, void* hb, void* pmax,
     void* h8, void* sh, void* part, int n, int c, int h, int bh, float eps,
-    int act, void* stream) {
+    int act, int pfp32, void* stream) {
   if (n <= 0 || c % 128 || c > 1024 || bh <= 0 || bh % 64 || bh > 4096 ||
       h % bh || act < 0 || act > 1 || (h / bh > 1 && !part))
     return (int)cudaErrorInvalidValue;
@@ -290,7 +298,7 @@ extern "C" int lvv_ln_mlp_residual_q8(
   switch (c / 128) {
 #define LVV_LN(NI) \
   case NI:         \
-    e = launch_ln<NI>(x, ls, lb, y8, sy, n, eps, st); \
+    e = launch_ln<NI>(x, ls, lb, y8, sy, n, eps, pfp32, st); \
     break;
     LVV_LN(1) LVV_LN(2) LVV_LN(3) LVV_LN(4)
     LVV_LN(5) LVV_LN(6) LVV_LN(7) LVV_LN(8)

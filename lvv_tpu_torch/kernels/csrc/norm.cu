@@ -1,5 +1,5 @@
 // Row LayerNorm / RMSNorm, alone or after a residual add (bf16 or fp32 in
-// and out, fp32 math):
+// and out, fp32 math; the scale and bias of x's type or fp32):
 //   row form:  n = norm(x)
 //   add form:  s = T(x + y)          (fp32 sum, one rounding to x's type:
 //                                     bit-equal to PyTorch's x + y)
@@ -40,6 +40,12 @@
 //   - A width that is not a whole number of 16-byte vectors, or a pointer
 //     off 16 bytes, takes norm_elem_kernel: one element at a time, each
 //     pass reading the row again (through L1).
+//   - fp32 parameters beside bf16 x (the model keeps its norms' parameters
+//     in fp32, as the JAX package does): a vector of 8 bf16 elements takes
+//     its 8 scales (and biases) in two 16-byte loads. Held in registers
+//     from the start, a four-vector thread would carry 64 registers of
+//     them, so that form reads them in the epilogue (through L1) instead;
+//     the one-vector form still loads them with x.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +83,34 @@ __device__ __forceinline__ uint4 pack_vec(const float (&v)[vec_elems<T>()]) {
     else e[i] = v[i];
   }
   return r;
+}
+
+// 16-byte vectors of P that hold the parameters of one vector of T
+template <typename T, typename P>
+__host__ __device__ constexpr int param_vecs() {
+  return vec_elems<T>() / vec_elems<P>();
+}
+
+// the vec_elems<T>() parameters at p + off, as loaded
+template <typename T, typename P>
+__device__ __forceinline__ void load_params(uint4 (&r)[param_vecs<T, P>()],
+                                            const P* p, int off) {
+#pragma unroll
+  for (int w = 0; w < param_vecs<T, P>(); ++w)
+    r[w] = *reinterpret_cast<const uint4*>(p + off + w * vec_elems<P>());
+}
+
+// loaded parameters -> floats
+template <typename T, typename P>
+__device__ __forceinline__ void params_float(
+    float (&v)[vec_elems<T>()], const uint4 (&r)[param_vecs<T, P>()]) {
+#pragma unroll
+  for (int w = 0; w < param_vecs<T, P>(); ++w) {
+    float t[vec_elems<P>()];
+    to_float<P>(t, r[w]);
+#pragma unroll
+    for (int i = 0; i < vec_elems<P>(); ++i) v[w * vec_elems<P>() + i] = t[i];
+  }
 }
 
 template <typename T>
@@ -118,13 +152,13 @@ __device__ __forceinline__ float team_sum(float v, int tpr, float* red) {
   return t;
 }
 
-template <typename T, int NV, bool RMS, bool ADD, bool PRE>
+template <typename T, typename P, int NV, bool RMS, bool ADD, bool PRE>
 __global__ void __launch_bounds__(kMaxThreads)
     norm_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                const T* __restrict__ scale, const T* __restrict__ bias,
+                const P* __restrict__ scale, const P* __restrict__ bias,
                 T* __restrict__ s_out, T* __restrict__ n_out, int n, int c,
                 float eps, float inv_c, int tpr_log2) {
-  constexpr int E = vec_elems<T>();
+  constexpr int E = vec_elems<T>(), PW = param_vecs<T, P>();
   __shared__ float red[2][32];
   const int tpr = 1 << tpr_log2;
   const int li = threadIdx.x & (tpr - 1);
@@ -134,7 +168,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int nvec = c / E;
   const long long base = row * c;
 
-  uint4 xr[NV], sr[NV], br[NV];
+  uint4 xr[NV], sr[NV][PW], br[NV][PW];
   bool ok[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
@@ -154,8 +188,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int j = 0; j < NV; ++j) {
       if (!ok[j]) continue;
       const int off = (j * tpr + li) * E;
-      sr[j] = *reinterpret_cast<const uint4*>(scale + off);
-      if (!RMS && bias) br[j] = *reinterpret_cast<const uint4*>(bias + off);
+      load_params<T, P>(sr[j], scale, off);
+      if (!RMS && bias) load_params<T, P>(br[j], bias, off);
     }
   }
   if constexpr (ADD) {
@@ -210,13 +244,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (!ok[j]) continue;
     const int off = (j * tpr + li) * E;
     if constexpr (!PRE) {
-      sr[j] = *reinterpret_cast<const uint4*>(scale + off);
-      if (!RMS && bias) br[j] = *reinterpret_cast<const uint4*>(bias + off);
+      load_params<T, P>(sr[j], scale, off);
+      if (!RMS && bias) load_params<T, P>(br[j], bias, off);
     }
     float u[E], sc[E], b[E] = {}, o[E];
     to_float<T>(u, xr[j]);
-    to_float<T>(sc, sr[j]);
-    if (!RMS && bias) to_float<T>(b, br[j]);
+    params_float<T, P>(sc, sr[j]);
+    if (!RMS && bias) params_float<T, P>(b, br[j]);
 #pragma unroll
     for (int e = 0; e < E; ++e)
       o[e] = RMS ? u[e] * rstd * sc[e] : (u[e] - mean) * rstd * sc[e] + b[e];
@@ -227,10 +261,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 // The same function one element at a time, for widths that are not whole
 // 16-byte vectors (or pointers off 16 bytes): each pass reads the row
 // again (the add form: s, which this thread wrote).
-template <typename T, bool RMS, bool ADD>
+template <typename T, typename P, bool RMS, bool ADD>
 __global__ void __launch_bounds__(kMaxThreads)
     norm_elem_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                     const T* __restrict__ scale, const T* __restrict__ bias,
+                     const P* __restrict__ scale, const P* __restrict__ bias,
                      T* s_out, T* __restrict__ n_out, int n, int c, float eps,
                      float inv_c, int tpr_log2) {
   __shared__ float red[2][32];
@@ -294,8 +328,8 @@ static int blocks_for(int n, int tpr) {
   return (n + rpb - 1) / rpb;
 }
 
-template <typename T>
-static int launch(void (*kernel)(const T*, const T*, const T*, const T*, T*,
+template <typename T, typename P>
+static int launch(void (*kernel)(const T*, const T*, const P*, const P*, T*,
                                  T*, int, int, float, float, int),
                   int tpr, const void* x, const void* y, const void* scale,
                   const void* bias, void* s_out, void* n_out, int n, int c,
@@ -303,28 +337,30 @@ static int launch(void (*kernel)(const T*, const T*, const T*, const T*, T*,
   if (tpr > kMaxThreads) return (int)cudaErrorInvalidValue;
   const int rpb = rows_a_block(n, tpr);
   kernel<<<(n + rpb - 1) / rpb, rpb * tpr, 0, st>>>(
-      (const T*)x, (const T*)y, (const T*)scale, (const T*)bias, (T*)s_out,
+      (const T*)x, (const T*)y, (const P*)scale, (const P*)bias, (T*)s_out,
       (T*)n_out, n, c, eps, (float)(1.0 / c), __builtin_ctz(tpr));
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool RMS, bool ADD>
+template <typename T, typename P, bool RMS, bool ADD>
 static int dispatch(bool vec, const void* x, const void* y, const void* scale,
                     const void* bias, void* s_out, void* n_out, int n, int c,
                     float eps, cudaStream_t st) {
 #define LVV_LAUNCH(K, TPR) \
-  launch<T>(K, TPR, x, y, scale, bias, s_out, n_out, n, c, eps, st)
-  if (!vec) return LVV_LAUNCH((norm_elem_kernel<T, RMS, ADD>), team(c, 16));
+  launch<T, P>(K, TPR, x, y, scale, bias, s_out, n_out, n, c, eps, st)
+  if (!vec) return LVV_LAUNCH((norm_elem_kernel<T, P, RMS, ADD>), team(c, 16));
   // a call of a wave or less at one vector a thread: one vector; of a wave
-  // or less at four: four, the scale loaded with x; else four, the scale
-  // through L1
+  // or less at four: four, the scale loaded with x (parameters of x's
+  // type; fp32 ones beside bf16 x through L1, as the last form); else
+  // four, the scale through L1
+  constexpr bool pre4 = param_vecs<T, P>() == 1;
   const int nvec = c / vec_elems<T>();
   const int t1 = team(nvec, 1), t4 = team(nvec, 4);
   if (t1 <= kMaxThreads && blocks_for(n, t1) <= kWave)
-    return LVV_LAUNCH((norm_kernel<T, 1, RMS, ADD, true>), t1);
-  if (blocks_for(n, t4) <= kWave)
-    return LVV_LAUNCH((norm_kernel<T, 4, RMS, ADD, true>), t4);
-  return LVV_LAUNCH((norm_kernel<T, 4, RMS, ADD, false>), t4);
+    return LVV_LAUNCH((norm_kernel<T, P, 1, RMS, ADD, true>), t1);
+  if (pre4 && blocks_for(n, t4) <= kWave)
+    return LVV_LAUNCH((norm_kernel<T, P, 4, RMS, ADD, pre4>), t4);
+  return LVV_LAUNCH((norm_kernel<T, P, 4, RMS, ADD, false>), t4);
 #undef LVV_LAUNCH
 }
 
@@ -332,16 +368,18 @@ static bool aligned16(const void* p) {
   return p == nullptr || ((uintptr_t)p & 15) == 0;
 }
 
-// x, n_out [n, c] contiguous, scale (and bias, LayerNorm) [c], all of one
-// type: bf16 (fp32 = 0) or fp32 (fp32 = 1); c <= 8192. With y (and s_out)
-// [n, c]: the add form, s_out = x + y and n_out = norm(s_out). bias may be
-// null (a LayerNorm without bias); RMSNorm ignores it. Returns a
-// cudaError_t (0 on success).
+// x, n_out [n, c] contiguous, bf16 (fp32 = 0) or fp32 (fp32 = 1); scale
+// (and bias, LayerNorm) [c] of x's type (pfp32 = 0, bf16 x only) or fp32
+// (pfp32 = 1); c <= 8192. With y (and s_out) [n, c] of x's type: the add
+// form, s_out = x + y and n_out = norm(s_out). bias may be null (a
+// LayerNorm without bias); RMSNorm ignores it. Returns a cudaError_t (0 on
+// success).
 extern "C" int lvv_norm(const void* x, const void* y, const void* scale,
                         const void* bias, void* s_out, void* n_out, int n,
-                        int c, float eps, int rms, int fp32, void* stream) {
+                        int c, float eps, int rms, int fp32, int pfp32,
+                        void* stream) {
   if (!x || !scale || !n_out || n < 0 || c <= 0 || c > 8192 ||
-      (!y) != (!s_out))
+      (!y) != (!s_out) || (fp32 && !pfp32))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int esize = fp32 ? 4 : 2;
@@ -349,14 +387,14 @@ extern "C" int lvv_norm(const void* x, const void* y, const void* scale,
                    aligned16(scale) && aligned16(rms ? nullptr : bias) &&
                    aligned16(s_out) && aligned16(n_out);
   cudaStream_t st = (cudaStream_t)stream;
-#define LVV_NORM(T, R, A) \
-  dispatch<T, R, A>(vec, x, y, scale, bias, s_out, n_out, n, c, eps, st)
+#define LVV_NORM(T, P, R, A) \
+  dispatch<T, P, R, A>(vec, x, y, scale, bias, s_out, n_out, n, c, eps, st)
+#define LVV_NORM_RA(T, P)                                          \
+  (rms ? (add ? LVV_NORM(T, P, true, true) : LVV_NORM(T, P, true, false)) \
+       : (add ? LVV_NORM(T, P, false, true) : LVV_NORM(T, P, false, false)))
   const bool add = y != nullptr;
-  if (fp32) {
-    if (rms) return add ? LVV_NORM(float, true, true) : LVV_NORM(float, true, false);
-    return add ? LVV_NORM(float, false, true) : LVV_NORM(float, false, false);
-  }
-  if (rms) return add ? LVV_NORM(bf16, true, true) : LVV_NORM(bf16, true, false);
-  return add ? LVV_NORM(bf16, false, true) : LVV_NORM(bf16, false, false);
+  if (fp32) return LVV_NORM_RA(float, float);
+  return pfp32 ? LVV_NORM_RA(bf16, float) : LVV_NORM_RA(bf16, bf16);
+#undef LVV_NORM_RA
 #undef LVV_NORM
 }

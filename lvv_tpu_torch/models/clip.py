@@ -22,8 +22,8 @@ from torch import nn
 
 from ..config import q8_scope
 from ..ops import fused_mlp
-from .layers import (Dense, LayerNorm, MultiHeadAttention, new_param,
-                     quick_gelu, resize_1d)
+from .layers import (PARAM_FP32, Dense, LayerNorm, MultiHeadAttention,
+                     new_param, quick_gelu, resize_1d)
 
 
 def resample_abs_pos(pos: torch.Tensor, tgt_hw: int) -> torch.Tensor:
@@ -87,8 +87,9 @@ class CLIPVisionTower(nn.Module):
                 ("lecun", 3 * patch_size * patch_size), **kw)
         n_pos = (image_size // patch_size) ** 2 + 1
         self.cls_token = new_param((hidden_size,), ("normal", 0.02), **kw)
+        # fp32 as in the JAX package, which resamples the fp32 table
         self.pos_embed = new_param((n_pos, hidden_size), ("normal", 0.02),
-                                   **kw)
+                                   dtype=PARAM_FP32, device=device)
         self.pre_ln = LayerNorm(hidden_size, layer_norm_eps, **kw)
         for i in range(num_layers):
             setattr(self, f"layer_{i}", CLIPEncoderLayer(

@@ -4,6 +4,11 @@ Conventions:
 - parameters are created in the model's dtype (bf16 on the card, fp32 in
   the CPU tests) and named as in the JAX param tree, so a flattened JAX tree
   and the port's state_dict share their keys (`convert.from_jax_params`);
+  the exceptions are the parameters that the JAX package reads in fp32
+  before any rounding: the norms' scales and biases (`LayerNorm`,
+  `RMSNorm`: JAX's norms take its fp32 parameters as they are) and CLIP's
+  position table (resampled in fp32), which are fp32 whatever the model's
+  dtype (`PARAM_FP32`);
 - a Dense kernel keeps the JAX layout [in, out] (y = x @ kernel);
 - parameters are random from a seed, drawn as flax's initialisers draw them
   (`init_parameters`), and made with requires_grad False: training marks
@@ -30,6 +35,8 @@ from ..ops.fused_mlp import add_norm_fast, norm_fast
 # flax's lecun_normal draws a normal truncated at +-2 and divides by the
 # standard deviation of that truncated distribution
 _TRUNC_STD = 0.87962566103423978
+# the dtype of the parameters that the JAX package reads in fp32
+PARAM_FP32 = torch.float32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,7 +53,9 @@ def resolve_device(device=None) -> torch.device:
 
 def new_param(shape, init, *, dtype, device) -> nn.Parameter:
     """An uninitialised parameter that remembers how flax would draw it:
-    init is "zeros", "ones", ("normal", std) or ("lecun", fan_in)."""
+    init is "zeros", "ones", ("constant", value), ("normal", std),
+    ("lecun", fan_in) or ("he", fan_in) (he_normal: lecun's truncated
+    normal at twice the variance)."""
     p = nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                      requires_grad=False)
     p.lvv_init = init
@@ -68,13 +77,16 @@ def init_parameters(module: nn.Module, seed: int) -> None:
             p.zero_()
         elif init == "ones":
             p.fill_(1.0)
+        elif init[0] == "constant":
+            p.fill_(init[1])
         else:
             kind, arg = init
             t = torch.empty(p.shape, dtype=torch.float32, device=p.device)
             if kind == "normal":
                 t.normal_(0.0, arg, generator=gen)
             else:
-                std = math.sqrt(1.0 / arg) / _TRUNC_STD
+                gain = 2.0 if kind == "he" else 1.0
+                std = math.sqrt(gain / arg) / _TRUNC_STD
                 nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                       generator=gen)
             p.copy_(t)
@@ -136,25 +148,29 @@ def resize_1d(x: torch.Tensor, axis: int, out_size: int,
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with fp32 internals (kernel K-a on the card)."""
+    """LayerNorm with fp32 internals (kernel K-a on the card); scale and
+    bias in fp32 whatever the model's `dtype`."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, dtype, device):
         super().__init__()
         self.eps = eps
-        self.scale = new_param((dim,), "ones", dtype=dtype, device=device)
-        self.bias = new_param((dim,), "zeros", dtype=dtype, device=device)
+        kw = dict(dtype=PARAM_FP32, device=device)
+        self.scale = new_param((dim,), "ones", **kw)
+        self.bias = new_param((dim,), "zeros", **kw)
 
     def forward(self, x):
         return norm_fast(x, self.scale, self.bias, eps=self.eps)
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm (Qwen2-style), fp32 internals (kernel K-a on the card)."""
+    """RMSNorm (Qwen2-style), fp32 internals (kernel K-a on the card);
+    the scale in fp32 whatever the model's dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, dtype, device):
         super().__init__()
         self.eps = eps
-        self.scale = new_param((dim,), "ones", dtype=dtype, device=device)
+        self.scale = new_param((dim,), "ones", dtype=PARAM_FP32,
+                               device=device)
 
     def forward(self, x):
         return norm_fast(x, self.scale, eps=self.eps, rms=True)

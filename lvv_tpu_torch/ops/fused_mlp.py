@@ -10,6 +10,9 @@
 - `norm_fast`, `add_norm_fast` and `kernel_ok` keep the JAX package's
   dispatch: the kernel for lane-aligned widths (multiples of 128), the
   plain path otherwise.
+- The norms' scale and bias (K-a's, and K-b's / K-f's `ls` / `lb`) may be
+  fp32 beside bf16 activations, as the model keeps them, or of the
+  activations' dtype (`_param_fp32`).
 - `mlp_plan` is the MLP kernels' schedule (tile widths, tiles, blocks,
   K-f's chunk slices), from the shapes alone.
 - Where autograd needs a gradient (`kernels.wants_grad`), `norm`,
@@ -73,17 +76,27 @@ def add_norm_plain(x, y, scale, bias=None, *, eps: float,
 _NORM_TYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
+def _param_fp32(name: str, x, params, c: int) -> int:
+    """1 if the norm parameters `params` (None skipped) are fp32, 0 if of
+    x's dtype; raises unless all are [c] of one of those types, one type,
+    on x's device."""
+    ops = [p for p in params if p is not None]
+    kinds = {p.dtype for p in ops}
+    if (len(kinds) != 1 or not kinds <= {x.dtype, torch.float32}
+            or any(p.shape != (c,) or p.device != x.device for p in ops)):
+        raise ValueError(f"{name}: scale / bias must be [C={c}] on the "
+                         f"input's device, all of {x.dtype} or all fp32")
+    return int(ops[0].dtype == torch.float32)
+
+
 def _norm_launch(x, y, scale, bias, eps: float, rms: bool):
     """K-a's launch (kernels/csrc/norm.cu) on x [..., C] (and y, the add
     form): returns (s or None, n)."""
     c = x.shape[-1]
     kernels.refuse_grad("norm", x, y, scale, bias)
-    ops = (scale,) if bias is None or rms else (scale, bias)
-    if (x.dtype not in _NORM_TYPES or c > 8192
-            or any(p.shape != (c,) or p.dtype != x.dtype
-                   or p.device != x.device for p in ops)):
-        raise ValueError(f"norm: unsupported {x.dtype} / C={c}, or scale / "
-                         "bias not [C] of x's dtype on its device")
+    if x.dtype not in _NORM_TYPES or c > 8192:
+        raise ValueError(f"norm: unsupported {x.dtype} / C={c}")
+    pfp32 = _param_fp32("norm", x, (scale, None if rms else bias), c)
     if y is not None and (y.shape != x.shape or y.dtype != x.dtype
                           or y.device != x.device):
         raise ValueError("add_norm: y must match x in shape, dtype and "
@@ -98,7 +111,7 @@ def _norm_launch(x, y, scale, bias, eps: float, rms: bool):
             scale.contiguous().data_ptr(),
             None if bias is None or rms else bias.contiguous().data_ptr(),
             None if s is None else s.data_ptr(), out.data_ptr(), n, c,
-            ctypes.c_float(eps), int(rms), _NORM_TYPES[x.dtype],
+            ctypes.c_float(eps), int(rms), _NORM_TYPES[x.dtype], pfp32,
             torch.cuda.current_stream(x.device).cuda_stream)
         kernels.check(err, "norm")
         kernels.launches["norm"] += 1
@@ -109,7 +122,7 @@ def _norm_launch(x, y, scale, bias, eps: float, rms: bool):
 
 def norm(x, scale, bias=None, *, eps: float, rms: bool = False):
     """Kernel K-a: row LayerNorm (RMSNorm when rms) of x [..., C], bf16 or
-    fp32, C <= 8192."""
+    fp32, C <= 8192; scale and bias of x's dtype or fp32."""
     if kernels.wants_grad(x, scale, bias):
         from .autograd import NormFn
         return NormFn.apply(norm, x, scale, bias, eps, rms)
@@ -211,11 +224,28 @@ def mlp_plan(n: int, c: int, h: int, block_h=None) -> dict:
     return dict(tiles=tiles, bn2=bn2, slices=slices, blocks=blocks)
 
 
+def _mlp_operands(name: str, x, ls, lb, w1, b1, w2, b2) -> int:
+    """Checks K-b's and K-f's operands: x, w1 [C, H], b1 [H], w2 [H, C], b2
+    [C] bf16, ls / lb [C] both bf16 or both fp32, all on x's device.
+    Returns 1 for fp32 ls / lb, else 0."""
+    c, h = x.shape[-1], w1.shape[1]
+    ops = (x, w1, b1, w2, b2)
+    if any(t.dtype != torch.bfloat16 or t.device != x.device for t in ops):
+        raise ValueError(f"{name}: x, the weights and the biases must be "
+                         "bf16 on the input's device")
+    shapes = ((c, h), (h,), (h, c), (c,))
+    if any(t.shape != s for t, s in zip(ops[1:], shapes)):
+        raise ValueError(f"{name}: parameter shapes do not match C={c}, "
+                         f"H={h}")
+    return _param_fp32(name, x, (ls, lb), c)
+
+
 def ln_mlp_residual(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
                     act: str = "gelu", quant8: bool = False):
     """Kernel K-b: x [..., C] -> x + act(LN(x) @ w1 + b1) @ w2 + b2 with
-    w1 [C, H], w2 [H, C]; act "gelu" (tanh) or "quick_gelu". With quant8
-    the W8A8 form, kernel K-f (`ln_mlp_residual_q8`)."""
+    w1 [C, H], w2 [H, C], bf16; ls / lb bf16 or fp32; act "gelu" (tanh)
+    or "quick_gelu". With quant8 the W8A8 form, kernel K-f
+    (`ln_mlp_residual_q8`)."""
     if quant8:
         return ln_mlp_residual_q8(x, ls, lb, w1, b1, w2, b2, eps=eps,
                                   act=act)
@@ -232,13 +262,7 @@ def ln_mlp_residual(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
     if b2 is None:
         b2 = torch.zeros(c, dtype=x.dtype, device=x.device)
     ops = (x, ls, lb, w1, b1, w2, b2)
-    shapes = ((c,), (c,), (c, h), (h,), (h, c), (c,))
-    if any(t.dtype != torch.bfloat16 or t.device != x.device for t in ops):
-        raise ValueError("ln_mlp_residual: every operand must be bf16 on the "
-                         "input's device")
-    if any(t.shape != s for t, s in zip(ops[1:], shapes)):
-        raise ValueError("ln_mlp_residual: parameter shapes do not match "
-                         f"C={c}, H={h}")
+    pfp32 = _mlp_operands("ln_mlp_residual", x, ls, lb, w1, b1, w2, b2)
     if c % _LANE or c > 1024 or h % 64 or act not in _ACTS:
         raise ValueError(f"ln_mlp_residual: unsupported C={c} H={h} "
                          f"act={act!r}")
@@ -253,7 +277,7 @@ def ln_mlp_residual(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
         fn = kernels.lib("ln_mlp_residual").lvv_ln_mlp_residual
         err = fn(*(t.data_ptr() for t in args + [out, y, hb]), n, c, h,
                  ctypes.c_float(eps), _ACTS[act], mlp_plan(n, c, h)["bn2"],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 pfp32, torch.cuda.current_stream(x.device).cuda_stream)
         kernels.check(err, "ln_mlp_residual")
         kernels.launches["ln_mlp_residual"] += 1
     return out.view(x.shape)
@@ -328,14 +352,7 @@ def ln_mlp_residual_q8(x, ls, lb, w1, b1, w2, b2, *, eps: float = 1e-6,
         b1 = torch.zeros(h, dtype=x.dtype, device=x.device)
     if b2 is None:
         b2 = torch.zeros(c, dtype=x.dtype, device=x.device)
-    ops = (x, ls, lb, w1, b1, w2, b2)
-    shapes = ((c,), (c,), (c, h), (h,), (h, c), (c,))
-    if any(t.dtype != torch.bfloat16 or t.device != x.device for t in ops):
-        raise ValueError("ln_mlp_residual_q8: every operand must be bf16 on "
-                         "the input's device")
-    if any(t.shape != s for t, s in zip(ops[1:], shapes)):
-        raise ValueError("ln_mlp_residual_q8: parameter shapes do not match "
-                         f"C={c}, H={h}")
+    _mlp_operands("ln_mlp_residual_q8", x, ls, lb, w1, b1, w2, b2)
     block_h = q8_block_h(c, h, x.element_size())
     if (c % _LANE or c > 1024 or block_h % 64 or block_h > 4096
             or act not in _ACTS):
@@ -372,8 +389,10 @@ def ln_mlp_residual_q8_launch(x, ls, lb, w1t, s1, b1, w2t, s2, b2, *,
                               block_h: int, eps: float, act: str):
     """K-f's launch on weights already quantized and transposed (w1t [H, C],
     w2t [C, H] int8, s1 [H], s2 [C] fp32), as ln_mlp_residual_q8 hands them
-    over after checking its operands; b1 / b2 bf16."""
+    over after checking its operands; b1 / b2 bf16, ls / lb bf16 or
+    fp32."""
     c, h = x.shape[-1], w1t.shape[0]
+    pfp32 = _param_fp32("ln_mlp_residual_q8", x, (ls, lb), c)
     kernels.refuse_grad("ln_mlp_residual_q8", x, ls, lb, b1, b2)
     x2 = x.reshape(-1, c).contiguous()
     n = x2.shape[0]
@@ -393,7 +412,7 @@ def ln_mlp_residual_q8_launch(x, ls, lb, w1t, s1, b1, w2t, s2, b2, *,
         fn = kernels.lib("ln_mlp_residual_q8").lvv_ln_mlp_residual_q8
         err = fn(*(t.data_ptr() for t in args),
                  None if part is None else part.data_ptr(), n, c, h, block_h,
-                 ctypes.c_float(eps), _ACTS[act],
+                 ctypes.c_float(eps), _ACTS[act], pfp32,
                  torch.cuda.current_stream(x.device).cuda_stream)
         kernels.check(err, "ln_mlp_residual_q8")
         kernels.launches["ln_mlp_residual_q8"] += 1

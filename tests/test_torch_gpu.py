@@ -110,11 +110,86 @@ def test_add_norm(gen, dt, rms, shape):
 def test_norm_wrappers_refuse_what_the_kernel_does_not_take(gen):
     x = _rnd(gen, 4, 256)
     with pytest.raises(ValueError):                   # scale of another type
-        M.norm(x, torch.ones(256, device="cuda"), eps=1e-6, rms=True)
+        M.norm(x, torch.ones(256, device="cuda", dtype=torch.float16),
+               eps=1e-6, rms=True)
+    with pytest.raises(ValueError):                   # fp32 scale, bf16 bias
+        M.norm(x, torch.ones(256, device="cuda"), _rnd(gen, 256), eps=1e-6)
+    with pytest.raises(ValueError):                   # bf16 scale of fp32 x
+        M.norm(x.float(), _rnd(gen, 256), eps=1e-6, rms=True)
     with pytest.raises(ValueError):                   # C > 8192
         M.norm(_rnd(gen, 2, 8320), _rnd(gen, 8320), eps=1e-6, rms=True)
     with pytest.raises(ValueError):                   # y of another shape
         M.add_norm(x, _rnd(gen, 2, 256), _rnd(gen, 256), eps=1e-6, rms=True)
+
+
+def _share_rel(got, want):
+    got, want = got.float(), want.float()
+    return (float((got != want).float().mean()),
+            float((got - want).norm() / want.norm()))
+
+
+def _param_trap_fails(got, plain, rel_tol):
+    """The kernel within rel_tol of its plain version on fp32 norm
+    parameters, and the plain version with them rounded to bf16 first (the
+    bf16-parameter model's function) beyond it."""
+    from chip_smoke import agreement
+    ok, err, rel = agreement(got, plain(lambda t: t), rel_tol)
+    assert ok, (err, rel)
+    ok, _, rel = agreement(got, plain(
+        lambda t: None if t is None else t.to(torch.bfloat16).float()),
+        rel_tol)
+    assert not ok, rel
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("shape", [(1, 896), (8, 896), (1564, 896),
+                                   (24576, 768), (3, 100), (37, 256)])
+def test_norm_fp32_params(gen, add, rms, shape):
+    """K-a and its add form on bf16 x with fp32 scale and bias (the model's
+    norms): every launch form (one vector a thread with the parameters
+    loaded with x, four through L1, one element at a time at C = 100)
+    within chip_smoke's PARAM_REL_L2_TOL of the plain version, which the
+    parameters rounded to bf16 fail."""
+    from chip_smoke import PARAM_REL_L2_TOL
+    c = shape[-1]
+    x, y = _rnd(gen, *shape), _rnd(gen, *shape)
+    s = 1 + torch.randn(c, generator=gen, device="cuda") * 0.1
+    b = None if rms else torch.randn(c, generator=gen, device="cuda") * 0.1
+    if add:
+        out, got = _launched("norm[add]", lambda: M.add_norm(
+            x, y, s, b, eps=1e-6, rms=rms))
+        assert torch.equal(out, x + y)
+        base = x + y
+    else:
+        got = _launched("norm", lambda: M.norm(x, s, b, eps=1e-6, rms=rms))
+        base = x
+    _param_trap_fails(got, lambda r: M.norm_plain(
+        base, r(s), r(b), eps=1e-6, rms=rms), PARAM_REL_L2_TOL)
+
+
+@pytest.mark.parametrize("quant8", [False, True])
+@pytest.mark.parametrize("n,c,h", [(77, 768, 3072), (33, 1024, 4096),
+                                   (3, 128, 192)])
+def test_ln_mlp_residual_fp32_params(gen, quant8, n, c, h):
+    """K-b and K-f with fp32 ls / lb (the model's LN), held to their plain
+    versions (K-b at PARAM_REL_L2_TOL, K-f at Q8_REL_L2_TOL), which the
+    parameters rounded to bf16 fail."""
+    from chip_smoke import PARAM_REL_L2_TOL, Q8_REL_L2_TOL
+    x = _rnd(gen, n, c)
+    p = _mlp_params(gen, c, h)
+    ls = 1 + torch.randn(c, generator=gen, device="cuda") * 0.1
+    lb = torch.randn(c, generator=gen, device="cuda") * 0.1
+    name = "ln_mlp_residual_q8" if quant8 else "ln_mlp_residual"
+    got = _launched(name, lambda: M.ln_mlp_residual(
+        x, ls, lb, *p[2:], eps=1e-6, act="gelu", quant8=quant8))
+    plain = (M.ln_mlp_residual_q8_plain if quant8
+             else M.ln_mlp_residual_plain)
+    _param_trap_fails(got, lambda r: plain(x, r(ls), r(lb), *p[2:],
+                                           eps=1e-6, act="gelu"),
+                      Q8_REL_L2_TOL if quant8 else PARAM_REL_L2_TOL)
+    with pytest.raises(ValueError):                 # fp32 ls, bf16 lb
+        M.ln_mlp_residual(x, ls, p[1], *p[2:], quant8=quant8)
 
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
