@@ -1,6 +1,13 @@
 """On-card smoke run of the PyTorch / CUDA port (lvv_tpu_torch) on one H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE[,PHASE...]]
+
+With no flag every phase runs. `--only` runs the named ones of kernels,
+main-path, lidar-bev, detector-train, serving, sam1280, serving-runtime,
+train-step, trainer (lidar-bev and serving bring main-path with them; the
+kernel build is skipped when only detector-train runs, and the kernels
+line, which needs every path's launches, is printed only when every phase
+ran); the last line is the same.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds every CUDA kernel from the sources in this checkout
@@ -111,7 +118,25 @@
    the [128, 180, 180] BEV through greedy_generate (launches as derived,
    logits against the plain kernels); and `python -m
    lvv_tpu_torch.tools.precompute_bev` as a subprocess over 2 synthetic
-   sweeps under build/ (two float16 files, then a rerun that skips both).
+   sweeps under build/ (two float16 files, then a rerun that skips both),
+   reading them through the native host I/O library (native/lvv_io.cpp,
+   built with g++ at first use; its path printed on a `native-io` line).
+3b. Then VoxelNeXt training ("detector-train") at default_config()'s full
+   width (fp32, TF32 off; the same surface clouds, their 24 vehicle boxes
+   as gts, padded to 128): (a) one "bn" step at batch 1 on the card
+   against the port's CPU step from the same weights (the loss, each
+   parameter group's gradient, the running statistics; a trap, the batch
+   moments detached, has to fail each group's bound by 10x); (b) in each
+   norm mode 4 steps at batch 2 on one batch through the CLI's chain
+   (s/step p50 of the last 3, samples/s, peak memory, the losses, which
+   must fall, one profiled step's device busy and idle, the vel / iou
+   parameters moved by weight decay alone); (c) `python -m
+   lvv_tpu_torch.tools.train_detector --synthetic --steps 2 --save-every
+   1` as a subprocess and through its `main` (exit 0, checkpoints that
+   reload bit-equal, the reloaded detector's detections equal to the
+   trained one's); (d) the bucketed step's pick on a cloud: the smallest
+   bucket that drops nothing, checked by telemetry on the card. No
+   hand-written kernel lies on this path (its launches are counted: none).
 8. Trains at full width: default_config() in bf16 with fp32 masters,
    TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
    ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
@@ -2616,9 +2641,11 @@ BEV_F16_REL_TOL = 1e-3
 
 
 def surface_cloud(rng, n: int, extent: float, z0: float = -2.0,
-                  z1: float = 2.0):
+                  z1: float = 2.0, boxes=None):
     """A max-density surface scene: ground disc, walls, vehicle boxes (the
-    script's own copy of benchmarks/capacity_stress.py:36-63)."""
+    script's own copy of benchmarks/capacity_stress.py:36-63). A `boxes`
+    list receives each vehicle's box (x, y, z, dx, dy, dz, heading, vx,
+    vy); the points do not depend on it."""
     import numpy as np
     parts = []
     n_ground = int(n * 0.45)
@@ -2638,6 +2665,8 @@ def surface_cloud(rng, n: int, extent: float, z0: float = -2.0,
     n_box = n - n_ground - n_wall
     for seg in np.array_split(np.arange(n_box), 24):
         cx, cy = rng.uniform(-extent * 0.8, extent * 0.8, 2)
+        if boxes is not None:
+            boxes.append([cx, cy, z0 + 0.9, 4.4, 2.0, 1.8, 0.0, 0.0, 0.0])
         parts.append(np.stack(
             [cx + rng.uniform(-2.2, 2.2, len(seg)),
              cy + rng.uniform(-1.0, 1.0, len(seg)),
@@ -2647,12 +2676,13 @@ def surface_cloud(rng, n: int, extent: float, z0: float = -2.0,
                           1).astype(np.float32)
 
 
-def lidar_cloud(cfg, seed: int = 0):
+def lidar_cloud(cfg, seed: int = 0, boxes=None):
     """(points [max_points, 4] float32, n): a seeded surface cloud of
     LIDAR_POINTS points over +-54 m, zero-padded to the voxelizer's
-    max_points."""
+    max_points (its vehicles' boxes into `boxes`, when given)."""
     import numpy as np
-    pts = surface_cloud(np.random.default_rng(seed), LIDAR_POINTS, 54.0)
+    pts = surface_cloud(np.random.default_rng(seed), LIDAR_POINTS, 54.0,
+                        boxes=boxes)
     out = np.zeros((cfg.voxelize.max_points, 4), np.float32)
     out[:len(pts)] = pts
     return out, len(pts)
@@ -2785,18 +2815,25 @@ def run_precompute(torch, clouds, want_bev) -> dict:
     files = [out / "val" / f"{t}.npy" for t in tokens]
     bevs = [np.load(f) for f in files]
     first = torch.from_numpy(bevs[0].astype(np.float32))
+    loader = [ln.split(": ", 1)[1] for ln in runs[0][0].stdout.splitlines()
+              if ln.startswith("point loader: ")]
     checks = {
         "files": all(b.shape == (128, 180, 180) and b.dtype == np.float16
                      and np.isfinite(b).all() for b in bevs),
         "first run wrote 2": "2 samples to process" in runs[0][0].stdout,
-        "rerun skipped both": "0 samples to process" in runs[1][0].stdout}
+        "rerun skipped both": "0 samples to process" in runs[1][0].stdout,
+        "read through the native library": len(loader) == 1
+        and pathlib.Path(loader[0]).name.startswith("liblvv_io-")
+        and pathlib.Path(loader[0]).exists()}
     f16_rel = rel_l2(first, want_bev.cpu())
     checks["first file = the card's BEV"] = f16_rel <= BEV_F16_REL_TOL
     if not all(checks.values()):
         raise AssertionError(f"precompute_bev: {checks} (rel L2 {f16_rel}); "
                              f"{runs[0][0].stdout[-1000:]}")
     shutil.rmtree(LIDAR_DIR)
+    print(f"native-io: built and used {loader[0]}", flush=True)
     return dict(checks=checks, first_file_rel_l2=f16_rel,
+                native_loader=loader[0],
                 stdout=runs[0][0].stdout.strip().splitlines(),
                 run_s=runs[0][1], rerun_s=runs[1][1])
 
@@ -2899,6 +2936,450 @@ def run_lidar_bev(torch, model) -> dict:
     second, n2 = lidar_cloud(cfg, seed=1)
     report["precompute_bev"] = run_precompute(
         torch, [pts_np[:n], second[:n2]], bev)
+    return report
+
+
+# --------------------------------------------------------- detector-train --
+
+DET_DIR = REPO / "build" / "detector_train"
+# VoxelNeXt training at default_config()'s full width (fp32, TF32 off). One
+# step at batch 1 in each norm mode on the card against the port's CPU step
+# and against the same step in float64 on the card (the reference), from
+# the same weights, cloud and gts: the loss within DET_LOSS_TOL relative,
+# the running statistics within DET_STAT_TOL, and each parameter group's
+# gradient (backbone stages, BEV output, each head branch; all its tensors
+# as one vector) within DET_GRAD_TOL relative L2, card against CPU and each
+# against float64. The stages that truncate at these capacities (the
+# voxelizer keeps the 160,000 lowest ids of 244,259 voxels, mostly the
+# ground plane, and stages 2-3 truncate too; under "bn" also stage 4, whose
+# batch moments mix every row) carry a float32 error of 3e-4 to 3.5e-3
+# against float64, the CPU's as much as the card's (measured on an H100,
+# PERF.md §6): DET_FP32_GROUPS take DET_FP32_TOL there. The conv biases
+# that a "bn" norm subtracts out again have an analytically zero gradient
+# (float32 noise, different on each device): left out of their groups and
+# held under DET_CANCELLED_TOL of the global gradient norm. The trap, the
+# card's "bn" step with the batch moments detached (taken as constants, as
+# a F.batch_norm over detached statistics would), drops their share of
+# every gradient below the deepest norm and has to fail each group's bound
+# by 10x.
+DET_LOSS_TOL = 1e-5
+DET_GRAD_TOL = 1e-4
+DET_FP32_TOL = 1e-2
+DET_FP32_GROUPS = {"ln": ("stage1", "stage2", "stage3"),
+                   "bn": ("stage1", "stage2", "stage3", "stage4")}
+DET_STAT_TOL = 1e-5
+DET_CANCELLED_TOL = 1e-4
+DET_BATCH, DET_STEPS, DET_LR, MAX_GT = 2, 4, 1e-3, 128
+# capacity buckets (max_voxels, stage capacities) for the bucketed step:
+# default_config()'s 3/4 rule, the nuScenes schedule with a 250k voxelizer,
+# and a larger one
+DET_BUCKETS = ((160000, (120000, 90000, 67500, 50625, 37968)),
+               (250000, (440000, 240000, 96000, 32000, 12000)),
+               (320000, (600000, 320000, 128000, 48000, 16000)))
+
+
+def detector_config(norm: str):
+    import dataclasses
+    from lvv_tpu_torch import default_config
+    cfg = default_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, voxelnext=dataclasses.replace(cfg.model.voxelnext,
+                                                 norm=norm)))
+
+
+def detector_batch(cfg, seeds) -> dict:
+    """lidar_cloud's surface clouds and their vehicle boxes (class 0),
+    padded to MAX_GT with a mask."""
+    import numpy as np
+    out = {k: [] for k in ("points", "num_points", "gt_boxes", "gt_labels",
+                           "gt_mask")}
+    for seed in seeds:
+        boxes = []
+        pts, n = lidar_cloud(cfg, seed, boxes=boxes)
+        gt = np.zeros((MAX_GT, 9), np.float32)
+        gt[:len(boxes)] = boxes
+        mask = np.zeros(MAX_GT, bool)
+        mask[:len(boxes)] = True
+        for key, v in zip(out, (pts, n, gt, np.zeros(MAX_GT, np.int32),
+                                mask)):
+            out[key].append(v)
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def detector_groups(det) -> dict:
+    """{group: [parameter names]}: stage1 (conv_input, res1), stage2-6
+    (down_i, res_i+1), bev (conv_out, shared_conv), each head branch."""
+    groups = collections.defaultdict(list)
+    for name, _ in det.named_parameters():
+        part = name.split(".")
+        if part[0] == "head":
+            groups["head." + part[1].split("_conv")[0].split("_head")[0]
+                   ].append(name)
+        elif part[1] in ("conv_input", "res1"):
+            groups["stage1"].append(name)
+        elif part[1] in ("conv_out", "shared_conv"):
+            groups["bev"].append(name)
+        elif part[1].startswith("down"):             # down_i opens stage i + 1
+            groups[f"stage{int(part[1][4:]) + 1}"].append(name)
+        else:                                         # res_i
+            groups[f"stage{int(part[1][3:])}"].append(name)
+    return dict(groups)
+
+
+def detector_step(torch, det, batch, steps: int = 1):
+    """`steps` train steps of `det` on `batch` through the CLI's chain ->
+    (the metrics of each as floats, {name: gradient on the host or None}
+    of the last)."""
+    from lvv_tpu_torch.train.detector import make_detector_train_step
+    from lvv_tpu_torch.train.optim import detector_optimizer
+    tx = detector_optimizer(DET_LR, DET_STEPS)
+    step = make_detector_train_step(det, tx, det.det_cfg, det.vox_cfg)
+    state = (det, tx.init(dict(det.named_parameters())))
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    grads = {n: None if p.grad is None else p.grad.cpu()
+             for n, p in det.named_parameters()}
+    return metrics, grads
+
+
+def cancelled_biases(det) -> list:
+    """The conv biases that a "bn" norm right after subtracts out."""
+    if det.det_cfg.norm != "bn":
+        return []
+    return [n for n, _ in det.named_parameters()
+            if n.endswith(".bias") and not n.endswith("_head_bias")]
+
+
+def group_rel_l2(torch, groups, got, want, skip=()) -> dict:
+    """Each group's gradient as one vector, the names in `skip` left out:
+    ||got - want|| / ||want|| (None where neither has one; ||got|| where
+    want is zero)."""
+    out = {}
+    for g, names in groups.items():
+        pairs = [(got[n], want[n]) for n in names if n not in skip]
+        if all(a is None and b is None for a, b in pairs):
+            out[g] = None
+            continue
+        a = torch.cat([x.reshape(-1) for x, _ in pairs])
+        b = torch.cat([y.reshape(-1) for _, y in pairs])
+        out[g] = rel_l2(a, b) if b.any() else float(a.norm())
+    return out
+
+
+@contextlib.contextmanager
+def detached_moments():
+    """The trap: the "bn" train form with its batch moments detached."""
+    from lvv_tpu_torch.models import voxelnext as V
+    plain = V.masked_moments
+    V.masked_moments = lambda f, valid: tuple(
+        t.detach() for t in plain(f, valid))
+    try:
+        yield
+    finally:
+        V.masked_moments = plain
+
+
+def detector_against_cpu(torch, norm: str) -> dict:
+    """(a) One step at batch 1 in `norm` mode on the card, on the CPU and,
+    as the reference, in float64 on the card, all from the same weights;
+    under "bn" also the trap on the card."""
+    from lvv_tpu_torch.models.voxelnext import VoxelNeXtDetector
+    cfg = detector_config(norm)
+    batch = detector_batch(cfg, (0,))
+    det = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize,
+                            device="cuda", seed=0)
+    start = {k: v.clone() for k, v in det.state_dict().items()}
+    t0 = time.perf_counter()
+    card_m, card_g = detector_step(torch, det, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card_stats = {n: b.cpu() for n, b in det.named_buffers()}
+    ref = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize,
+                            device="cuda").double()
+    ref.load_state_dict(start)
+    _, ref_g = detector_step(torch, ref, batch)
+    del ref
+    cpu = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    t0 = time.perf_counter()
+    cpu_m, cpu_g = detector_step(torch, cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    groups = detector_groups(det)
+    skip = cancelled_biases(det)
+    rel = {pair: group_rel_l2(torch, groups, a, b, skip) for pair, a, b in (
+        ("card-cpu", card_g, cpu_g), ("card-fp64", card_g, ref_g),
+        ("cpu-fp64", cpu_g, ref_g))}
+    bound = {g: DET_FP32_TOL if g in DET_FP32_GROUPS[norm] else DET_GRAD_TOL
+             for g in groups}
+    over = {pair: [g for g, v in r.items()
+                   if v is not None and v > bound[g]]
+            for pair, r in rel.items()}
+    total = float(torch.cat([g.reshape(-1) for g in cpu_g.values()
+                             if g is not None]).norm())
+
+    def share(grads):                   # the cancelled biases' norm, of G
+        kept = [grads[n] for n in skip if grads[n] is not None]
+        return float(torch.cat(kept).norm()) / total if kept else 0.0
+    cancelled = {"card": share(card_g), "cpu": share(cpu_g)}
+    stat_err = max([float((card_stats[n] - b).abs().max())
+                    for n, b in cpu.named_buffers()], default=0.0)
+    loss_rel = abs(card_m[0]["loss"] - cpu_m[0]["loss"]) / abs(
+        cpu_m[0]["loss"])
+    del cpu
+    checks = {
+        "loss within DET_LOSS_TOL": loss_rel <= DET_LOSS_TOL,
+        "group gradients within their bounds, card / CPU / fp64": not any(
+            over.values()),
+        "vel / iou without gradients": rel["card-cpu"]["head.vel"] is None
+        and rel["card-cpu"]["head.iou"] is None,
+        "running statistics within DET_STAT_TOL": stat_err <= DET_STAT_TOL,
+        "cancelled biases under DET_CANCELLED_TOL": max(
+            cancelled.values()) <= DET_CANCELLED_TOL}
+    report = dict(norm=norm, loss_card=card_m[0]["loss"],
+                  loss_cpu=cpu_m[0]["loss"], loss_rel=loss_rel,
+                  group_bound=bound, group_grad_rel_l2=rel,
+                  stat_max_abs=stat_err, cancelled_biases=cancelled,
+                  global_grad_norm=total, card_step_s=card_s,
+                  cpu_step_s=cpu_s, gts=int(batch["gt_mask"].sum()))
+    if norm == "bn":
+        det.load_state_dict(start)
+        with detached_moments():
+            _, trap_g = detector_step(torch, det, batch)
+        trap = group_rel_l2(torch, groups, trap_g, cpu_g, skip)
+        trap_worst = max(v for v in trap.values() if v is not None)
+        # over the groups with a gradient (a stage whose norm sees a single
+        # row has none: its output is ln_bias)
+        trap_margin = min(v / bound[g] for g, v in trap.items()
+                          if v is not None and any(
+                              cpu_g[n] is not None and cpu_g[n].any()
+                              for n in groups[g] if n not in skip))
+        cancelled["trap"] = share(trap_g)
+        checks["detached-moments trap fails each group's bound by 10x"] = (
+            trap_margin > 10)
+        print(f"detector-trap: detached batch moments, group rel L2 up to "
+              f"{trap_worst:.3e}, each at least {trap_margin:.1f}x its "
+              f"bound ({DET_GRAD_TOL:.0e} / {DET_FP32_TOL:.0e})", flush=True)
+        report.update(trap_group_grad_rel_l2=trap, trap_worst=trap_worst,
+                      trap_margin=trap_margin)
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-train[{norm}] vs the CPU: {checks}; "
+                             f"over {over}; {report}")
+    return report
+
+
+def detector_timed(torch, norm: str) -> dict:
+    """(b) DET_STEPS steps at batch DET_BATCH on one batch (the first a
+    warm-up, the rest timed), then one profiled step."""
+    from lvv_tpu_torch.models.voxelnext import VoxelNeXtDetector
+    from lvv_tpu_torch.train.detector import make_detector_train_step
+    from lvv_tpu_torch.train.optim import detector_optimizer
+    cfg = detector_config(norm)
+    batch = detector_batch(cfg, range(DET_BATCH))
+    det = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize,
+                            device="cuda", seed=0)
+    tx = detector_optimizer(DET_LR, DET_STEPS + 1)
+    step = make_detector_train_step(det, tx, cfg.model.voxelnext,
+                                    cfg.voxelize)
+    state = (det, tx.init(dict(det.named_parameters())))
+    idle = {n: p.detach().clone() for n, p in det.named_parameters()
+            if n.split(".")[1].startswith(("vel_", "iou_"))}
+    losses, step_s = [], []
+    for i in range(DET_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    timed = sorted(step_s[1:])
+    p50 = timed[len(timed) // 2]
+    print(f"detector-train[{norm}] profile of one step:", flush=True)
+    device = device_busy(torch, lambda: (step(state, batch),
+                                         torch.cuda.synchronize()))
+    # vel / iou: no gradient, so AdamW's weight decay alone moves them
+    # (those that start at zero stay there)
+    no_grad = [n for n, p in det.named_parameters() if p.grad is None]
+    decayed = [n for n in idle
+               if not torch.equal(idle[n], det.get_parameter(n).detach())]
+    checks = {"losses fall": losses[-1] < losses[0]
+              and all(math.isfinite(x) for x in losses),
+              "vel / iou updated by weight decay alone":
+              sorted(no_grad) == sorted(idle) and len(idle) == 12
+              and sorted(decayed) == sorted(n for n, t in idle.items()
+                                            if t.any())}
+    if not all(checks.values()):
+        raise AssertionError(f"detector-train[{norm}]: {checks}; losses "
+                             f"{losses}, no grad {no_grad}")
+    return dict(checks=checks, losses=losses, step_s=step_s, s_per_step_p50=p50,
+                samples_per_s=DET_BATCH / p50, peak_mem_gib=peak / 2 ** 30,
+                **device, device_idle_share=1 - device["device_busy_s"] / p50,
+                no_gradient_tensors=len(no_grad),
+                no_gradient_elements=sum(idle[n].numel() for n in idle),
+                weight_decay_only_tensors=len(decayed),
+                weight_decay_only_elements=sum(int(idle[n].count_nonzero())
+                                               for n in decayed),
+                last_metrics={k: float(v) for k, v in m.items()})
+
+
+def detector_cli(torch) -> dict:
+    """(c) The CLI as a subprocess and through its `main` in this process
+    (`--synthetic --steps 2 --save-every 1`, tiny_config(), on the card):
+    exit 0, its log and final line; each run's last checkpoint restored
+    into a new detector bit-equal to what it saved; the restored
+    in-process detector's detect equal to the trained one's."""
+    import numpy as np
+    from lvv_tpu_torch import tiny_config
+    from lvv_tpu_torch.models.voxelnext import VoxelNeXtDetector
+    from lvv_tpu_torch.tools import train_detector
+    from lvv_tpu_torch.train.checkpoints import CheckpointManager
+    shutil.rmtree(DET_DIR, ignore_errors=True)
+    argv = ["--synthetic", "--steps", "2", "--save-every", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lvv_tpu_torch.tools.train_detector", *argv,
+         "--out", str(DET_DIR / "sub")], cwd=REPO, capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    sub_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"train_detector exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    final = json.loads(lines[-1])
+    det, metrics = train_detector.main(argv + ["--out", str(DET_DIR / "in")])
+    cfg = tiny_config()
+    restored = {}
+    for run in ("sub", "in"):
+        ckpt = CheckpointManager(DET_DIR / run / "checkpoints")
+        fresh = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize,
+                                  device="cuda", seed=7)
+        ckpt.restore("step_2", fresh)
+        saved = torch.load(DET_DIR / run / "checkpoints" / "step_2" /
+                           "state" / "state.pt", map_location="cuda")
+        restored[run] = (fresh, all(torch.equal(saved[k], v) for k, v in
+                                    fresh.state_dict().items()))
+    pts = torch.from_numpy(train_detector.synthetic_batch(
+        np.random.default_rng(0), 1, cfg.voxelize.max_points // 4, 8,
+        cfg.voxelize.point_range)["points"][0]).cuda()
+    n = cfg.voxelize.max_points // 4
+    want = det.detect(pts, n)
+    got = restored["in"][0].detect(pts, n)
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        det.state_dict().values(), restored["in"][0].state_dict().values()))
+    # same weights; the voxelizer's and segment sums' atomics may order a
+    # voxel's float adds differently from one call to the next. The seeded
+    # tiny model keeps no box above the score threshold, so the forwards'
+    # BEV and head outputs are held too.
+    with torch.no_grad():
+        outs = [d.eval()(pts, n) for d in (det, restored["in"][0])]
+    detect_err = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(got, want))
+    forward_err = max(
+        float((outs[0]["bev_dense"] - outs[1]["bev_dense"]).abs().max()),
+        *(float((outs[0]["preds"][k].features
+                 - outs[1]["preds"][k].features).abs().max())
+          for k in outs[0]["preds"]))
+    checks = {
+        "exit 0, 2 log lines, final line": final["steps"] == 2
+        and [ln.split()[0] for ln in lines[:2]] == ["[0]", "[1]"]
+        and math.isfinite(final["final_loss"]),
+        "checkpoints step_1, step_2": all(
+            (DET_DIR / r / "checkpoints" / s).is_dir()
+            for r in ("sub", "in") for s in ("step_1", "step_2")),
+        "reloads bit-equal": restored["sub"][1] and restored["in"][1]
+        and same_state,
+        "reloaded detect = in-process detect": int(got.count) == int(
+            want.count) and torch.equal(got.labels, want.labels)
+        and detect_err <= 1e-6 and forward_err <= 1e-6}
+    loss_gap = abs(final["final_loss"] - metrics["loss"]) / abs(
+        metrics["loss"])
+    if not all(checks.values()):
+        raise AssertionError(f"train_detector CLI: {checks}; "
+                             f"{proc.stdout[-1500:]}")
+    shutil.rmtree(DET_DIR)
+    return dict(checks=checks, subprocess_s=sub_s, log=lines,
+                in_process_final_loss=metrics["loss"],
+                subprocess_vs_in_process_loss_rel=loss_gap,
+                detections=int(want.count), detect_max_abs=detect_err,
+                forward_max_abs=forward_err,
+                bit_equal=detect_err == 0 and forward_err == 0)
+
+
+def detector_bucket_pick(torch) -> dict:
+    """(d) The bucketed step's pick on one surface cloud: the smallest of
+    DET_BUCKETS whose capacities hold the host planner's demands; on the
+    card, a train step in that bucket drops no site (telemetry) and a
+    forward in the one below drops some."""
+    from lvv_tpu_torch.ops import sparse as S
+    from lvv_tpu_torch.ops.voxelize import VoxelGrid
+    from lvv_tpu_torch.train.detector import make_bucketed_detector_train_step
+    from lvv_tpu_torch.train.optim import detector_optimizer
+    cfg = detector_config("ln")
+    batch = detector_batch(cfg, (0,))
+    tx = detector_optimizer(DET_LR, DET_STEPS)
+    t0 = time.perf_counter()
+    steps, pick = make_bucketed_detector_train_step(
+        "VoxelNeXt", cfg.model.voxelnext, cfg.voxelize, tx, DET_BUCKETS,
+        device="cuda")
+    chosen = pick(batch["points"], batch["num_points"])
+    pick_s = time.perf_counter() - t0
+    grid = VoxelGrid.create(cfg.voxelize.point_range,
+                            cfg.voxelize.voxel_size)
+    demands = S.plan_capacity_demand(
+        batch["points"][0][:int(batch["num_points"][0])], grid)
+    dropped = {}
+    S.reset_overflow_log()
+    S.set_overflow_debug(True)
+    try:
+        det = steps[chosen].det
+        steps[chosen]((det, tx.init(dict(det.named_parameters()))), batch)
+        dropped["chosen"] = {k: v["dropped"] for k, v in
+                             S.overflow_log().items()}
+        if chosen:
+            S.reset_overflow_log()
+            below = steps[chosen - 1].det
+            with torch.no_grad():
+                below(torch.from_numpy(batch["points"][0]).cuda(),
+                      int(batch["num_points"][0]), return_dense_bev=False)
+            dropped["below"] = {k: v["dropped"] for k, v in
+                                S.overflow_log().items()}
+    finally:
+        S.set_overflow_debug(False)
+        S.reset_overflow_log()
+    checks = {"a bucket below the largest": chosen < len(DET_BUCKETS) - 1,
+              "no drop in the chosen bucket": not any(
+                  dropped["chosen"].values()),
+              "the bucket below drops": chosen == 0 or any(
+                  dropped["below"].values())}
+    if not all(checks.values()):
+        raise AssertionError(f"bucket pick: {checks}; chosen {chosen}, "
+                             f"demands {demands}, dropped {dropped}")
+    return dict(checks=checks, chosen=chosen, bucket=DET_BUCKETS[chosen],
+                demands=demands, dropped=dropped, pick_s=pick_s)
+
+
+def run_detector_train(torch) -> dict:
+    """VoxelNeXt training on the card at default_config()'s full width:
+    (a) card against CPU and float64 in each norm mode, (b) timed steps in
+    each norm mode, (c) the CLI, (d) the bucketed step's pick. (The native loader is checked in
+    lidar-bev's precompute subprocess.)"""
+    from lvv_tpu_torch import kernels
+    kernels.launches.clear()
+    report = {}
+    for norm in ("bn", "ln"):
+        report[f"against_cpu[{norm}]"] = detector_against_cpu(torch, norm)
+        torch.cuda.empty_cache()
+    for norm in ("ln", "bn"):
+        report[f"timed[{norm}]"] = detector_timed(torch, norm)
+        torch.cuda.empty_cache()
+    report["cli"] = detector_cli(torch)
+    report["bucket_pick"] = detector_bucket_pick(torch)
+    torch.cuda.empty_cache()
+    # no hand-written kernel lies on the detector's path
+    report["launches"] = {k: v for k, v in kernels.launches.items() if v}
     return report
 
 
@@ -3295,7 +3776,33 @@ NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
                       r"norm_kernel|qr_lanes_|qr_rows_")
 
 
-def main() -> int:
+PHASES = ("kernels", "main-path", "lidar-bev", "detector-train", "serving",
+          "sam1280", "serving-runtime", "train-step", "trainer")
+# lidar-bev feeds its BEV to the float path's model; the serving phases hold
+# their logits to the float path's
+NEEDS = {"lidar-bev": "main-path", "serving": "main-path"}
+
+
+def selected_phases(argv=None) -> tuple:
+    """The phases to run, in PHASES order: every one, or those that
+    `--only a,b` names and what they need."""
+    import argparse
+    p = argparse.ArgumentParser(description="On-card smoke run of the port.")
+    p.add_argument("--only", default=None,
+                   help="comma-separated phases of " + ", ".join(PHASES)
+                   + " (default: all; the kernels line needs all)")
+    only = p.parse_args(argv).only
+    if only is None:
+        return PHASES
+    chosen = {x.strip() for x in only.split(",") if x.strip()}
+    if not chosen or chosen - set(PHASES):
+        p.error(f"--only takes names of {', '.join(PHASES)}; got {only!r}")
+    chosen |= {NEEDS[c] for c in chosen if c in NEEDS}
+    return tuple(x for x in PHASES if x in chosen)
+
+
+def main(argv=None) -> int:
+    run = set(selected_phases(argv))
     try:
         import torch
     except ImportError:
@@ -3317,7 +3824,8 @@ def main() -> int:
 
     from lvv_tpu_torch import kernels
     t0 = time.perf_counter()
-    reports = kernels.build_all()
+    # the detector's path runs no hand-written kernel
+    reports = kernels.build_all() if run - {"detector-train"} else {}
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     spills = []
     for name, log in reports.items():
@@ -3343,72 +3851,99 @@ def main() -> int:
         phase_s[tag], clock[0] = now - clock[0], now
         print(tag, json.dumps(report), flush=True)
 
-    rows = check_kernels(torch)
-    ab_lines(torch)
-    print("norm-host", json.dumps(norm_host(torch)), flush=True)
-    phase_s["kernel-checks and A/B lines"] = time.perf_counter() - clock[0]
+    rows = None
+    if "kernels" in run:
+        rows = check_kernels(torch)
+        ab_lines(torch)
+        print("norm-host", json.dumps(norm_host(torch)), flush=True)
+        phase_s["kernel-checks and A/B lines"] = (time.perf_counter()
+                                                  - clock[0])
     clock[0] = time.perf_counter()
     torch.cuda.empty_cache()
     paths = {}
-    paths["float"], float_logits, model = run_float_path(torch)
-    emit("main-path", paths["float"])
-    paths["lidar-bev"] = run_lidar_bev(torch, model)
-    emit("lidar-bev", paths["lidar-bev"])
-    del model
-    torch.cuda.empty_cache()
-    served = serving_model(torch)
-    paths["serving"], mlp_logits = run_serving_path(
-        torch, served, "mlp", float_logits, "float")
-    emit("serving-path", paths["serving"])
-    paths["bench-stream"] = run_bench_stream(torch, served, paths["serving"])
-    emit("bench-stream", paths["bench-stream"])
-    name = f"serving-batch[{SERVING_BATCH}]"
-    paths[name] = run_serving_batch(torch, served)
-    emit(name, paths[name])
-    torch.cuda.empty_cache()
-    emit("u8-check", run_u8_check(torch, served))
-    for scope in SCOPES:
-        paths[scope], _ = run_serving_path(torch, served, scope, mlp_logits,
-                                           "mlp")
-        emit(f"serving-path[{scope}]", paths[scope])
-    del served
-    torch.cuda.empty_cache()
-    large = f"sam{LARGE}"
-    paths[large], large_logits, _ = run_float_path(torch, LARGE)
-    emit(f"main-path[{large}]", paths[large])
-    torch.cuda.empty_cache()
-    served = serving_model(torch, LARGE)
-    name = f"{large},{LARGE_SCOPE}"
-    paths[name], _ = run_serving_path(torch, served, LARGE_SCOPE,
-                                      large_logits, f"float_{large}")
-    emit(f"serving-path[{name}]", paths[name])
-    del served
-    torch.cuda.empty_cache()
-    report, loader, preset = preset_checkpoint(torch)
-    emit("serving-checkpoint", report)
-    from lvv_tpu_torch import prepare_serving_params_fused
-    packed = prepare_serving_params_fused(preset)
-    for name, run in ((f"serving-engine[{ENGINE_BATCH}]", run_serving_engine),
-                      (f"continuous[{ENGINE_BATCH}]", run_continuous),
-                      ("serve-http", run_serve_http)):
-        paths[name] = run(torch, preset, loader.tokenizer, packed)
+    if "main-path" in run:
+        paths["float"], float_logits, model = run_float_path(torch)
+        emit("main-path", paths["float"])
+        if "lidar-bev" in run:
+            paths["lidar-bev"] = run_lidar_bev(torch, model)
+            emit("lidar-bev", paths["lidar-bev"])
+        del model
+        torch.cuda.empty_cache()
+    if "detector-train" in run:
+        paths["detector-train"] = run_detector_train(torch)
+        emit("detector-train", paths["detector-train"])
+    if "serving" in run:
+        served = serving_model(torch)
+        paths["serving"], mlp_logits = run_serving_path(
+            torch, served, "mlp", float_logits, "float")
+        emit("serving-path", paths["serving"])
+        paths["bench-stream"] = run_bench_stream(torch, served,
+                                                 paths["serving"])
+        emit("bench-stream", paths["bench-stream"])
+        name = f"serving-batch[{SERVING_BATCH}]"
+        paths[name] = run_serving_batch(torch, served)
         emit(name, paths[name])
-    paths["infer-cli"] = run_infer_cli(torch, preset, loader.tokenizer)
-    emit("infer-cli", paths["infer-cli"])
-    del preset, packed
-    shutil.rmtree(PRESET_DIR)
-    torch.cuda.empty_cache()
-    for name, run in (("train-step", run_train_step),
-                      ("trainer", run_trainer)):
-        paths[name] = run(torch)
-        emit(name, paths[name])
+        torch.cuda.empty_cache()
+        emit("u8-check", run_u8_check(torch, served))
+        for scope in SCOPES:
+            paths[scope], _ = run_serving_path(torch, served, scope,
+                                               mlp_logits, "mlp")
+            emit(f"serving-path[{scope}]", paths[scope])
+        del served
+        torch.cuda.empty_cache()
+    if "sam1280" in run:
+        large = f"sam{LARGE}"
+        paths[large], large_logits, _ = run_float_path(torch, LARGE)
+        emit(f"main-path[{large}]", paths[large])
+        torch.cuda.empty_cache()
+        served = serving_model(torch, LARGE)
+        name = f"{large},{LARGE_SCOPE}"
+        paths[name], _ = run_serving_path(torch, served, LARGE_SCOPE,
+                                          large_logits, f"float_{large}")
+        emit(f"serving-path[{name}]", paths[name])
+        del served
+        torch.cuda.empty_cache()
+    if "serving-runtime" in run:
+        report, loader, preset = preset_checkpoint(torch)
+        emit("serving-checkpoint", report)
+        from lvv_tpu_torch import prepare_serving_params_fused
+        packed = prepare_serving_params_fused(preset)
+        for name, phase in (
+                (f"serving-engine[{ENGINE_BATCH}]", run_serving_engine),
+                (f"continuous[{ENGINE_BATCH}]", run_continuous),
+                ("serve-http", run_serve_http)):
+            paths[name] = phase(torch, preset, loader.tokenizer, packed)
+            emit(name, paths[name])
+        paths["infer-cli"] = run_infer_cli(torch, preset, loader.tokenizer)
+        emit("infer-cli", paths["infer-cli"])
+        del preset, packed
+        shutil.rmtree(PRESET_DIR)
+        torch.cuda.empty_cache()
+    for name, phase in (("train-step", run_train_step),
+                        ("trainer", run_trainer)):
+        if name in run:
+            paths[name] = phase(torch)
+            emit(name, paths[name])
     print("phase-seconds", json.dumps(phase_s), flush=True)
     for name, e2e in paths.items():
         for key in ("logits_rel_l2_vs_plain", "step_logits_rel_l2_vs_plain"):
             worst = max([e2e.get(key, 0.0)] + e2e.get(f"{key}_by_row", []))
             if worst > LOGITS_REL_TOL:
                 raise AssertionError(f"{name} path: {key} = {worst:.4f}")
+    if run == set(PHASES):
+        print(json.dumps({"kernels": kernel_rows(rows, paths)}))
+    else:
+        print(f"kernels line: not printed (--only ran {sorted(run)})")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
+
+def kernel_rows(rows, paths) -> list:
+    """The kernels line's rows: each kernel's check (`rows`) and its
+    launches on every driven path (`paths`)."""
     def at(res) -> str:
         if isinstance(res, int):
             return f"SAM {res}²"
@@ -3446,13 +3981,8 @@ def main() -> int:
                                   if t["has_library"] else None)
                 for k, t in by_res.items()}
         out.append(row)
-    print(json.dumps({"kernels": out}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return out
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,7 +18,10 @@ lvv_tpu_torch.tools.train_vqa`), differentiating through the kernels by
 their autograd Functions (`ops.autograd`); and the LiDAR BEV producer
 (`models.voxelnext.VoxelNeXtDetector` on the sparse ops `ops.voxelize`,
 `ops.sparse`, `ops.nms`; `python -m lvv_tpu_torch.tools.precompute_bev`),
-which makes the model's [128, 180, 180] BEV input from a point cloud.
+which makes the model's [128, 180, 180] BEV input from a point cloud, and
+its training (`train.detector`, `models.voxelnext_loss`, `python -m
+lvv_tpu_torch.tools.train_detector`), with sweeps read by the native host
+I/O library (`native`, native/lvv_io.cpp built with g++ at first use).
 Entry points run on the card
 unless given `device="cpu"`, where every kernel wrapper computes its plain
 PyTorch version.

@@ -1,0 +1,31 @@
+"""Detector registry and `build_detector` (counterpart of
+lvv_tpu/models/registry.py).
+
+The JAX package registers 17 detector families. The port builds VoxelNeXt;
+every other registered name raises NotImplementedError until its family is
+ported (ROADMAP.md, queue 1, item 2: the detector zoo), and an unknown name
+raises KeyError, as JAX's `build_detector` does.
+"""
+from __future__ import annotations
+
+DETECTORS = ("VoxelNeXt", "PointPillars", "CenterPoint", "SECOND", "PVRCNN",
+             "PointRCNN", "DSVT", "BEVFusion", "PartA2", "SECONDNetIoU",
+             "PillarNet", "PVRCNNPlusPlus", "CaDDN", "VoxelRCNN",
+             "TransFusion", "MPPNet", "MPPNetE2E")
+PORTED = ("VoxelNeXt",)
+
+
+def build_detector(name: str, det_cfg, vox_cfg, *, device=None,
+                   seed: int = 0):
+    """The detector `name` on `device` (the card unless told otherwise),
+    its weights random from `seed`, in eval mode."""
+    if name not in DETECTORS:
+        raise KeyError(f"unknown detector {name!r}; "
+                       f"registered: {sorted(DETECTORS)}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"detector {name!r} is not ported yet: it waits for ROADMAP.md "
+            "queue 1, item 2 (the detector zoo); the port builds "
+            f"{', '.join(PORTED)}")
+    from .voxelnext import VoxelNeXtDetector
+    return VoxelNeXtDetector(det_cfg, vox_cfg, device=device, seed=seed)

@@ -11,11 +11,18 @@ decode with class-agnostic rotated NMS (`detect`).
 Every stage has a fixed capacity: `capacity_schedule` when the config
 gives one (`NUSCENES_CAPACITY_SCHEDULE` is the product's), else 3/4 of the
 previous stage's (at least 1024) from the voxelizer's. The model runs in
-fp32 (TF32 off on the card, as the caller sets it). Norm "ln" is a
-LayerNorm over channels; "bn" a BatchNorm1d in its eval form, with running
-`mean` / `var` buffers (from a converted `batch_stats` tree), so that an
-spconv-trained checkpoint loads; its train form comes with the detector's
-training. Parameters are named as in the JAX tree, so a flattened
+fp32 (TF32 off on the card, as the caller sets it); a float64 copy
+(`.double()`) runs its layers in float64 from the same fp32 voxelization
+(the reference chip_smoke holds the fp32 gradients to). Norm "ln" is a
+LayerNorm over channels; "bn" a BatchNorm1d with running `mean` / `var`
+buffers (from a converted `batch_stats` tree), so that an spconv-trained
+checkpoint loads. The detector is built in eval mode, JAX's plain apply:
+"bn" reads the running buffers. Under `.train()`, JAX's apply with a
+mutable "batch_stats", "bn" takes the biased moments of the valid rows
+(`masked_moments`, differentiated) and moves the buffers by
+BN_MOMENTUM; `forward` builds an autograd graph unless the caller turns
+it off, and `detect` always runs the eval form without one. Parameters
+are named as in the JAX tree, so a flattened
 `{"params", "batch_stats"}` tree and the state_dict share their keys
 (`convert.from_jax_detector_params`); conv kernels keep the [K, Cin, Cout]
 layout, drawn as flax draws them (he_normal over (K, Cin); head kernels
@@ -35,7 +42,7 @@ from ..ops.nms import nms, top_k
 from ..ops.sparse import (SparseTensor, bev_collapse, build_subm_rulebook,
                           delinearize, from_voxels, merge_add,
                           reindex_upscale, sparse_conv, submanifold_conv,
-                          to_dense)
+                          to_dense, wide)
 from ..ops.voxelize import VoxelGrid, voxelize_mean
 from .layers import PARAM_FP32, init_parameters, new_param, resolve_device
 
@@ -44,6 +51,21 @@ from .layers import PARAM_FP32, init_parameters, new_param, resolve_device
 # capacity_stress.py): the surface profile plus headroom.
 NUSCENES_CAPACITY_SCHEDULE = (440000, 240000, 96000, 32000, 12000)
 BRANCHES = ("hm", "center", "center_z", "dim", "rot", "vel", "iou")
+# the reference's norm_fn: BatchNorm1d(eps=1e-3, momentum=0.01), torch's
+# convention ra = (1 - m)·ra + m·batch
+BN_EPS, BN_MOMENTUM = 1e-3, 0.01
+
+
+def masked_moments(f: torch.Tensor, valid: torch.Tensor):
+    """Per-channel mean and biased variance of f [V, C] over the rows where
+    `valid` holds (at least one row counted), as JAX's train form takes
+    them; F.batch_norm would count the padded rows and keep an unbiased
+    running variance."""
+    vmask = valid[:, None].to(f.dtype)
+    cnt = vmask.sum().clamp_min(1.0)
+    mean = (f * vmask).sum(0) / cnt
+    var = (((f - mean) ** 2) * vmask).sum(0) / cnt
+    return mean, var
 
 
 class SparseConvLayer(nn.Module):
@@ -79,9 +101,17 @@ class SparseConvLayer(nn.Module):
                               kernel=self.kernel_size, stride=self.stride,
                               padding=1, out_capacity=self.out_capacity,
                               ndim2d=self.ndim2d)
-        f = out.features.float()
+        f = wide(out.features)
         if self.norm == "bn":
-            mean, var, eps = self.mean, self.var, 1e-3
+            eps = BN_EPS
+            if not self.training:
+                mean, var = self.mean, self.var
+            else:
+                mean, var = masked_moments(f, out.valid)
+                with torch.no_grad():
+                    m = BN_MOMENTUM
+                    self.mean.copy_((1 - m) * self.mean + m * mean)
+                    self.var.copy_((1 - m) * self.var + m * var)
         else:
             mean = f.mean(-1, keepdim=True)
             var = f.var(-1, unbiased=False, keepdim=True)
@@ -247,7 +277,8 @@ def decode_detections(preds: Dict[str, SparseTensor],
 class VoxelNeXtDetector(nn.Module):
     """points -> (BEV features for the VQA model, detections): MeanVFE
     (fused into the voxelizer), backbone, head. Built on `device` (the
-    card unless told otherwise) with seeded random weights."""
+    card unless told otherwise) with seeded random weights, in eval
+    mode."""
 
     def __init__(self, det_cfg: VoxelNeXtConfig, vox_cfg: VoxelizeConfig, *,
                  device=None, seed: int = 0):
@@ -260,6 +291,9 @@ class VoxelNeXtDetector(nn.Module):
         self.head = VoxelNeXtHead(det_cfg, device=device)
         if device.type != "meta":
             init_parameters(self, seed)
+        # every parameter trains (JAX's step optimizes the whole "params")
+        self.requires_grad_(True)
+        self.eval()
 
     @property
     def device(self) -> torch.device:
@@ -276,13 +310,14 @@ class VoxelNeXtDetector(nn.Module):
         vox = voxelize_mean(points.to(self.device, torch.float32),
                             num_points, grid,
                             max_voxels=self.vox_cfg.max_voxels)
-        return from_voxels(vox.coords, vox.features, grid.grid_size)
+        return from_voxels(vox.coords, vox.features.to(
+            self.backbone.conv_input.kernel.dtype), grid.grid_size)
 
-    @torch.no_grad()
     def forward(self, points: torch.Tensor, num_points,
                 return_dense_bev: bool = True,
                 trace: Optional[List] = None) -> Dict:
-        """-> {"bev_sparse", "preds", and "bev_dense" [C, H, W] fp32}."""
+        """-> {"bev_sparse", "preds", and "bev_dense" [C, H, W] fp32}; a
+        graph is built unless the caller runs it under torch.no_grad()."""
         bev = self.backbone(self.voxelize(points, num_points), trace)
         out = {"bev_sparse": bev, "preds": self.head(bev)}
         if return_dense_bev:
@@ -291,6 +326,13 @@ class VoxelNeXtDetector(nn.Module):
 
     @torch.no_grad()
     def detect(self, points: torch.Tensor, num_points) -> Detections:
-        out = self(points, num_points, return_dense_bev=False)
+        """The eval form's detections (JAX's plain apply), whatever mode
+        the module is in; the mode is left as it was."""
+        training = self.training
+        self.eval()
+        try:
+            out = self(points, num_points, return_dense_bev=False)
+        finally:
+            self.train(training)
         return decode_detections(out["preds"], self.det_cfg, self.vox_cfg,
                                  self.det_cfg.spatial_stride)

@@ -209,24 +209,61 @@ def build_subm_rulebook(st: SparseTensor, kernel: int = 3,
     return slot, hit
 
 
+class _GatherRows(torch.autograd.Function):
+    """features [V, C] -> [*rows.shape, C]: row `rows[i]` of features, or
+    zeros where rows[i] == V (a zero row past the end). Its gradient adds
+    each gathered row's gradient back into its row (a sorted
+    `index_put_(accumulate=True)`), the zero row's left out: autograd's own
+    transpose would send every miss, most of a sparse conv's K·Vout
+    entries, to that one row, whose run of millions the sorted
+    accumulation walks serially (a default_config() train step took 18 s
+    on an H100 with it, 0.2 s without)."""
+
+    @staticmethod
+    def forward(ctx, features, rows):
+        ctx.save_for_backward(rows)
+        ctx.v = features.shape[0]
+        return torch.cat([features, features.new_zeros((1,) + features.shape[
+            1:])])[rows]
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, = ctx.saved_tensors
+        v = ctx.v
+        rows = rows.reshape(-1)
+        grad = grad.reshape(rows.shape[0], -1)
+        hit = rows < v
+        # misses add zeros, spread over the real rows (no long run)
+        spread = torch.arange(rows.shape[0], device=rows.device) % v
+        out = grad.new_zeros((v, grad.shape[1]))
+        out.index_put_((torch.where(hit, rows, spread),),
+                       torch.where(hit[:, None], grad, 0.0), accumulate=True)
+        return out, None
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or as it is in float64 (a float64 model's reference
+    run); the weights of a product follow their features."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _gather_gemm(features: torch.Tensor, slot: torch.Tensor,
                  hit: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """sum_k where(hit[k], features[slot[k]], 0) @ weights[k] in fp32:
-    features [V, Cin], slot / hit [K, Vout], weights [K, Cin, Cout] ->
-    [Vout, Cout]. One [Vout, K, Cin] gather (a zero row past the end for
-    the misses) and one GEMM."""
+    """sum_k where(hit[k], features[slot[k]], 0) @ weights[k] in fp32 (or
+    float64): features [V, Cin], slot / hit [K, Vout], weights [K, Cin,
+    Cout] -> [Vout, Cout]. One [Vout, K, Cin] gather (a zero row past the
+    end for the misses; `_GatherRows`) and one GEMM."""
     k, cin, cout = weights.shape
-    padded = torch.cat([features.float(),
-                        features.new_zeros((1, cin), dtype=torch.float32)])
     miss = torch.full_like(slot, features.shape[0])
     rows = torch.where(hit, slot, miss).t().long()            # [Vout, K]
-    return padded[rows].reshape(-1, k * cin) @ weights.float().reshape(
-        k * cin, cout)
+    features = wide(features)
+    return _GatherRows.apply(features, rows).reshape(
+        -1, k * cin) @ weights.to(features.dtype).reshape(k * cin, cout)
 
 
 def _finish(out, bias, valid, dtype) -> torch.Tensor:
     if bias is not None:
-        out = out + bias.float()
+        out = out + bias.to(out.dtype)
     return torch.where(valid[:, None], out, 0.0).to(dtype)
 
 
@@ -292,8 +329,9 @@ def sparse_conv(st: SparseTensor, weights: torch.Tensor,
     uids, inverse, _, n_unique = unique_with_inverse(
         all_ids, SENTINEL, out_capacity + 1)
     report_overflow("sparse_conv", n_unique, out_capacity)
-    feats = torch.einsum("vc,kcd->kvd", st.features.float(),
-                         weights.float()).reshape(-1, weights.shape[-1])
+    x = wide(st.features)
+    feats = torch.einsum("vc,kcd->kvd", x, weights.to(x.dtype)).reshape(
+        -1, weights.shape[-1])
     live = (all_ids != SENTINEL) & (inverse < out_capacity)
     seg = torch.where(live, inverse, out_capacity)
     out = segment_sum(torch.where(live[:, None], feats, 0.0), seg,

@@ -7,7 +7,8 @@
         [--config config.json]
 
 Reads each sample's LIDAR_TOP `.pcd.bin` through the nuScenes JSON tables
-under ROOT/VERSION (`TableNuScenes`), runs the VoxelNeXt detector's
+under ROOT/VERSION (`TableNuScenes`) with the native loader
+(`lvv_tpu_torch.native`, built at first use; its path is printed), runs the VoxelNeXt detector's
 backbone (`default_config()`: 0.075 m voxels over +-54 m, 160,000 voxels;
 or the `voxelize` and `model.voxelnext` sections of a config file) and
 writes one float16 [C, H, W] `.npy` per sample token to
@@ -49,6 +50,7 @@ def main(argv=None) -> None:
 
     from lvv_tpu_torch.config import VQAConfig, default_config, load
     from lvv_tpu_torch.data.nuscenes_tables import TableNuScenes
+    from lvv_tpu_torch import native
     from lvv_tpu_torch.data.points import load_points
     from lvv_tpu_torch.models.voxelnext import VoxelNeXtDetector
 
@@ -69,6 +71,7 @@ def main(argv=None) -> None:
     print(f"{len(items)} samples to process", flush=True)
     if not items:
         return
+    print(f"point loader: {native.build()}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -83,8 +86,9 @@ def main(argv=None) -> None:
         chunk = items[i:i + args.batch]
         clouds = [load_points(path, max_pts) for path, _ in chunk]
         t0 = time.perf_counter()
-        bevs = [det(torch.from_numpy(pts), n)["bev_dense"].to(
-                    torch.float16).cpu() for pts, n in clouds]
+        with torch.no_grad():
+            bevs = [det(torch.from_numpy(pts), n)["bev_dense"].to(
+                        torch.float16).cpu() for pts, n in clouds]
         dt = (time.perf_counter() - t0) * 1000
         for bev, (_, token) in zip(bevs, chunk):
             np.save(out_dir / f"{token}.npy", bev.numpy())

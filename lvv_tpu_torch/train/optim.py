@@ -15,6 +15,11 @@ master copies), in place, with optax's arithmetic: mu = b1·mu + (1 - b1)·g,
 nu = b2·nu + (1 - b2)·g², the update mu_hat / (sqrt(nu_hat) + eps) plus
 weight_decay·p, scaled by -lr(count) with count the group's number of
 updates before this one (optax's schedule count).
+
+The detector trains with one chain over all its parameters, `ClipAdamW`
+(`detector_optimizer`: optax.chain(clip_by_global_norm(10),
+adamw(warmup_cosine_decay_schedule(...)))), on the same AdamW arithmetic,
+`adamw_update_`.
 """
 from __future__ import annotations
 
@@ -89,12 +94,109 @@ def make_schedule(base_lr: float, total_steps: int, warmup_ratio: float):
     return lr
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule (exponent 1): count -> learning
+    rate, a line from init_value to peak_value over warmup_steps, then a
+    cosine from peak_value to end_value over decay_steps - warmup_steps
+    (which optax requires positive), end_value after."""
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError("the cosine decay requires positive decay_steps - "
+                         f"warmup_steps, got {span}")
+    alpha = 0.0 if peak_value == 0 else end_value / peak_value
+
+    def lr(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1 - max(count, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        t = min(count - warmup_steps, span)
+        cosine = 0.5 * (1 + math.cos(math.pi * t / span))
+        return peak_value * ((1 - alpha) * cosine + alpha)
+    return lr
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     tensors = [t.float() for t in tensors]
     if not tensors:
         return torch.zeros(())
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """optax.clip_by_global_norm on a list of tensors -> (clipped, the
+    pre-clip norm): each t becomes (t / norm) · max_norm when norm >=
+    max_norm (no epsilon, unlike clip_grad_norm_), else stays; no host
+    synchronisation."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, t, t / norm * max_norm) for t in grads], norm
+
+
+@torch.no_grad()
+def adamw_update_(params, grads, mu, nu, count: int, lr: float, b1: float,
+                  b2: float, weight_decay: float) -> None:
+    """One AdamW step in place on lists of tensors, optax's arithmetic:
+    the moments move, bias corrections at `count` (the updates made,
+    this one included), mu_hat / (sqrt(nu_hat) + eps) + weight_decay · p,
+    scaled by -lr."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(grads, grads), alpha=1 - b2)
+    mu_hat = torch._foreach_div(mu, 1 - b1 ** count)
+    den = torch._foreach_sqrt(torch._foreach_div(nu, 1 - b2 ** count))
+    torch._foreach_add_(den, _EPS)
+    upd = torch._foreach_div(mu_hat, den)
+    torch._foreach_add_(upd, params, alpha=weight_decay)
+    torch._foreach_add_(params, upd, alpha=-lr)
+
+
+class ClipAdamW:
+    """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
+    weight_decay=weight_decay)) over one set of named tensors, in place:
+    the detector's optimizer (`detector_optimizer`). Weight decay and the
+    moments' decay reach every tensor; a tensor whose gradient is None
+    (no path from the loss to it) takes a zero gradient, as JAX's
+    gradient of an unused parameter is zero."""
+
+    def __init__(self, schedule, max_norm: float, b1: float = 0.9,
+                 b2: float = 0.999, weight_decay: float = 1e-4):
+        self.schedule, self.max_norm = schedule, max_norm
+        self.b1, self.b2, self.weight_decay = b1, b2, weight_decay
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+        return {"count": 0,
+                "mu": {n: torch.zeros_like(t) for n, t in params.items()},
+                "nu": {n: torch.zeros_like(t) for n, t in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, "torch.Tensor | None"],
+               state: dict, params: Mapping[str, torch.Tensor]
+               ) -> torch.Tensor:
+        """One step of every tensor of `params` in place; returns the
+        gradients' global norm before the clip."""
+        names = list(params)
+        g = [grads[n] if grads.get(n) is not None
+             else torch.zeros_like(params[n]) for n in names]
+        g, norm = clip_by_global_norm(g, self.max_norm)
+        lr = self.schedule(state["count"])
+        state["count"] += 1
+        adamw_update_([params[n] for n in names], g,
+                      [state["mu"][n] for n in names],
+                      [state["nu"][n] for n in names], state["count"], lr,
+                      self.b1, self.b2, self.weight_decay)
+        return norm
+
+
+def detector_optimizer(lr: float, total_steps: int) -> ClipAdamW:
+    """The detector CLI's chain: clip by global norm 10, then AdamW (weight
+    decay 1e-4) at warmup_cosine_decay_schedule(lr / 10, lr,
+    max(total_steps // 10, 1), total_steps)."""
+    return ClipAdamW(warmup_cosine_decay_schedule(
+        lr / 10, lr, max(total_steps // 10, 1), total_steps), max_norm=10.0)
 
 
 class MultiGroupAdamW:
@@ -160,20 +262,10 @@ class MultiGroupAdamW:
                                               self.grad_clip / norm))
         lr = self.schedules[group](gs["count"])
         gs["count"] += 1
-        b1, b2, count = self.b1, self.b2, gs["count"]
-        mu = [gs["mu"][n] for n in names]
-        nu = [gs["nu"][n] for n in names]
-        p = [masters[n] for n in names]
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, g, alpha=1 - b1)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1 - b2)
-        mu_hat = torch._foreach_div(mu, 1 - b1 ** count)
-        den = torch._foreach_sqrt(torch._foreach_div(nu, 1 - b2 ** count))
-        torch._foreach_add_(den, _EPS)
-        upd = torch._foreach_div(mu_hat, den)
-        torch._foreach_add_(upd, p, alpha=self.weight_decay)
-        torch._foreach_add_(p, upd, alpha=-lr)
+        adamw_update_([masters[n] for n in names], g,
+                      [gs["mu"][n] for n in names],
+                      [gs["nu"][n] for n in names], gs["count"], lr,
+                      self.b1, self.b2, self.weight_decay)
 
 
 def make_optimizer(cfg: OptimConfig, params, total_steps: int):

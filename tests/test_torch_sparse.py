@@ -321,3 +321,22 @@ def test_nms_matches_jax(kind):
     want = jn.nms(*(t[:12] for t in jargs), iou_thresh=0.2, pre_max=100,
                   post_max=30)
     _eq(small[0], want[0])
+
+
+@pytest.mark.parametrize("miss_share", [0.0, 0.7, 1.0])
+def test_gather_rows_gradient_is_autograds(miss_share):
+    """`_GatherRows` (the sparse convs' row gather, a zero row past the end
+    for misses) has autograd's own gradient of that gather, bit for bit on
+    the CPU, with no share, most and all of the entries missing."""
+    gen = torch.Generator().manual_seed(0)
+    feats = torch.randn(50, 6, generator=gen)
+    rows = torch.randint(0, 50, (40, 27), generator=gen)
+    rows[torch.rand(40, 27, generator=gen) < miss_share] = 50
+    cot = torch.randn(40, 27, 6, generator=gen)
+    a = feats.clone().requires_grad_()
+    ps._GatherRows.apply(a, rows).backward(cot)
+    b = feats.clone().requires_grad_()
+    torch.cat([b, b.new_zeros((1, 6))])[rows].backward(cot)
+    assert torch.equal(ps._GatherRows.apply(feats, rows),
+                       torch.cat([feats, feats.new_zeros((1, 6))])[rows])
+    assert torch.equal(a.grad, b.grad)

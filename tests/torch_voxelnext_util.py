@@ -116,9 +116,10 @@ def make_runs(grid: str):
         pm.load_state_dict(from_jax_detector_params(variables, pdet, pvox,
                                                     device="cpu"))
         trace = []
-        got = pm(torch.from_numpy(pts), n, trace=trace)
-        got_dets = decode_detections(got["preds"], pdet, pvox,
-                                     pdet.spatial_stride)
+        with torch.no_grad():
+            got = pm(torch.from_numpy(pts), n, trace=trace)
+            got_dets = decode_detections(got["preds"], pdet, pvox,
+                                         pdet.spatial_stride)
         made[norm] = dict(jax=(out, dets, stages, variables),
                           port=(got, got_dets, dict(trace), pm),
                           cloud=(pts, n), cfg=(pdet, pvox))
