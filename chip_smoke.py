@@ -2943,30 +2943,29 @@ def run_lidar_bev(torch, model) -> dict:
 
 DET_DIR = REPO / "build" / "detector_train"
 # VoxelNeXt training at default_config()'s full width (fp32, TF32 off). One
-# step at batch 1 in each norm mode on the card against the port's CPU step
-# and against the same step in float64 on the card (the reference), from
-# the same weights, cloud and gts: the loss within DET_LOSS_TOL relative,
-# the running statistics within DET_STAT_TOL, and each parameter group's
+# step at batch 1 in each norm mode, all from the same weights, cloud and
+# gts: in float64 on the card (the reference), in float32 on the card as a
+# user runs it, and in float32 on the card and on the CPU with every ReLU's
+# gate replayed from the float64 step. A ReLU whose input lies within
+# float32 rounding of 0 takes its gate from the rounding: at these weights
+# a few such entries per norm mode (inputs 2e-8 to 1e-7 of their layer's
+# largest) each carry up to ~2e-3 of their layer's gradient norm, and
+# every stage before them inherits that (`detector_grad_audit.py`, PERF.md
+# §6). With the gates replayed, the loss within DET_LOSS_TOL relative, the
+# running statistics within DET_STAT_TOL, and each parameter group's
 # gradient (backbone stages, BEV output, each head branch; all its tensors
-# as one vector) within DET_GRAD_TOL relative L2, card against CPU and each
-# against float64. The stages that truncate at these capacities (the
-# voxelizer keeps the 160,000 lowest ids of 244,259 voxels, mostly the
-# ground plane, and stages 2-3 truncate too; under "bn" also stage 4, whose
-# batch moments mix every row) carry a float32 error of 3e-4 to 3.5e-3
-# against float64, the CPU's as much as the card's (measured on an H100,
-# PERF.md §6): DET_FP32_GROUPS take DET_FP32_TOL there. The conv biases
-# that a "bn" norm subtracts out again have an analytically zero gradient
-# (float32 noise, different on each device): left out of their groups and
-# held under DET_CANCELLED_TOL of the global gradient norm. The trap, the
-# card's "bn" step with the batch moments detached (taken as constants, as
-# a F.batch_norm over detached statistics would), drops their share of
-# every gradient below the deepest norm and has to fail each group's bound
-# by 10x.
+# as one vector) within DET_GRAD_TOL relative L2, card against CPU and
+# each against float64; the user's float32 step is printed beside them with
+# the count of gates it takes otherwise. The conv biases that a "bn" norm
+# subtracts out again have an analytically zero gradient (float32 noise,
+# different on each device): left out of their groups and held under
+# DET_CANCELLED_TOL of the global gradient norm. The trap, the card's "bn"
+# step with the batch moments detached (taken as constants, as a
+# F.batch_norm over detached statistics would) and the same gates, drops
+# their share of every gradient below the deepest norm and has to fail
+# each group's bound by 10x.
 DET_LOSS_TOL = 1e-5
 DET_GRAD_TOL = 1e-4
-DET_FP32_TOL = 1e-2
-DET_FP32_GROUPS = {"ln": ("stage1", "stage2", "stage3"),
-                   "bn": ("stage1", "stage2", "stage3", "stage4")}
 DET_STAT_TOL = 1e-5
 DET_CANCELLED_TOL = 1e-4
 DET_BATCH, DET_STEPS, DET_LR, MAX_GT = 2, 4, 1e-3, 128
@@ -3081,56 +3080,108 @@ def detached_moments():
         V.masked_moments = plain
 
 
+@contextlib.contextmanager
+def relu_gates(torch, det, record=None, replay=None):
+    """The ReLU of each of `det`'s conv layers, in call order: its gate
+    (x > 0 on the valid rows) appended to `record`, and, given `replay` (a
+    recorded list), taken from there instead of from x: x · gate."""
+    from lvv_tpu_torch.models.voxelnext import SparseConvLayer
+    relu, inside, calls = torch.relu, [], [0]
+
+    def gated(x):
+        if not inside:
+            return relu(x)
+        i, calls[0] = calls[0], calls[0] + 1
+        if record is not None:
+            record.append(x.detach() > 0)
+        if replay is None:
+            return relu(x)
+        return x * replay[i].to(x.device, x.dtype)
+
+    def enter(*_):
+        inside.append(1)
+
+    def leave(_, __, out):
+        inside.pop()
+        if record is not None:         # padded rows leave as zeros anyway
+            record[-1] &= out.valid[:, None]
+    hooks = []
+    for m in det.modules():
+        if isinstance(m, SparseConvLayer):
+            hooks.append(m.register_forward_pre_hook(enter))
+            hooks.append(m.register_forward_hook(leave))
+    torch.relu = gated
+    try:
+        yield
+    finally:
+        torch.relu = relu
+        for h in hooks:
+            h.remove()
+
+
 def detector_against_cpu(torch, norm: str) -> dict:
-    """(a) One step at batch 1 in `norm` mode on the card, on the CPU and,
-    as the reference, in float64 on the card, all from the same weights;
-    under "bn" also the trap on the card."""
+    """(a) One step at batch 1 in `norm` mode: in float64 on the card (its
+    gates recorded), in float32 on the card as it runs (its gates counted
+    against those), and in float32 on the card and on the CPU with the
+    float64 step's gates; under "bn" also the trap on the card."""
     from lvv_tpu_torch.models.voxelnext import VoxelNeXtDetector
     cfg = detector_config(norm)
     batch = detector_batch(cfg, (0,))
     det = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize,
                             device="cuda", seed=0)
     start = {k: v.clone() for k, v in det.state_dict().items()}
-    t0 = time.perf_counter()
-    card_m, card_g = detector_step(torch, det, batch)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    card_stats = {n: b.cpu() for n, b in det.named_buffers()}
     ref = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize,
                             device="cuda").double()
     ref.load_state_dict(start)
-    _, ref_g = detector_step(torch, ref, batch)
+    gates, own = [], []
+    with relu_gates(torch, ref, record=gates):
+        _, ref_g = detector_step(torch, ref, batch)
     del ref
+    t0 = time.perf_counter()
+    with relu_gates(torch, det, record=own):
+        user_m, user_g = detector_step(torch, det, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    differ = sum(int((a != b).sum()) for a, b in zip(own, gates))
+    del own
+    det.load_state_dict(start)
+    with relu_gates(torch, det, replay=gates):
+        card_m, card_g = detector_step(torch, det, batch)
+    card_stats = {n: b.cpu() for n, b in det.named_buffers()}
     cpu = VoxelNeXtDetector(cfg.model.voxelnext, cfg.voxelize, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
     t0 = time.perf_counter()
-    cpu_m, cpu_g = detector_step(torch, cpu, batch)
+    with relu_gates(torch, cpu, replay=gates):
+        cpu_m, cpu_g = detector_step(torch, cpu, batch)
     cpu_s = time.perf_counter() - t0
     groups = detector_groups(det)
     skip = cancelled_biases(det)
     rel = {pair: group_rel_l2(torch, groups, a, b, skip) for pair, a, b in (
         ("card-cpu", card_g, cpu_g), ("card-fp64", card_g, ref_g),
         ("cpu-fp64", cpu_g, ref_g))}
-    bound = {g: DET_FP32_TOL if g in DET_FP32_GROUPS[norm] else DET_GRAD_TOL
-             for g in groups}
     over = {pair: [g for g, v in r.items()
-                   if v is not None and v > bound[g]]
+                   if v is not None and v > DET_GRAD_TOL]
             for pair, r in rel.items()}
+    user = group_rel_l2(torch, groups, user_g, ref_g, skip)
     total = float(torch.cat([g.reshape(-1) for g in cpu_g.values()
                              if g is not None]).norm())
 
     def share(grads):                   # the cancelled biases' norm, of G
         kept = [grads[n] for n in skip if grads[n] is not None]
         return float(torch.cat(kept).norm()) / total if kept else 0.0
-    cancelled = {"card": share(card_g), "cpu": share(cpu_g)}
+    cancelled = {"card": share(card_g), "cpu": share(cpu_g),
+                 "card_own_gates": share(user_g)}
     stat_err = max([float((card_stats[n] - b).abs().max())
                     for n, b in cpu.named_buffers()], default=0.0)
     loss_rel = abs(card_m[0]["loss"] - cpu_m[0]["loss"]) / abs(
         cpu_m[0]["loss"])
+    user_loss_rel = abs(user_m[0]["loss"] - cpu_m[0]["loss"]) / abs(
+        cpu_m[0]["loss"])
     del cpu
     checks = {
-        "loss within DET_LOSS_TOL": loss_rel <= DET_LOSS_TOL,
-        "group gradients within their bounds, card / CPU / fp64": not any(
+        "loss within DET_LOSS_TOL, own and replayed gates": max(
+            loss_rel, user_loss_rel) <= DET_LOSS_TOL,
+        "group gradients within DET_GRAD_TOL, card / CPU / fp64": not any(
             over.values()),
         "vel / iou without gradients": rel["card-cpu"]["head.vel"] is None
         and rel["card-cpu"]["head.iou"] is None,
@@ -3139,19 +3190,29 @@ def detector_against_cpu(torch, norm: str) -> dict:
             cancelled.values()) <= DET_CANCELLED_TOL}
     report = dict(norm=norm, loss_card=card_m[0]["loss"],
                   loss_cpu=cpu_m[0]["loss"], loss_rel=loss_rel,
-                  group_bound=bound, group_grad_rel_l2=rel,
+                  loss_card_own_gates=user_m[0]["loss"],
+                  group_grad_rel_l2=rel, relu_entries=sum(
+                      int(g.numel()) for g in gates),   # padded rows too
+                  gates_differing_from_fp64=differ,
+                  own_gates_group_rel_l2_vs_fp64=user,
                   stat_max_abs=stat_err, cancelled_biases=cancelled,
                   global_grad_norm=total, card_step_s=card_s,
                   cpu_step_s=cpu_s, gts=int(batch["gt_mask"].sum()))
+    worst = max(v for r in rel.values() for v in r.values() if v is not None)
+    own_worst = max(v for v in user.values() if v is not None)
+    print(f"detector-train[{norm}]: with the float64 step's gates, groups "
+          f"card / CPU / fp64 within {worst:.2e}; with its own ({differ} of "
+          f"{report['relu_entries']} gates differ) {own_worst:.2e} from "
+          f"fp64", flush=True)
     if norm == "bn":
         det.load_state_dict(start)
-        with detached_moments():
+        with detached_moments(), relu_gates(torch, det, replay=gates):
             _, trap_g = detector_step(torch, det, batch)
         trap = group_rel_l2(torch, groups, trap_g, cpu_g, skip)
         trap_worst = max(v for v in trap.values() if v is not None)
         # over the groups with a gradient (a stage whose norm sees a single
         # row has none: its output is ln_bias)
-        trap_margin = min(v / bound[g] for g, v in trap.items()
+        trap_margin = min(v / DET_GRAD_TOL for g, v in trap.items()
                           if v is not None and any(
                               cpu_g[n] is not None and cpu_g[n].any()
                               for n in groups[g] if n not in skip))
@@ -3160,9 +3221,10 @@ def detector_against_cpu(torch, norm: str) -> dict:
             trap_margin > 10)
         print(f"detector-trap: detached batch moments, group rel L2 up to "
               f"{trap_worst:.3e}, each at least {trap_margin:.1f}x its "
-              f"bound ({DET_GRAD_TOL:.0e} / {DET_FP32_TOL:.0e})", flush=True)
+              f"bound ({DET_GRAD_TOL:.0e})", flush=True)
         report.update(trap_group_grad_rel_l2=trap, trap_worst=trap_worst,
                       trap_margin=trap_margin)
+    del gates
     report["checks"] = checks
     if not all(checks.values()):
         raise AssertionError(f"detector-train[{norm}] vs the CPU: {checks}; "
@@ -3230,7 +3292,10 @@ def detector_cli(torch) -> dict:
     (`--synthetic --steps 2 --save-every 1`, tiny_config(), on the card):
     exit 0, its log and final line; each run's last checkpoint restored
     into a new detector bit-equal to what it saved; the restored
-    in-process detector's detect equal to the trained one's."""
+    in-process detector's detect (every scored box through NMS) equal to
+    the trained one's."""
+    import dataclasses
+
     import numpy as np
     from lvv_tpu_torch import tiny_config
     from lvv_tpu_torch.models.voxelnext import VoxelNeXtDetector
@@ -3265,14 +3330,17 @@ def detector_cli(torch) -> dict:
         np.random.default_rng(0), 1, cfg.voxelize.max_points // 4, 8,
         cfg.voxelize.point_range)["points"][0]).cuda()
     n = cfg.voxelize.max_points // 4
+    # the seeded tiny model scores no box above the threshold: both
+    # detectors send every scored box through NMS, so that boxes compare
+    for d in (det, restored["in"][0]):
+        d.det_cfg = dataclasses.replace(d.det_cfg, score_thresh=-1.0)
     want = det.detect(pts, n)
     got = restored["in"][0].detect(pts, n)
     same_state = all(torch.equal(a, b) for a, b in zip(
         det.state_dict().values(), restored["in"][0].state_dict().values()))
     # same weights; the voxelizer's and segment sums' atomics may order a
-    # voxel's float adds differently from one call to the next. The seeded
-    # tiny model keeps no box above the score threshold, so the forwards'
-    # BEV and head outputs are held too.
+    # voxel's float adds differently from one call to the next. The
+    # forwards' BEV and head outputs are held too.
     with torch.no_grad():
         outs = [d.eval()(pts, n) for d in (det, restored["in"][0])]
     detect_err = max(float((a.float() - b.float()).abs().max())
@@ -3291,8 +3359,9 @@ def detector_cli(torch) -> dict:
             for r in ("sub", "in") for s in ("step_1", "step_2")),
         "reloads bit-equal": restored["sub"][1] and restored["in"][1]
         and same_state,
-        "reloaded detect = in-process detect": int(got.count) == int(
-            want.count) and torch.equal(got.labels, want.labels)
+        "reloaded detect = in-process detect, boxes kept": int(
+            want.count) > 0 and int(got.count) == int(want.count)
+        and torch.equal(got.labels, want.labels)
         and detect_err <= 1e-6 and forward_err <= 1e-6}
     loss_gap = abs(final["final_loss"] - metrics["loss"]) / abs(
         metrics["loss"])

@@ -17,7 +17,9 @@ state) every --save-every steps and at the end; the last line is
 otherwise, in fp32 with TF32 off. Real datasets (--dataset without
 --synthetic), MPPNet and every family but VoxelNeXt wait for the detector
 zoo and its datasets (ROADMAP.md, queue 1, item 2): they exit with a
-message saying so.
+message saying so. The JAX CLI's real-data options (--tiny, --dataroot,
+--info-path, --max-gt, --augment, --gt-db, --gt-quota, --cbgs,
+--proposals, --seq-offsets) come with that mode.
 """
 from __future__ import annotations
 
@@ -54,19 +56,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--config", default=None)
     p.add_argument("--set", action="append", default=[], dest="overrides")
     p.add_argument("--synthetic", action="store_true")
-    p.add_argument("--tiny", action="store_true",
-                   help="tiny_config shapes (real-data mode)")
     p.add_argument("--dataset", default="NuScenes",
-                   help="registry dataset name (real-data mode)")
-    p.add_argument("--dataroot", default=None)
-    p.add_argument("--info-path", default=None)
-    p.add_argument("--max-gt", type=int, default=128)
-    p.add_argument("--augment", action="store_true")
-    p.add_argument("--gt-db", default=None)
-    p.add_argument("--gt-quota", action="append", default=[])
-    p.add_argument("--cbgs", action="store_true")
-    p.add_argument("--proposals", default=None)
-    p.add_argument("--seq-offsets", type=int, nargs="*", default=None)
+                   help="registry dataset name (real-data mode, which "
+                        "exits: see the module's docstring)")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--lr", type=float, default=1e-3)
@@ -92,9 +84,7 @@ def main(argv=None):
     from lvv_tpu_torch.train.optim import detector_optimizer
 
     cfg = (C.load(C.VQAConfig, args.config, args.overrides) if args.config
-           else C.apply_overrides(
-               C.tiny_config() if (args.synthetic or args.tiny)
-               else C.default_config(), args.overrides))
+           else C.apply_overrides(C.tiny_config(), args.overrides))
     detector = args.detector or (
         C.load_file(args.config).get("_detector") if args.config else None
     ) or "VoxelNeXt"
