@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--only PHASE[,PHASE...]]
 
 With no flag every phase runs. `--only` runs the named ones of kernels,
-main-path, lidar-bev, detector-train, serving, sam1280, serving-runtime,
-train-step, trainer (lidar-bev and serving bring main-path with them; the
+main-path, lidar-bev, detector-train, detector-zoo, serving, sam1280,
+serving-runtime, train-step, trainer (lidar-bev and serving bring
+main-path with them; the
 kernel build is skipped when only detector-train runs, and the kernels
 line, which needs every path's launches, is printed only when every phase
 ran); the last line is the same.
@@ -137,6 +138,33 @@ ran); the last line is the same.
    trained one's); (d) the bucketed step's pick on a cloud: the smallest
    bucket that drops nothing, checked by telemetry on the card. No
    hand-written kernel lies on this path (its launches are counted: none).
+3c. Then the nuScenes dense-BEV detectors ("detector-zoo"):
+   PointPillars, CenterPoint, SECOND and TransFusion, each at its
+   configs/nuscenes_*.json preset's full width (fp32, TF32 off, seeded
+   weights, ZOO_PRESETS' biases) on lidar_cloud's 300,000-point surface
+   cloud. Each one's detect: the stage split (voxelize, the sparse or
+   pillar trunk, the 2D trunk, the head, decode) p50 of 3 after a warm-up,
+   peak memory, one profiled call's device busy and idle, the detection
+   count, and the same call through the port on the CPU (sparse stage ids
+   equal, BEV and head outputs within BEV_REL_TOL, detections within
+   BOX_ABS_TOL; TransFusion's query picks counted against the CPU's and,
+   where any differ, the card's head run again on the CPU's picks).
+   TransFusion's detect launches K-e's fp32 form twice and K-a six times
+   (counted from zero around its first call). Each family trains:
+   ZOO_STEPS steps at batch ZOO_BATCH (s/step p50, samples/s, peak, one
+   profiled step, the launches of one step, a loss below the first);
+   TransFusion and SECOND then take a step at batch 1 on the card and on
+   the CPU from the same weights with every ReLU gate and TransFusion's
+   query picks replayed from the card's (loss within DET_LOSS_TOL, each
+   group's gradient within
+   DET_GRAD_TOL; the gates and picks the CPU would have taken otherwise,
+   and the Hungarian matches that differ, counted). Then `python -m
+   lvv_tpu_torch.tools.train_detector --config
+   configs/nuscenes_transfusion_lidar.json --synthetic --steps 2
+   --save-every 1` at tiny_config()'s sizes as a subprocess, its
+   checkpoint reloaded bit-equal. K-e's fp32 form and K-a on fp32 x are
+   checked in 2 at TransFusion's shapes (FP32_REL_L2_TOL; the scale
+   dropped, or the norm parameters rounded to bf16, must fail it).
 8. Trains at full width: default_config() in bf16 with fp32 masters,
    TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
    ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
@@ -537,6 +565,21 @@ def kernel_cases(torch):
                     x, s, b, eps=1e-6, rms=rms), s, bias))
         return setup
 
+    def norm_f32_case(n, c):
+        # K-a on fp32 x with fp32 parameters (TransFusion's LayerNorms)
+        def setup():
+            x, s, b = fp32(n, c), 1 + fp32(c, std=0.1), fp32(c, std=0.1)
+            return dict(
+                kernel=lambda: M.norm(x, s, b, eps=1e-6),
+                plain=lambda: M.norm_plain(x, s, b, eps=1e-6),
+                library=lambda: F.layer_norm(x, (c,), s, b, 1e-6),
+                flops=7 * n * c, peak=FP32_FLOPS,
+                bytes=4 * 2 * n * c + 4 * 2 * c,
+                rel_l2_tol=FP32_REL_L2_TOL,
+                traps=param_trap(lambda s, b: M.norm_plain(
+                    x, s, b, eps=1e-6), s, b))
+        return setup
+
     def add_norm_case(n, c):
         # K-a's add form as Qwen calls it: a residual add, then RMSNorm
         def setup():
@@ -708,6 +751,26 @@ def kernel_cases(torch):
                 flops=4 * pairs * d * hq, peak=BF16_FLOPS,
                 bytes=2 * b * (2 * sq * hq * d + 2 * sk * hkv * d),
                 abs_extra=extra)
+        return setup
+
+    def flash_f32_case(sq, sk, h, d, b=1):
+        # K-e's fp32 form, q / k / v as views of the fp32 projections
+        def setup():
+            q, k, v = (fp32(b, s, h * d).view(b, s, h, d).transpose(1, 2)
+                       for s in (sq, sk, sk))
+            splits = A.flash_splits(b, h, sq, sk, 64)
+            return dict(
+                notes=dict(kv_splits=splits,
+                           blocks=-(-sq // 64) * h * b * splits,
+                           library="SDPA on fp32, TF32 off"),
+                kernel=lambda: A.flash_attention(q, k, v),
+                plain=lambda: A.flash_attention_plain(q, k, v),
+                library=lambda: F.scaled_dot_product_attention(q, k, v),
+                flops=4 * b * sq * sk * d * h, peak=FP32_FLOPS,
+                bytes=4 * b * h * d * (2 * sq + 2 * sk),
+                rel_l2_tol=FP32_REL_L2_TOL,
+                traps={"scale_dropped": lambda: A.flash_attention_plain(
+                    q, k, v, scale=1.0)})
         return setup
 
     def relpos_case(b, g, heads, d):
@@ -1290,6 +1353,15 @@ def kernel_cases(torch):
          f"train CLIP [{TRAIN_BATCH * 6 * 257},1024]x[1024,4096] quick_gelu",
          24, mlp_case(TRAIN_BATCH * 6 * 257, 1024, 4096, "quick_gelu")),
     ]
+    # TransFusion's detect at its preset (fp32, detector-zoo): its two
+    # cross-attentions, 200 queries over the 180 x 180 BEV tokens (K-e's
+    # fp32 form), and its six LayerNorms at width 128 (K-a on fp32 x)
+    zoo = [
+        ("flash_attention[fp32]", "TransFusion cross q200 kv32400 4h d32 "
+         "fp32", 2, flash_f32_case(200, 32400, 4, 32)),
+        ("norm", "LN TransFusion [200,128] fp32", 6,
+         norm_f32_case(200, 128)),
+    ]
     # the 1024² list: every shape of its four batch-1 paths
     return [c + (1024,) for c in [
         ("norm", "LN SAM [24576,768]", 12, norm_case(24576, 768, False)),
@@ -1350,6 +1422,7 @@ def kernel_cases(torch):
         c + (LARGE,) for c in large] + [
         c + (("preset", b),) for b, cases in by_preset.items()
         for c in cases] + [c + (("train", TRAIN_BATCH),) for c in train] + [
+        c + (("zoo", "TransFusion"),) for c in zoo] + [
         c + (None,) for c in unused]
 
 
@@ -1363,6 +1436,10 @@ ROWS = {
                         "lvv_tpu/ops/fused_mlp.py:56"),
     "flash_attention": ("cuda", "lvv_tpu_torch/kernels/csrc/flash_attention.cu",
                         "lvv_tpu/ops/attention.py:82"),
+    # K-e's fp32 form, as _flash_padded (:188) runs _flash_kernel on fp32
+    "flash_attention[fp32]": (
+        "cuda", "lvv_tpu_torch/kernels/csrc/flash_attention_f32.cu",
+        "lvv_tpu/ops/attention.py:82"),
     "relpos_attention[14x14]": (
         "cuda", "lvv_tpu_torch/kernels/csrc/relpos_attention.cu",
         "lvv_tpu/ops/attention.py:1018"),
@@ -3452,6 +3529,446 @@ def run_detector_train(torch) -> dict:
     return report
 
 
+# ---------------------------------------------------------- detector-zoo --
+
+ZOO_DIR = REPO / "build" / "detector_zoo"
+# The nuScenes dense-BEV families at their presets' full width (fp32, TF32
+# off, seeded weights) on lidar_cloud's 300,000-point surface cloud: the
+# detector's call (p50 of 3 staged calls after a warm-up), one profiled
+# call, and the same call through the port on the CPU from the same weights
+# (sparse stage ids equal; the BEV and each head output within
+# BEV_REL_TOL relative L2; detections as lidar-bev holds them). Seeded
+# weights score nothing above the 0.1 threshold, so each detector's class
+# or heatmap bias is set to -1 and its boxes made small (CenterPoint's size
+# bias -1.5: 0.22 m boxes at its 0.6 m cells; PointPillars' -2.5 at its
+# 0.2 m cells; SECOND's box branch scaled down to its bias, sizes e^-3 of
+# the anchors'; TransFusion's size bias -1.5, where its head's e^b would
+# reach metres whose float32 rounding alone is near BOX_ABS_TOL), so that
+# NMS compares no IoU near its 0.2 threshold; and
+# the heading's cosine channel takes a bias of 4, so that no heading is an
+# atan2 of two values near 0 (where a 1e-6 difference in the head's
+# outputs moves it by more than BOX_ABS_TOL).
+ZOO_PRESETS = {"PointPillars": "configs/nuscenes_pp_multihead.json",
+               "CenterPoint": "configs/nuscenes_centerpoint_voxel0075.json",
+               "SECOND": "configs/nuscenes_second_multihead.json",
+               "TransFusion": "configs/nuscenes_transfusion_lidar.json"}
+# every family trains at batch ZOO_BATCH (ZOO_STEPS steps, the first a
+# warm-up); these also at batch 1 on the card against the CPU from the
+# same weights, every ReLU's gate and (TransFusion) the 200 query picks
+# replayed on the CPU from the card's step: the loss within DET_LOSS_TOL,
+# each group's gradient (backbone3d, backbone2d, head) within DET_GRAD_TOL
+ZOO_TRAIN = ("TransFusion", "SECOND")
+ZOO_BATCH, ZOO_STEPS = 2, 4
+# K-e's fp32 form against its plain version: both true fp32 (TF32 off);
+# the kernel sums the score and value products in another order and its
+# kv splits combine partial softmax states, ~1e-6 relative L2 at
+# TransFusion's shape; dropping the scale gives ~1 and has to fail
+FP32_REL_L2_TOL = 1e-5
+
+
+def zoo_config(family: str):
+    from lvv_tpu_torch import config as C
+    return C.load(C.VQAConfig, REPO / ZOO_PRESETS[family])
+
+
+def zoo_detector(torch, family: str, cfg, device):
+    """The family at its preset's width with seeded weights and the biases
+    ZOO_PRESETS' note sets."""
+    from lvv_tpu_torch.models.registry import build_detector
+    det = build_detector(family, cfg.model.voxelnext, cfg.voxelize,
+                         device=device, seed=0)
+    head = det.head
+    with torch.no_grad():
+        if family in ("PointPillars", "CenterPoint"):
+            head.hm.bias.fill_(-1.0)
+            head.dim.bias.fill_(-2.5 if family == "PointPillars" else -1.5)
+            head.rot.bias[1] = 4.0
+        elif family == "SECOND":
+            head.cls.bias.fill_(-1.0)
+            head.box.kernel.mul_(1e-3)
+            head.box.bias.view(-1, 7)[:, 3:6] = -3.0
+        else:
+            head.cls.bias.fill_(-1.0)
+            head.box.bias[3:6] = -1.5
+            head.box.bias[7] = 4.0
+    return det
+
+
+def zoo_staged(torch, det, pts, n, trace=None) -> tuple:
+    """One call stage by stage (voxelize, trunk3d, trunk2d, head, decode),
+    each ending in a synchronise where on the card -> (seconds by stage,
+    the forward's dict, detections)."""
+    sync = torch.cuda.synchronize if pts.is_cuda else (lambda: None)
+    secs, x = {}, None
+    with torch.no_grad():
+        for i, (name, fn) in enumerate(det.stages(trace)):
+            t0 = time.perf_counter()
+            x = fn(pts, n) if i == 0 else fn(x)
+            sync()
+            secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dets = det.decode(x)
+        sync()
+        secs["decode"] = time.perf_counter() - t0
+    return secs, x, dets
+
+
+def zoo_outputs(out) -> dict:
+    """The forward's float tensors to compare: the BEV and each head
+    output."""
+    got = {"bev_dense": out["bev_dense"]}
+    got.update({f"preds.{k}": v for k, v in out["preds"].items()
+                if v.is_floating_point()})
+    return got
+
+
+def zoo_detect(torch, family: str) -> dict:
+    """The family's call on the card, timed and profiled, against the same
+    call through the port on the CPU."""
+    from lvv_tpu_torch import kernels
+    cfg = zoo_config(family)
+    pts_np, n = lidar_cloud(cfg)
+    det = zoo_detector(torch, family, cfg, "cuda")
+    pts = torch.from_numpy(pts_np).cuda()
+    zoo_staged(torch, det, pts, n)                      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    trace = []
+    stages = [zoo_staged(torch, det, pts, n, trace)]
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    stages += [zoo_staged(torch, det, pts, n) for _ in range(2)]
+    totals = sorted(sum(s[0].values()) for s in stages)
+    stage_p50 = {k: sorted(s[0][k] for s in stages)[1]
+                 for k in stages[0][0]}
+    _, out, dets = stages[0]
+    print(f"detector-zoo[{family}] profile of one call:", flush=True)
+    device = device_busy(torch, lambda: zoo_staged(torch, det, pts, n))
+    cpu = zoo_detector(torch, family, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    trace_cpu = []
+    t0 = time.perf_counter()
+    _, out_cpu, dets_cpu = zoo_staged(torch, cpu, torch.from_numpy(pts_np),
+                                      n, trace_cpu)
+    cpu_s = time.perf_counter() - t0
+    ids_equal = {name: torch.equal(a.ids.cpu(), b.ids)
+                 for (name, a), (_, b) in zip(trace, trace_cpu)}
+    report = dict(points=n, grid=list(det.voxel_grid().grid_size),
+                  bev_shape=list(out["bev_dense"].shape),
+                  call_s=totals, call_p50_s=totals[1],
+                  stage_p50_s=stage_p50, peak_mem_gib=peak / 2 ** 30,
+                  **device,
+                  device_idle_share=1 - device["device_busy_s"] / totals[1],
+                  detections=int(dets.count), cpu_call_s=cpu_s,
+                  stage_ids_equal_cpu=ids_equal, launches=launches)
+    if family == "TransFusion":
+        picks, picks_cpu = (o["preds"]["top_idx"].cpu()
+                            for o in (out, out_cpu))
+        differ = len(set(picks_cpu.tolist()) - set(picks.tolist()))
+        report["query_picks_differing"] = differ
+        if differ:      # the card's head again, on the CPU's picks
+            with torch.no_grad():
+                x = pts
+                for i, (_, fn) in enumerate(det.stages()[:3]):
+                    x = fn(pts, n) if i == 0 else fn(x)
+                out = {"bev_dense": x, "preds": det.head(
+                    x, picks_cpu.to(x.device))}
+                dets = det.decode(out)
+    rels = {k: rel_l2(v.float().cpu(), zoo_outputs(out_cpu)[k].float())
+            for k, v in zoo_outputs(out).items()}
+    boxes, boxes_cpu = by_position(dets), by_position(dets_cpu)
+    box_err = (float(abs(boxes - boxes_cpu).max())
+               if boxes.shape == boxes_cpu.shape and len(boxes) else None)
+    checks = {"stage ids equal": all(ids_equal.values()),
+              "BEV and head outputs within BEV_REL_TOL": max(
+                  rels.values()) <= BEV_REL_TOL,
+              "detection count": int(dets.count) == int(dets_cpu.count),
+              "boxes within BOX_ABS_TOL": box_err is not None
+              and box_err <= BOX_ABS_TOL,
+              "finite BEV": bool(torch.isfinite(out["bev_dense"]).all())}
+    if family == "TransFusion":
+        checks["K-e fp32 and K-a launched, 2 and 6 a detect"] = (
+            launches == {"flash_attention[fp32]": 2, "norm": 6})
+    else:
+        checks["no hand-written kernel on the path"] = launches == {}
+    report.update(rel_l2_vs_cpu=rels, box_max_abs_vs_cpu=box_err,
+                  checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"detector-zoo[{family}]: {checks}; {report}")
+    return report
+
+
+@contextlib.contextmanager
+def zoo_gates(torch, record=None, replay=None, own=None):
+    """Every torch.relu in call order: its gate (x > 0) appended to
+    `record`; given `replay` (a recorded list), x · that gate instead, and
+    the count of gates that x would have taken otherwise added to
+    `own[0]`."""
+    relu, calls = torch.relu, [0]
+
+    def gated(x):
+        i, calls[0] = calls[0], calls[0] + 1
+        if record is not None:
+            record.append((x.detach() > 0).cpu())
+        if replay is None:
+            return relu(x)
+        gate = replay[i].to(x.device)
+        if own is not None:
+            own[0] += int(((x.detach() > 0) != gate).sum())
+        return x * gate.to(x.dtype)
+    torch.relu = gated
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+@contextlib.contextmanager
+def zoo_picks(torch, det, log, replay=None, own=None):
+    """TransFusion's query picks appended to log["idx"] and its Hungarian
+    matches to log["match"], in call order; given `replay` (another run's
+    picks), the head takes those, and the count of picks it would have
+    taken otherwise is added to `own[0]`."""
+    from lvv_tpu_torch.models import transfusion as T
+    head, calls = det.head, [0]
+    plain_match = T.hungarian_one_to_one
+
+    def forward(bev, top_idx=None):
+        i, calls[0] = calls[0], calls[0] + 1
+        idx = None if replay is None else replay[i].to(bev.device)
+        out = type(head).forward(head, bev, idx)
+        log["idx"].append(out["top_idx"].cpu())
+        if replay is not None:
+            peak = torch.sigmoid(out["hm"].float()).amax(-1).reshape(-1)
+            mine = set(T.top_k(peak, len(idx))[1].tolist())
+            own[0] += len(mine - set(replay[i].tolist()))
+        return out
+
+    def match(cost, mask):
+        got = plain_match(cost, mask)
+        log["match"].append(got[0].cpu())
+        return got
+    head.forward, T.hungarian_one_to_one = forward, match
+    try:
+        yield
+    finally:
+        del head.forward
+        T.hungarian_one_to_one = plain_match
+
+
+def zoo_step(torch, det, batch, gates, picks=None, replay=None):
+    """One train step of `det` (the CLI's chain) with every ReLU gate
+    recorded into `gates`, or with `replay` = (gates, picks) of another
+    run taken instead; TransFusion's picks and matches logged into `picks`
+    -> (metrics as floats, gradients on the host, gates and picks that
+    differ from the replayed ones)."""
+    from lvv_tpu_torch.train.detector import make_detector_train_step
+    from lvv_tpu_torch.train.optim import detector_optimizer
+    tx = detector_optimizer(DET_LR, ZOO_STEPS)
+    step = make_detector_train_step(det, tx, det.det_cfg, det.vox_cfg)
+    own_g, own_p = [0], [0]
+    with contextlib.ExitStack() as ctx:
+        ctx.enter_context(zoo_gates(
+            torch, None if replay else gates, replay and replay[0], own_g))
+        if picks is not None:
+            ctx.enter_context(zoo_picks(torch, det, picks,
+                                        replay and replay[1], own_p))
+        _, m = step((det, tx.init(dict(det.named_parameters()))), batch)
+    grads = {k: None if p.grad is None else p.grad.cpu()
+             for k, p in det.named_parameters()}
+    return ({k: float(v) for k, v in m.items()}, grads, own_g[0],
+            own_p[0])
+
+
+def zoo_train(torch, family: str) -> dict:
+    """The family's train step at batch ZOO_BATCH (timed, profiled,
+    launches of one step, losses falling); for the ZOO_TRAIN families
+    also a step at batch 1 on the card against the CPU
+    (`zoo_against_cpu`)."""
+    from lvv_tpu_torch import kernels
+    from lvv_tpu_torch.train.detector import make_detector_train_step
+    from lvv_tpu_torch.train.optim import detector_optimizer
+    cfg = zoo_config(family)
+    batch = detector_batch(cfg, range(ZOO_BATCH))
+    det = zoo_detector(torch, family, cfg, "cuda")
+    start = {k: v.clone() for k, v in det.state_dict().items()}
+    tx = detector_optimizer(DET_LR, ZOO_STEPS + 1)
+    step = make_detector_train_step(det, tx, cfg.model.voxelnext,
+                                    cfg.voxelize)
+    state = (det, tx.init(dict(det.named_parameters())))
+    losses, step_s = [], []
+    for i in range(ZOO_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+            kernels.launches.clear()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        if i == 1:
+            launches = {k: v for k, v in kernels.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    p50 = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(f"detector-zoo[{family}] profile of one train step:", flush=True)
+    device = device_busy(torch, lambda: (step(state, batch),
+                                         torch.cuda.synchronize()))
+    del step, state
+    # a step lowers the loss: on one batch at DET_LR the query head's loss
+    # need not fall at every step (TransFusion's rises again by the fourth)
+    checks = {"losses finite, a step below the first at batch 2": min(
+        losses[1:]) < losses[0] and all(math.isfinite(x) for x in losses)}
+    if family == "TransFusion":
+        checks["K-e fp32 and K-a launched, 2 and 6 a sample"] = (
+            launches == {"flash_attention[fp32]": 2 * ZOO_BATCH,
+                         "norm": 6 * ZOO_BATCH})
+    else:
+        checks["no hand-written kernel on the path"] = launches == {}
+    report = dict(losses=losses, step_s=step_s, s_per_step_p50=p50,
+                  samples_per_s=ZOO_BATCH / p50,
+                  peak_mem_gib=peak / 2 ** 30, **device,
+                  device_idle_share=1 - device["device_busy_s"] / p50,
+                  launches_per_step=launches)
+    if family in ZOO_TRAIN:
+        det.load_state_dict(start)
+        report.update(zoo_against_cpu(torch, family, cfg, det, start,
+                                      {k: v[:1] for k, v in batch.items()}))
+        checks.update(report.pop("checks"))
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-zoo[{family}] train: {checks}; "
+                             f"{report}")
+    return report
+
+
+def zoo_against_cpu(torch, family: str, cfg, det, start, one) -> dict:
+    """A step of `det` (at `start`) on batch `one`, then the same step on
+    the CPU from the same weights with every ReLU gate and (TransFusion)
+    the query picks replayed from the card's: the loss, each group's
+    gradient, the gates, picks and Hungarian matches the CPU would have
+    taken otherwise."""
+    tf = family == "TransFusion"
+    gates = []
+    logs = [{"idx": [], "match": []} for _ in range(2)] if tf else [None] * 2
+    card_m, card_g, _, _ = zoo_step(torch, det, one, gates, logs[0])
+    cpu = zoo_detector(torch, family, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    t0 = time.perf_counter()
+    cpu_m, cpu_g, gates_differ, picks_differ = zoo_step(
+        torch, cpu, one, None, logs[1],
+        replay=(gates, logs[0]["idx"] if tf else None))
+    cpu_s = time.perf_counter() - t0
+    # TransFusion's heatmap only picks the queries: no gradient reaches it
+    # (JAX's is zero)
+    no_grad = sorted(k for k, g in card_g.items() if g is None)
+    groups = collections.defaultdict(list)
+    for name in cpu_g:
+        if name not in no_grad:
+            groups[name.split(".")[0]].append(name)
+    rel = group_rel_l2(torch, dict(groups), card_g, cpu_g)
+    loss_rel = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    checks = {"loss card vs CPU within DET_LOSS_TOL": loss_rel
+              <= DET_LOSS_TOL,
+              "group gradients within DET_GRAD_TOL": all(
+                  v is not None and v <= DET_GRAD_TOL for v in rel.values()),
+              "gradients where the loss reaches, on both devices": (
+                  no_grad == (["head.hm.bias", "head.hm.kernel"] if tf
+                              else [])
+                  and no_grad == sorted(k for k, g in cpu_g.items()
+                                        if g is None))}
+    report = dict(loss_card=card_m["loss"], loss_cpu=cpu_m["loss"],
+                  loss_rel=loss_rel, group_grad_rel_l2=rel,
+                  relu_entries=sum(int(g.numel()) for g in gates),
+                  cpu_own_gates_differing=gates_differ, cpu_step_s=cpu_s,
+                  checks=checks)
+    if tf:
+        report["cpu_own_picks_differing"] = picks_differ
+        report["hungarian_matches_differing"] = sum(
+            int((a != b).sum()) for a, b in zip(*(g["match"] for g in logs)))
+    print(f"detector-zoo[{family}] train: batch 1 card vs CPU on the card's "
+          f"gates: loss {loss_rel:.2e}, groups {rel}; the CPU's own gates "
+          f"differ at {gates_differ} of {report['relu_entries']}", flush=True)
+    return report
+
+
+def zoo_tiny_overrides() -> list:
+    """--set pairs that cut a preset to tiny_config()'s sizes."""
+    import dataclasses
+    from lvv_tpu_torch import tiny_config
+    cfg = tiny_config()
+    det = dataclasses.asdict(cfg.model.voxelnext)
+    pairs = [f"voxelize.{k}={json.dumps(v)}"
+             for k, v in dataclasses.asdict(cfg.voxelize).items()]
+    pairs += [f"model.voxelnext.{k}={json.dumps(det[k])}"
+              for k in ("channels", "out_channels", "num_classes",
+                        "class_names", "nms_pre_max", "nms_post_max")]
+    return [x for p in pairs for x in ("--set", p)]
+
+
+def zoo_cli(torch) -> dict:
+    """`python -m lvv_tpu_torch.tools.train_detector --config
+    configs/nuscenes_transfusion_lidar.json --synthetic --steps 2
+    --save-every 1` at tiny_config()'s sizes (--set) as a subprocess on
+    the card: exit 0, the preset's family (its `_detector` key), both
+    checkpoints, the last restored into a new detector bit-equal."""
+    from lvv_tpu_torch import config as C
+    from lvv_tpu_torch.models.registry import build_detector
+    from lvv_tpu_torch.train.checkpoints import CheckpointManager
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    preset = ZOO_PRESETS["TransFusion"]
+    sets = zoo_tiny_overrides()
+    argv = ["--config", preset, "--synthetic", "--steps", "2",
+            "--save-every", "1", "--out", str(ZOO_DIR / "cli"), *sets]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lvv_tpu_torch.tools.train_detector", *argv],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    sub_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"train_detector exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    final = json.loads(lines[-1])
+    cfg = C.load(C.VQAConfig, REPO / preset, sets[1::2])
+    fresh = build_detector("TransFusion", cfg.model.voxelnext, cfg.voxelize,
+                           device="cuda", seed=7)
+    ckpt = ZOO_DIR / "cli" / "checkpoints"
+    CheckpointManager(ckpt).restore("step_2", fresh)
+    saved = torch.load(ckpt / "step_2" / "state" / "state.pt",
+                       map_location="cuda")
+    checks = {"exit 0, 2 log lines, final line": final["steps"] == 2
+              and [ln.split()[0] for ln in lines[:2]] == ["[0]", "[1]"]
+              and math.isfinite(final["final_loss"])
+              and "tf_cls_loss" in lines[0],
+              "checkpoints step_1, step_2": all(
+                  (ckpt / s).is_dir() for s in ("step_1", "step_2")),
+              "reloads bit-equal": set(saved) == set(fresh.state_dict())
+              and all(torch.equal(saved[k], v)
+                      for k, v in fresh.state_dict().items())}
+    if not all(checks.values()):
+        raise AssertionError(f"train_detector CLI ({preset}): {checks}; "
+                             f"{proc.stdout[-1500:]}")
+    shutil.rmtree(ZOO_DIR)
+    return dict(checks=checks, subprocess_s=sub_s, log=lines)
+
+
+def run_detector_zoo(torch) -> dict:
+    """The nuScenes dense-BEV families on the card: each one's detect at
+    its preset's width against the CPU, each one's train step (TransFusion's
+    and SECOND's also against the CPU), and the train CLI on TransFusion's
+    preset. `launches`: TransFusion's detect's (the path's kernels)."""
+    report = {}
+    for family in ZOO_PRESETS:
+        report[f"detect[{family}]"] = zoo_detect(torch, family)
+        torch.cuda.empty_cache()
+    for family in ZOO_PRESETS:
+        report[f"train[{family}]"] = zoo_train(torch, family)
+        torch.cuda.empty_cache()
+    report["cli"] = zoo_cli(torch)
+    report["launches"] = report["detect[TransFusion]"]["launches"]
+    return report
+
+
 # kernels printed by device_busy wherever they rank: PyTorch's bf16 adds
 # (the residual adds that K-a's add form takes in) and K-a itself
 # ---------------------------------------------------------------- training --
@@ -3806,10 +4323,11 @@ def device_busy(torch, generate) -> dict:
     its kernels' durations; the idle share is taken against the unprofiled
     p50) and the run's wall time with the profiler on. Prints the top
     kernels by device time (names cut to 100 characters), then the
-    PROFILE_WATCH kernels below them (`profile-watch`)."""
+    PROFILE_WATCH kernels below them (`profile-watch`). Only the CUDA
+    activity is traced: the host's op events add nothing to these sums
+    and made `key_averages` take most of each profiled phase's time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         generate()
         wall = time.perf_counter() - t0
@@ -3845,8 +4363,9 @@ NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
                       r"norm_kernel|qr_lanes_|qr_rows_")
 
 
-PHASES = ("kernels", "main-path", "lidar-bev", "detector-train", "serving",
-          "sam1280", "serving-runtime", "train-step", "trainer")
+PHASES = ("kernels", "main-path", "lidar-bev", "detector-train",
+          "detector-zoo", "serving", "sam1280", "serving-runtime",
+          "train-step", "trainer")
 # lidar-bev feeds its BEV to the float path's model; the serving phases hold
 # their logits to the float path's
 NEEDS = {"lidar-bev": "main-path", "serving": "main-path"}
@@ -3893,7 +4412,7 @@ def main(argv=None) -> int:
 
     from lvv_tpu_torch import kernels
     t0 = time.perf_counter()
-    # the detector's path runs no hand-written kernel
+    # VoxelNeXt's path runs no hand-written kernel
     reports = kernels.build_all() if run - {"detector-train"} else {}
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     spills = []
@@ -3941,6 +4460,9 @@ def main(argv=None) -> int:
     if "detector-train" in run:
         paths["detector-train"] = run_detector_train(torch)
         emit("detector-train", paths["detector-train"])
+    if "detector-zoo" in run:
+        paths["detector-zoo"] = run_detector_zoo(torch)
+        emit("detector-zoo", paths["detector-zoo"])
     if "serving" in run:
         served = serving_model(torch)
         paths["serving"], mlp_logits = run_serving_path(
@@ -4016,6 +4538,8 @@ def kernel_rows(rows, paths) -> list:
     def at(res) -> str:
         if isinstance(res, int):
             return f"SAM {res}²"
+        if res[0] == "zoo":
+            return f"{res[1]}'s detect at its nuScenes preset (fp32)"
         if res[0] == "train":
             return (f"a train step at batch {res[1]} (its causal attention, "
                     "add + RMS and CLIP MLP shapes only)")
@@ -4024,7 +4548,8 @@ def kernel_rows(rows, paths) -> list:
     out = []
     for name, (route, source, replaces) in ROWS.items():
         by_res = rows[name]
-        res = next(r for r in (1024, LARGE, None) if r in by_res)
+        res = next((r for r in (1024, LARGE, None) if r in by_res),
+                   next(iter(by_res)))
         r = by_res[res]
         by_path = {p: e["launches"].get(name, 0) for p, e in paths.items()}
         row = dict(
@@ -4040,8 +4565,9 @@ def kernel_rows(rows, paths) -> list:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             library_ms=r["library_ms"] if r["has_library"] else None,
-            times_per=(f"generate at {at(res)}" if res
-                       else "call (no path runs it)"))
+            times_per=("call (no path runs it)" if res is None
+                       else at(res) if isinstance(res, tuple)
+                       and res[0] == "zoo" else f"generate at {at(res)}"))
         if len(by_res) > 1:
             row["per_generate_at"] = {
                 at(k): dict(ms=t["ms"], plain_ms=t["plain_ms"],

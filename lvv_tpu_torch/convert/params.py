@@ -8,11 +8,14 @@ kernel) become torch OIHW. Dense kernels stay [in, out] and embedding
 tables [V, D]. A leaf with no port parameter, a shape that does not match,
 or a port parameter left unfilled raises.
 
-`from_jax_detector_params` does the same for the JAX package's
-VoxelNeXtDetector variables, `{"params": ..., "batch_stats": ...}` (the
-running statistics of the "bn" norm, when the config has it): the port's
-buffers take the `batch_stats` leaves, its sparse conv kernels keep the
-[K, Cin, Cout] layout.
+`from_jax_detector_params` does the same for the JAX package's detector
+variables, `{"params": ..., "batch_stats": ...}` (the running statistics
+of VoxelNeXt's "bn" norm, when the config has it), for every family the
+port builds: the port's buffers take the `batch_stats` leaves, sparse conv
+kernels keep the [K, Cin, Cout] layout, flax Dense kernels [in, out],
+flax LayerNorm scales and biases as they are, and a module of the port
+may convert its own leaves (`from_jax_leaf`: the transposed convs, whose
+flax kernels are flipped into PyTorch's layout).
 
 `merge` overlays a partial state_dict from one of the checkpoint converters
 (`convert_*_state`) onto a model's, with the same shape checks.
@@ -92,15 +95,17 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, *,
 
 
 def from_jax_detector_params(variables: Mapping, det_cfg: VoxelNeXtConfig,
-                             vox_cfg: VoxelizeConfig, *,
-                             device=None) -> Dict[str, torch.Tensor]:
-    """JAX VoxelNeXtDetector variables ({"params"} and, with norm "bn",
-    {"batch_stats"}) -> the port's VoxelNeXtDetector(det_cfg, vox_cfg)
-    state_dict, on `device` (the card unless told otherwise)."""
-    from ..models.voxelnext import VoxelNeXtDetector
+                             vox_cfg: VoxelizeConfig, *, device=None,
+                             detector: str = "VoxelNeXt"
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX detector variables ({"params"} and, with VoxelNeXt's norm "bn",
+    {"batch_stats"}) of the family `detector` (a registry name the port
+    builds) -> the port's detector's state_dict, on `device` (the card
+    unless told otherwise)."""
+    from ..models.registry import build_detector
     flat = {**_flatten(variables["params"]),
             **_flatten(variables.get("batch_stats", {}))}
-    ref = VoxelNeXtDetector(det_cfg, vox_cfg, device="meta")
+    ref = build_detector(detector, det_cfg, vox_cfg, device="meta")
     return _convert(flat, ref, resolve_device(device))
 
 
@@ -114,12 +119,16 @@ def _convert(flat: Dict[str, np.ndarray], ref: torch.nn.Module,
     for key, arr in flat.items():
         if key not in expected:
             raise KeyError(f"JAX leaf {key!r} has no port parameter")
-        if arr.ndim == 4 and key.endswith(".kernel"):
+        owner, _, leaf = key.rpartition(".")
+        hook = getattr(ref.get_submodule(owner), "from_jax_leaf", None)
+        if hook is not None:                       # e.g. a flipped deconv
+            arr = hook(leaf, arr)
+        elif arr.ndim == 4 and key.endswith(".kernel"):
             arr = arr.transpose(3, 2, 0, 1)        # HWIO -> OIHW
         if tuple(arr.shape) != expected[key]:
             raise ValueError(f"{key}: JAX shape {arr.shape} does not match "
                              f"the port's {expected[key]}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        out[key] = torch.from_numpy(np.array(arr, order="C")).to(device)
     missing = sorted(expected.keys() - out.keys())
     if missing:
         raise KeyError(f"port parameters without a JAX leaf: {missing}")

@@ -36,7 +36,7 @@ SOURCES = ("ln_mlp_residual", "flash_attention", "relpos_attention",
            "ln_mlp_residual_q8", "int8_matmul", "int8_matmul_nk",
            "w8a8_matmul", "relpos_attention_qk8",
            "flash_attention_relpos", "window_attention_rows", "qr_prep",
-           "norm")
+           "norm", "flash_attention_f32")
 
 launches: collections.Counter = collections.Counter()
 
@@ -44,6 +44,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "lvv_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _I, _P],
     "lvv_flash_attention": [_P] * 7 + [_I] * 8 + [_F, _P, _P],
+    "lvv_flash_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P, _P],
     "lvv_relpos_attention": [_P] * 7 + [_I] * 13 + [_F, _P],
     "lvv_ln_mlp_residual_q8": [_P] * 17 + [_I] * 4 + [_F, _I, _I, _P],
     "lvv_ln_mlp_residual_q8_weight": [_P] * 4 + [_I] * 3 + [_P],

@@ -1,18 +1,26 @@
 """Detector registry and `build_detector` (counterpart of
 lvv_tpu/models/registry.py).
 
-The JAX package registers 17 detector families. The port builds VoxelNeXt;
-every other registered name raises NotImplementedError until its family is
-ported (ROADMAP.md, queue 1, item 2: the detector zoo), and an unknown name
+The JAX package registers 17 detector families. The port builds
+VoxelNeXt, PointPillars, CenterPoint, SECOND and TransFusion; every other
+registered name raises NotImplementedError until its family is ported
+(ROADMAP.md, queue 1, item 2: the detector zoo), and an unknown name
 raises KeyError, as JAX's `build_detector` does.
 """
 from __future__ import annotations
+
+import importlib
 
 DETECTORS = ("VoxelNeXt", "PointPillars", "CenterPoint", "SECOND", "PVRCNN",
              "PointRCNN", "DSVT", "BEVFusion", "PartA2", "SECONDNetIoU",
              "PillarNet", "PVRCNNPlusPlus", "CaDDN", "VoxelRCNN",
              "TransFusion", "MPPNet", "MPPNetE2E")
-PORTED = ("VoxelNeXt",)
+# name -> (module of this package, class)
+PORTED = {"VoxelNeXt": ("voxelnext", "VoxelNeXtDetector"),
+          "PointPillars": ("pointpillars", "PointPillarsDetector"),
+          "CenterPoint": ("centerpoint", "CenterPointDetector"),
+          "SECOND": ("second", "SECONDDetector"),
+          "TransFusion": ("transfusion", "TransFusionDetector")}
 
 
 def build_detector(name: str, det_cfg, vox_cfg, *, device=None,
@@ -27,5 +35,6 @@ def build_detector(name: str, det_cfg, vox_cfg, *, device=None,
             f"detector {name!r} is not ported yet: it waits for ROADMAP.md "
             "queue 1, item 2 (the detector zoo); the port builds "
             f"{', '.join(PORTED)}")
-    from .voxelnext import VoxelNeXtDetector
-    return VoxelNeXtDetector(det_cfg, vox_cfg, device=device, seed=seed)
+    module, cls = PORTED[name]
+    mod = importlib.import_module(f"{__package__}.{module}")
+    return getattr(mod, cls)(det_cfg, vox_cfg, device=device, seed=seed)

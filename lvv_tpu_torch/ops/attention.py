@@ -4,7 +4,8 @@ Layouts follow the JAX package: q [B, Hq, Sq, D], k / v [B, Hkv, Sk, D] ->
 [B, Hq, Sq, D]; the SAM rel-pos op takes the packed qkv projection
 [B, S, 3C] and returns [B, S, C].
 
-- `flash_attention` (K-e), `relpos_attention` (K-c and K-d, one CUDA
+- `flash_attention` (K-e, bf16; and its fp32 form at head dims up to
+  64, a kernel of its own), `relpos_attention` (K-c and K-d, one CUDA
   kernel for both, with the int8 p@v arm K-d8 under `pv_int8`),
   `relpos_attention_qk8` (K-g, int8 scores) and `flash_attention_relpos` /
   `flash_attention_relpos_fused` (K-h, head-split q, k, v with the caller's
@@ -164,13 +165,15 @@ _SPLIT_MIN_KV = 512      # keys a kv split holds at least
 _SPLIT_COST = 0.02       # each split's partials cost ~2% of the kernel
 
 
-def flash_splits(b: int, hq: int, sq: int, sk: int) -> int:
+def flash_splits(b: int, hq: int, sq: int, sk: int,
+                 block_q: int = _FLASH_BQ) -> int:
     """How many kv splits the flash kernel runs, from the shapes alone (so
-    results repeat run to run): 1 where the q tiles, heads and batch give a
-    block per SM; otherwise the count n (each split at least 512 keys) that
-    minimises the waves of blocks per unit of work, ceil(blocks·n / SMs) / n,
-    times 1 + 2% per split for the partials' round trip (ties: fewer)."""
-    blocks = -(-sq // _FLASH_BQ) * hq * b
+    results repeat run to run): 1 where the q tiles (`block_q` rows; the
+    fp32 form's are 64), heads and batch give a block per SM; otherwise the
+    count n (each split at least 512 keys) that minimises the waves of
+    blocks per unit of work, ceil(blocks·n / SMs) / n, times 1 + 2% per
+    split for the partials' round trip (ties: fewer)."""
+    blocks = -(-sq // block_q) * hq * b
     most = max(1, sk // _SPLIT_MIN_KV)
     if blocks >= _SMS:
         return 1
@@ -181,14 +184,16 @@ def flash_splits(b: int, hq: int, sq: int, sk: int) -> int:
 def flash_attention_split_plain(q, k, v, *, n_split: int,
                                 causal: bool = False,
                                 kv_len: Optional[torch.Tensor] = None,
-                                scale: Optional[float] = None
+                                scale: Optional[float] = None,
+                                block_k: Optional[int] = None
                                 ) -> torch.Tensor:
     """The flash kernel's split-kv arithmetic in plain PyTorch (for the
-    tests): the kv axis cut where the kernel cuts it (whole tiles, the
-    same number in each split), per split the base-2 softmax state of each
-    row (m, l and o = p·v with p rounded to v's dtype, unnormalised), then
-    the combine: weights 2^(m - M) over the splits that hold one of the
-    row's keys, out = sum w·o / max(sum w·l, 1e-30)."""
+    tests): the kv axis cut where the kernel cuts it (whole tiles of
+    `block_k` keys, by default the bf16 form's, the same number in each
+    split), per split the base-2 softmax state of each row (m, l and o =
+    p·v with p rounded to v's dtype, unnormalised), then the combine:
+    weights 2^(m - M) over the splits that hold one of the row's keys, out
+    = sum w·o / max(sum w·l, 1e-30)."""
     n_rep = q.shape[1] // k.shape[1]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -199,7 +204,7 @@ def flash_attention_split_plain(q, k, v, *, n_split: int,
     if keep is None:
         keep = torch.ones_like(s2, dtype=torch.bool)
     s2 = s2.masked_fill(~keep, _NEG_INF)
-    bn = 64 if q.shape[-1] > 128 else 128     # the kernel's kv tile
+    bn = block_k or (64 if q.shape[-1] > 128 else 128)   # kv tile
     step = -(-(-(-sk // bn)) // n_split) * bn
     parts = []
     for c0 in range(0, sk, step):      # a split past sk holds no key
@@ -225,13 +230,16 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Kernel K-e: flash attention forward (causal with the sk - sq offset,
     per-batch kv_len, GQA by head index; the kv axis split across blocks
-    as `flash_splits` says)."""
+    as `flash_splits` says): bf16 q, k, v at head dim 64, 112, 128 or 256,
+    or, in its fp32 form, fp32 q, k, v at any head dim up to 64."""
     if kernels.wants_grad(q, k, v):
         from .autograd import FlashAttentionFn
         return FlashAttentionFn.apply(q, k, v, causal, kv_len, scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      scale=scale)
+    if q.dtype == torch.float32:
+        return _flash_f32(q, k, v, causal, kv_len, scale)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, sk, d) or v.shape != k.shape or hq % hkv
@@ -277,6 +285,55 @@ def flash_attention(q, k, v, *, causal: bool = False,
              torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, "flash_attention")
     kernels.launches["flash_attention"] += 1
+    return out
+
+
+_F32_BQ, _F32_BK = 64, 64     # the fp32 form's q rows a block, keys a tile
+
+
+def _flash_f32(q, k, v, causal: bool, kv_len, scale) -> torch.Tensor:
+    """K-e's fp32 form (kernels/csrc/flash_attention_f32.cu): what
+    `_flash_kernel` computes on fp32 inputs, s, p and the accumulator in
+    fp32, head dim up to 64 (`_flash_padded` pads such heads to 64)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if (k.shape != (b, hkv, sk, d) or v.shape != k.shape or hq % hkv
+            or not 1 <= d <= 64):
+        raise ValueError("flash_attention: unsupported fp32 shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} (head dim 1-64)")
+    ops = (q, k, v)
+    if any(t.dtype != torch.float32 or t.device != q.device for t in ops):
+        raise ValueError("flash_attention: fp32 q, k, v must be fp32 on "
+                         "one device")
+    kernels.refuse_grad("flash_attention", *ops)
+    ops = tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ops)
+    if kv_len is not None:
+        kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+        if kv_len.shape != (b,):
+            raise ValueError("flash_attention: kv_len must be [B]")
+    out = torch.empty(b, sq, hq, d, dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    n_split = flash_splits(b, hq, sq, sk, _F32_BQ)
+    part_o = part_ml = None
+    if n_split > 1:
+        part_o = torch.empty(n_split * b * hq * sq * d, dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty(n_split * b * hq * sq * 2,
+                              dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(
+        st for t in (*ops, out) for st in t.stride()[:3]))
+    fn = kernels.lib("flash_attention_f32").lvv_flash_attention_f32
+    err = fn(*(t.data_ptr() for t in ops),
+             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
+             None if part_o is None else part_o.data_ptr(),
+             None if part_ml is None else part_ml.data_ptr(),
+             b, hq, hkv, sq, sk, d, int(causal), n_split,
+             ctypes.c_float(scale), ctypes.cast(strides, ctypes.c_void_p),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash_attention[fp32]")
+    kernels.launches["flash_attention[fp32]"] += 1
     return out
 
 

@@ -5,19 +5,22 @@
         [--batch 1] [--lr 1e-3] [--log-every 1] [--save-every 0] \\
         [--out runs/detector] [--device cpu]
 
-Trains VoxelNeXt with the JAX CLI's flags, defaults and chain: clip by
+Trains a detector with the JAX CLI's flags, defaults and chain: clip by
 global norm 10, then AdamW (weight decay 1e-4) at a warmup-cosine schedule
-from lr / 10 (`train.optim.detector_optimizer`). `--synthetic` takes
-tiny_config() (or --config) and one fixed generated batch (uniform points,
-8 boxes), as the JAX CLI's smoke mode does. Each step prints `[i] loss L
-hm_loss H reg_loss R T ms`; checkpoints go to OUT/checkpoints/step_N (the
-detector's parameters and running statistics, without the optimizer
-state) every --save-every steps and at the end; the last line is
-{"steps", "final_loss"}. Runs on the card unless `--device` says
-otherwise, in fp32 with TF32 off. Real datasets (--dataset without
---synthetic), MPPNet and every family but VoxelNeXt wait for the detector
-zoo and its datasets (ROADMAP.md, queue 1, item 2): they exit with a
-message saying so. The JAX CLI's real-data options (--tiny, --dataroot,
+from lr / 10 (`train.optim.detector_optimizer`). The family is --detector,
+else the config file's `_detector` key (configs/nuscenes_*.json), else
+VoxelNeXt; the port trains VoxelNeXt, PointPillars, CenterPoint, SECOND
+and TransFusion. `--synthetic` takes tiny_config() (or --config) and one
+fixed generated batch (uniform points, 8 boxes), as the JAX CLI's smoke
+mode does. Each step prints `[i] loss L` and the family's loss terms
+(e.g. `hm_loss H reg_loss R`) and `T ms`; checkpoints go to
+OUT/checkpoints/step_N (the detector's parameters and running
+statistics, without the optimizer state) every --save-every steps and at
+the end; the last line is {"steps", "final_loss"}. Runs on the card
+unless `--device` says otherwise, in fp32 with TF32 off. Real datasets
+(--dataset without --synthetic), MPPNet and the families not ported yet
+wait for the detector zoo and its datasets (ROADMAP.md, queue 1, item
+2): they exit with a message saying so. The JAX CLI's real-data options (--tiny, --dataroot,
 --info-path, --max-gt, --augment, --gt-db, --gt-quota, --cbgs,
 --proposals, --seq-offsets) come with that mode.
 """

@@ -13,7 +13,9 @@ lvv_tpu/train/detector.py).
   bucket that drops no voxel.
 - `recall_stats`: recall of gt boxes at 3D IoU thresholds.
 
-MPPNet's train step waits for MPPNet (ROADMAP.md, queue 1, item 2).
+The step trains VoxelNeXt, PointPillars, CenterPoint, SECOND and
+TransFusion; MPPNet's train step waits for MPPNet (ROADMAP.md, queue 1,
+item 2).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config.schema import VoxelizeConfig, VoxelNeXtConfig
+from ..models.transfusion import transfusion_loss
 from ..models.voxelnext_loss import dense_center_loss, voxelnext_loss
 from ..ops.boxes import iou_3d
 
@@ -35,13 +38,13 @@ _ZOO = "ROADMAP.md queue 1, item 2 (the detector zoo)"
 def detector_loss(det, out: Dict, boxes, labels, mask,
                   det_cfg: VoxelNeXtConfig, vox_cfg: VoxelizeConfig,
                   stride: int = 8):
-    """JAX's family dispatch, for the families the port has: `bev_sparse`
-    in out -> the sparse VoxelNeXt loss; dense centre-head preds (a 3-D
-    `hm`) -> dense_center_loss. A detector with its own `.loss` and the
-    query-head (TransFusion) loss wait for their families."""
+    """JAX's family dispatch: a detector with its own `.loss(out, gt,
+    labels, mask)` (SECOND) -> that; `bev_sparse` in out -> the sparse
+    VoxelNeXt loss; query-head preds (`cls` and `box`: TransFusion) ->
+    transfusion_loss; dense centre-head preds (a 3-D `hm`: PointPillars,
+    CenterPoint) -> dense_center_loss."""
     if callable(getattr(type(det), "loss", None)):
-        raise NotImplementedError(
-            f"{type(det).__name__}.loss: its family waits for {_ZOO}")
+        return det.loss(out, boxes, labels, mask)
     if not isinstance(out, dict):
         raise NotImplementedError(
             f"{type(det).__name__} returns {type(out).__name__}, not a "
@@ -51,7 +54,8 @@ def detector_loss(det, out: Dict, boxes, labels, mask,
                               labels, mask, det_cfg, vox_cfg, stride)
     preds = out.get("preds")
     if isinstance(preds, dict) and "cls" in preds and "box" in preds:
-        raise NotImplementedError(f"transfusion_loss waits for {_ZOO}")
+        return transfusion_loss(preds, boxes, labels, mask, det_cfg,
+                                vox_cfg, stride)
     if isinstance(preds, dict) and "hm" in preds and preds["hm"].dim() == 3:
         return dense_center_loss(preds, boxes, labels, mask, det_cfg,
                                  vox_cfg)
@@ -65,12 +69,15 @@ def make_detector_train_step(det, tx, det_cfg: VoxelNeXtConfig,
                              stride: int | None = None):
     """-> step(state, batch) -> (state, metrics), state = (det, opt_state)
     with opt_state = tx.init(dict(det.named_parameters())), updated in
-    place. batch: points [B, N, 4], num_points [B], gt_boxes [B, G, 9],
-    gt_labels [B, G], gt_mask [B, G] (numpy or tensors; moved to the
-    detector's device). metrics: the batch means of `loss`, `hm_loss` and
-    `reg_loss`, and `grad_norm` before the clip, as 0-d tensors on the
-    device. The step leaves the detector in train mode; the detector is
-    also `step.det`."""
+    place, for any family `detector_loss` takes. batch: points [B, N, 4],
+    num_points [B], gt_boxes [B, G, 9], gt_labels [B, G], gt_mask [B, G]
+    (numpy or tensors; moved to the detector's device). metrics: the batch
+    means of `loss` and of the family's loss terms (VoxelNeXt and the
+    dense centre head: `hm_loss`, `reg_loss`; SECOND: `cls_loss`,
+    `box_loss`, `dir_loss`; TransFusion: `tf_cls_loss`, `tf_reg_loss`),
+    and `grad_norm` before the clip, as 0-d tensors on the device. The
+    step leaves the detector in train mode; the detector is also
+    `step.det`."""
     if stride is None:
         stride = det_cfg.spatial_stride
     params = dict(det.named_parameters())

@@ -227,6 +227,35 @@ def test_flash_attention(gen, sq, sk, hq, hkv, d, causal):
     _agree(got, want)
 
 
+# K-e's fp32 form: TransFusion's cross-attention (8 kv splits), a
+# self-attention shape without a split, GQA with a ragged kv_len, causal,
+# and head dims 7, 16, 48 and 64 (the kernel pads to 32 or 64)
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,ragged", [
+    (1, 4, 4, 200, 32400, 32, False, False),
+    (2, 4, 4, 24, 300, 32, False, False),
+    (2, 8, 2, 70, 2000, 64, False, True),
+    (1, 4, 4, 300, 300, 48, True, False),
+    (3, 1, 1, 5, 1100, 7, False, False),
+    (2, 4, 2, 130, 1500, 16, True, True)])
+def test_flash_attention_fp32(gen, b, hq, hkv, sq, sk, d, causal, ragged):
+    """Against the plain version within 1e-5 relative L2 (chip_smoke's
+    FP32_REL_L2_TOL), which a scale dropped must fail."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q = rnd(b, sq, hq * d).view(b, sq, hq, d).transpose(1, 2)
+    k, v = rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+    kv_len = (torch.tensor([sk - 13 * i for i in range(b)], device="cuda")
+              if ragged else None)
+    kw = dict(causal=causal, kv_len=kv_len)
+    got = _launched("flash_attention[fp32]",
+                    lambda: A.flash_attention(q, k, v, **kw))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = A.flash_attention_plain(q, k, v, **kw)
+    assert float((got - want).norm() / want.norm()) <= 1e-5
+    trap = A.flash_attention_plain(q, k, v, scale=1.0, **kw)
+    assert float((got - trap).norm() / trap.norm()) > 1e-3
+
+
 @pytest.mark.parametrize("b,gh,gw,heads", [(5, 14, 14, 3), (1, 32, 32, 2),
                                            (1, 16, 128, 2)])
 def test_relpos_attention(gen, b, gh, gw, heads):
