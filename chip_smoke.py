@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--only PHASE[,PHASE...]]
 
 With no flag every phase runs. `--only` runs the named ones of kernels,
-main-path, lidar-bev, detector-train, detector-zoo, serving, sam1280,
-serving-runtime, train-step, trainer (lidar-bev and serving bring
+main-path, lidar-bev, detector-train, detector-zoo, detector-camera,
+serving, sam1280, serving-runtime, train-step, trainer (lidar-bev and
+serving bring
 main-path with them; the
 kernel build is skipped when only detector-train runs, and the kernels
 line, which needs every path's launches, is printed only when every phase
@@ -165,6 +166,27 @@ ran); the last line is the same.
    checkpoint reloaded bit-equal. K-e's fp32 form and K-a on fp32 x are
    checked in 2 at TransFusion's shapes (FP32_REL_L2_TOL; the scale
    dropped, or the norm parameters rounded to bf16, must fail it).
+3d. Then the camera-input detectors ("detector-camera"), each at its
+   preset's full width (fp32, TF32 off, seeded weights): BEVFusion at
+   configs/nuscenes_bevfusion.json (lidar_cloud's 300,000 points at 0.075
+   m, 160,000 voxels; six 256 x 704 views drawn from the seed, on a ring
+   at nuScenes' camera yaws, 1.5 m up, f = 560 px) through Swin-T, the
+   FPN, the depth projection, the LSS lift and bev_pool, the fuser, the 2D
+   trunk and TransFusion's head; CaDDN at configs/kitti_caddn.json (one
+   375 x 1242 image, KITTI's published P2 and LiDAR-to-camera transform,
+   a 440 x 500 x 4 lattice). Each one's detect: the stage split p50 of 3
+   after a warm-up, peak memory, one profiled call's device busy and idle,
+   the detection count, and the same call through the port on the CPU
+   (BEVFusion's LiDAR stage ids and depth maps equal, its frustum bins
+   counted, BEVs and head outputs within BEV_REL_TOL, detections within
+   BOX_ABS_TOL, the query picks counted and, where any differ, the card's
+   head run again on the CPU's picks; the depth pixels a view). BEVFusion's
+   detect launches K-a 27 times (Swin-T's 21 LayerNorms of width 384, 768
+   and 1536, the head's 6) and K-e's fp32 form twice, counted from zero
+   and matched against the count derived from its module tree
+   (`camera_derived_launches`); CaDDN's launches none. K-a is checked in
+   2 at Swin's fp32 shapes (SWIN_NORMS, eps 1e-5, FP32_REL_L2_TOL and the
+   bf16-rounded-parameter trap).
 8. Trains at full width: default_config() in bf16 with fp32 masters,
    TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
    ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
@@ -565,19 +587,20 @@ def kernel_cases(torch):
                     x, s, b, eps=1e-6, rms=rms), s, bias))
         return setup
 
-    def norm_f32_case(n, c):
-        # K-a on fp32 x with fp32 parameters (TransFusion's LayerNorms)
+    def norm_f32_case(n, c, eps=1e-6):
+        # K-a on fp32 x with fp32 parameters (the query heads' LayerNorms,
+        # Swin's at eps 1e-5)
         def setup():
             x, s, b = fp32(n, c), 1 + fp32(c, std=0.1), fp32(c, std=0.1)
             return dict(
-                kernel=lambda: M.norm(x, s, b, eps=1e-6),
-                plain=lambda: M.norm_plain(x, s, b, eps=1e-6),
-                library=lambda: F.layer_norm(x, (c,), s, b, 1e-6),
+                kernel=lambda: M.norm(x, s, b, eps=eps),
+                plain=lambda: M.norm_plain(x, s, b, eps=eps),
+                library=lambda: F.layer_norm(x, (c,), s, b, eps),
                 flops=7 * n * c, peak=FP32_FLOPS,
                 bytes=4 * 2 * n * c + 4 * 2 * c,
                 rel_l2_tol=FP32_REL_L2_TOL,
                 traps=param_trap(lambda s, b: M.norm_plain(
-                    x, s, b, eps=1e-6), s, b))
+                    x, s, b, eps=eps), s, b))
         return setup
 
     def add_norm_case(n, c):
@@ -1355,13 +1378,18 @@ def kernel_cases(torch):
     ]
     # TransFusion's detect at its preset (fp32, detector-zoo): its two
     # cross-attentions, 200 queries over the 180 x 180 BEV tokens (K-e's
-    # fp32 form), and its six LayerNorms at width 128 (K-a on fp32 x)
-    zoo = [
-        ("flash_attention[fp32]", "TransFusion cross q200 kv32400 4h d32 "
+    # fp32 form), and its six LayerNorms at width 128 (K-a on fp32 x);
+    # BEVFusion's (detector-camera) runs the same head on its fused BEV and
+    # Swin-T's LayerNorms of width 384, 768 and 1536 (CAMERA_CASES)
+    head = [
+        ("flash_attention[fp32]", "query head cross q200 kv32400 4h d32 "
          "fp32", 2, flash_f32_case(200, 32400, 4, 32)),
-        ("norm", "LN TransFusion [200,128] fp32", 6,
+        ("norm", "LN query head [200,128] fp32", 6,
          norm_f32_case(200, 128)),
     ]
+    camera = head + [("norm", f"LN Swin {where} [{n},{c}] fp32 eps 1e-5",
+                      count, norm_f32_case(n, c, 1e-5))
+                     for where, n, c, count in SWIN_NORMS]
     # the 1024² list: every shape of its four batch-1 paths
     return [c + (1024,) for c in [
         ("norm", "LN SAM [24576,768]", 12, norm_case(24576, 768, False)),
@@ -1422,7 +1450,8 @@ def kernel_cases(torch):
         c + (LARGE,) for c in large] + [
         c + (("preset", b),) for b, cases in by_preset.items()
         for c in cases] + [c + (("train", TRAIN_BATCH),) for c in train] + [
-        c + (("zoo", "TransFusion"),) for c in zoo] + [
+        c + (("zoo", "TransFusion"),) for c in head] + [
+        c + (("camera", "BEVFusion"),) for c in camera] + [
         c + (None,) for c in unused]
 
 
@@ -3969,6 +3998,273 @@ def run_detector_zoo(torch) -> dict:
     return report
 
 
+# ------------------------------------------------------- detector-camera --
+
+# The camera-input families at their presets' full width (fp32, TF32 off,
+# seeded weights): BEVFusion (Swin-T over six 256 x 704 views, the LSS
+# lift-splat onto the LiDAR trunk's 180 x 180 BEV, ConvFuser, the 2D trunk
+# and TransFusion's head) on lidar_cloud's 300,000-point surface cloud,
+# and CaDDN on one 375 x 1242 image; each one's detect split by stage
+# (p50 of 3 after a warm-up), one profiled call, and the same call through
+# the port on the CPU from the same weights, held as detector-zoo holds
+# its families (BEV_REL_TOL, BOX_ABS_TOL; BEVFusion's LiDAR stage ids and
+# depth maps equal: the projection is elementwise fp32 in one order on
+# both devices). bev_pool's 1.49M frustum points add into their bins with
+# float atomics on the card, in another order than the CPU's: a few ulps
+# of each bin, well inside BEV_REL_TOL. The heads' biases are set as
+# ZOO_PRESETS' note says (BEVFusion's as TransFusion's, CaDDN's as
+# SECOND's), so that the decodes keep boxes away from NMS's threshold.
+CAMERA_PRESETS = {"BEVFusion": "configs/nuscenes_bevfusion.json",
+                  "CaDDN": "configs/kitti_caddn.json"}
+# nuScenes' six cameras: yaws (degrees, front first), their 256 x 704 crop
+# (BEVFusion's image_hw) with a focal length of that crop's scale, 1.5 m
+# above the LiDAR origin
+NUSCENES_CAM_YAWS = (0.0, -55.0, 55.0, -110.0, 110.0, 180.0)
+NUSCENES_CAM = dict(hw=(256, 704), focal=560.0, height=1.5)
+# KITTI's published image size and calibration of its 2011_09_26 drives
+# (P2's focal lengths and principal point; Tr_velo_to_cam)
+KITTI_HW = (375, 1242)
+KITTI_P2 = (721.5377, 721.5377, 609.5593, 172.854)
+KITTI_VELO_TO_CAM = ((7.533745e-03, -9.999714e-01, -6.166020e-04,
+                      -4.069766e-03),
+                     (1.480249e-02, 7.280733e-04, -9.998902e-01,
+                      -7.631618e-02),
+                     (9.998621e-01, 7.523790e-03, 1.480755e-02,
+                      -2.717806e-01))
+# K-a's launches in BEVFusion's Swin-T at 6 x 256 x 704 (widths that are a
+# multiple of 128): (where, rows, width, launches a detect); the query
+# head adds its 6 at [200, 128] and K-e fp32's 2 (kernel_cases)
+SWIN_NORMS = (("downsample0", 6 * 32 * 88, 384, 1),
+              ("downsample1", 6 * 16 * 44, 768, 1),
+              ("stage 2 and out_norm2", 6 * 16 * 44, 384, 13),
+              ("downsample2", 6 * 8 * 22, 1536, 1),
+              ("stage 3 and out_norm3", 6 * 8 * 22, 768, 5))
+
+
+def camera_rig(torch):
+    """BEVFusion's six views: (intrinsics [6, 3, 3], cam2lidar [6, 4, 4])
+    (camera x right, y down, z forward)."""
+    import numpy as np
+    h, w = NUSCENES_CAM["hw"]
+    f = NUSCENES_CAM["focal"]
+    ks, ms = [], []
+    for deg in NUSCENES_CAM_YAWS:
+        yaw = math.radians(deg)
+        m = np.eye(4)
+        m[:3, 0] = (math.sin(yaw), -math.cos(yaw), 0.0)
+        m[:3, 1] = (0.0, 0.0, -1.0)
+        m[:3, 2] = (math.cos(yaw), math.sin(yaw), 0.0)
+        m[:3, 3] = (0.0, 0.0, NUSCENES_CAM["height"])
+        ks.append([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+        ms.append(m)
+    return (torch.tensor(np.asarray(ks), dtype=torch.float32),
+            torch.tensor(np.asarray(ms), dtype=torch.float32))
+
+
+def camera_detector(torch, family: str, cfg, device):
+    """The family at its preset's width with seeded weights and the biases
+    CAMERA_PRESETS' note sets."""
+    from lvv_tpu_torch.models.registry import build_detector
+    det = build_detector(family, cfg.model.voxelnext, cfg.voxelize,
+                         device=device, seed=0)
+    head = det.head
+    with torch.no_grad():
+        head.cls.bias.fill_(-1.0)
+        if family == "BEVFusion":
+            head.box.bias[3:6] = -1.5
+            head.box.bias[7] = 4.0
+        else:
+            head.box.kernel.mul_(1e-3)
+            head.box.bias.view(-1, 7)[:, 3:6] = -3.0
+    return det
+
+
+def camera_inputs(torch, family: str, cfg, device) -> tuple:
+    """The family's forward arguments on `device`, from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    if family == "BEVFusion":
+        pts, n = lidar_cloud(cfg)
+        k, m = camera_rig(torch)
+        images = rng.standard_normal((len(NUSCENES_CAM_YAWS), 3,
+                                      *NUSCENES_CAM["hw"]), np.float32)
+        args = (torch.from_numpy(pts), n, torch.from_numpy(images), k, m)
+    else:
+        fx, fy, cx, cy = KITTI_P2
+        k = torch.tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+        l2c = torch.eye(4)
+        l2c[:3] = torch.tensor(KITTI_VELO_TO_CAM)
+        image = rng.standard_normal((3, *KITTI_HW), np.float32)
+        args = (torch.from_numpy(image), k, l2c)
+    return tuple(a.to(device) if hasattr(a, "to") else a for a in args)
+
+
+def camera_derived_launches(det) -> dict:
+    """The hand-written kernels a detect launches, from the module tree:
+    K-a for every `layers.LayerNorm` of a width that is a multiple of 128
+    (each runs once), K-e fp32 for each query-head layer whose
+    cross-attention reaches the flash rule's 1,024 keys."""
+    from lvv_tpu_torch.models.layers import LayerNorm
+    from lvv_tpu_torch.models.transfusion import TransFusionHead
+    out = {}
+    norms = sum(1 for m in det.modules() if isinstance(m, LayerNorm)
+                and m.scale.numel() % 128 == 0)
+    if norms:
+        out["norm"] = norms
+    if isinstance(getattr(det, "head", None), TransFusionHead):
+        h, w = det.vtransform.bev_hw
+        if h * w >= 1024:
+            out["flash_attention[fp32]"] = det.head.num_layers
+    return out
+
+
+def camera_staged(torch, det, args, trace=None) -> tuple:
+    """One call stage by stage (det.stages(), then decode), each ending in
+    a synchronise where on the card -> (seconds by stage, the state, the
+    forward's dict, detections)."""
+    sync = torch.cuda.synchronize if det.device.type == "cuda" \
+        else (lambda: None)
+    secs = {}
+    with torch.no_grad():
+        s = det.inputs(*args)
+        for name, fn in det.stages(trace):
+            t0 = time.perf_counter()
+            fn(s)
+            sync()
+            secs[name] = time.perf_counter() - t0
+        out = det.outputs(s)
+        t0 = time.perf_counter()
+        dets = det.decode(out)
+        sync()
+        secs["decode"] = time.perf_counter() - t0
+    return secs, s, out, dets
+
+
+def camera_outputs(out) -> dict:
+    """The forward's float tensors to compare."""
+    got = {k: v for k, v in out.items()
+           if k in ("bev_dense", "cam_bev", "lidar_bev", "depth_logits")}
+    got.update({f"preds.{k}": v for k, v in out["preds"].items()
+                if v.is_floating_point()})
+    return got
+
+
+def camera_detect(torch, family: str) -> dict:
+    """The family's detect on the card, timed and profiled, against the
+    same call through the port on the CPU."""
+    from lvv_tpu_torch import config as C
+    from lvv_tpu_torch import kernels
+    cfg = C.load(C.VQAConfig, REPO / CAMERA_PRESETS[family])
+    det = camera_detector(torch, family, cfg, "cuda")
+    args = camera_inputs(torch, family, cfg, "cuda")
+    camera_staged(torch, det, args)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    trace = []
+    stages = [camera_staged(torch, det, args, trace)]
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    stages += [camera_staged(torch, det, args) for _ in range(2)]
+    totals = sorted(sum(x[0].values()) for x in stages)
+    stage_p50 = {k: sorted(x[0][k] for x in stages)[1]
+                 for k in stages[0][0]}
+    _, state, out, dets = stages[0]
+    del stages[1:]
+    print(f"detector-camera[{family}] profile of one call:", flush=True)
+    device = device_busy(torch, lambda: camera_staged(torch, det, args))
+    cpu = camera_detector(torch, family, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    args_cpu = camera_inputs(torch, family, cfg, "cpu")
+    trace_cpu = []
+    t0 = time.perf_counter()
+    _, state_cpu, out_cpu, dets_cpu = camera_staged(torch, cpu, args_cpu,
+                                                    trace_cpu)
+    cpu_s = time.perf_counter() - t0
+    report = dict(call_s=totals, call_p50_s=totals[1],
+                  stage_p50_s=stage_p50, peak_mem_gib=peak / 2 ** 30,
+                  **device,
+                  device_idle_share=1 - device["device_busy_s"] / totals[1],
+                  detections=int(dets.count), cpu_call_s=cpu_s,
+                  launches=launches)
+    checks = {}
+    if family == "BEVFusion":
+        derived = camera_derived_launches(det)
+        ids_equal = {name: torch.equal(a.ids.cpu(), b.ids)
+                     for (name, a), (_, b) in zip(trace, trace_cpu)}
+        depth = state["depth_maps"]
+        hf, wf = state["feats"].shape[2:]
+        ids, ok = det.vtransform.bev_ids(hf, wf, state["intrinsics"],
+                                         state["cam2lidar"])
+        ids_cpu, ok_cpu = cpu.vtransform.bev_ids(
+            hf, wf, state_cpu["intrinsics"], state_cpu["cam2lidar"])
+        report.update(
+            views=list(args[2].shape), bev_shape=list(out["bev_dense"].shape),
+            grid=list(det.voxel_grid().grid_size),
+            depth_pixels_per_view=(depth > 0).sum((1, 2, 3)).tolist(),
+            frustum_points=int(ok.numel()),
+            frustum_points_in_bev=int(ok.sum()),
+            frustum_bins_differing_cpu=int(
+                ((ids != ids_cpu.cuda()) & ok).sum()
+                + (ok != ok_cpu.cuda()).sum()),
+            stage_ids_equal_cpu=ids_equal, derived_launches=derived)
+        picks, picks_cpu = (o["preds"]["top_idx"].cpu()
+                            for o in (out, out_cpu))
+        differ = len(set(picks_cpu.tolist()) - set(picks.tolist()))
+        report["query_picks_differing"] = differ
+        if differ:      # the card's head again, on the CPU's picks
+            with torch.no_grad():
+                out = dict(out, preds=det.head(state["bev_dense"],
+                                               picks_cpu.cuda()))
+                dets = det.decode(out)
+        checks.update({
+            "LiDAR stage ids equal": all(ids_equal.values()),
+            "depth maps equal": torch.equal(depth.cpu(),
+                                            state_cpu["depth_maps"]),
+            "every view has depth pixels": bool(
+                ((depth > 0).sum((1, 2, 3)) > 0).all()),
+            "K-a and K-e fp32 launched as derived, 27 and 2": (
+                launches == derived
+                == {"norm": 27, "flash_attention[fp32]": 2}),
+            "Swin's K-a cases add up to its launches": sum(
+                x[3] for x in SWIN_NORMS) + 6 == derived.get("norm")})
+    else:
+        report.update(image=list(args[0].shape),
+                      bev_shape=list(out["bev_dense"].shape),
+                      lattice_points=int(det.lattice[..., 0].numel()),
+                      anchors=int(out["anchors"].shape[0]))
+        checks["no hand-written kernel on the path"] = (
+            launches == {} == camera_derived_launches(det))
+    rels = {k: rel_l2(v.float().cpu(), camera_outputs(out_cpu)[k].float())
+            for k, v in camera_outputs(out).items()}
+    boxes, boxes_cpu = by_position(dets), by_position(dets_cpu)
+    box_err = (float(abs(boxes - boxes_cpu).max())
+               if boxes.shape == boxes_cpu.shape and len(boxes) else None)
+    checks.update({
+        "BEVs and head outputs within BEV_REL_TOL": max(
+            rels.values()) <= BEV_REL_TOL,
+        "detection count": int(dets.count) == int(dets_cpu.count),
+        "boxes within BOX_ABS_TOL": box_err is not None
+        and box_err <= BOX_ABS_TOL,
+        "finite BEV": bool(torch.isfinite(out["bev_dense"]).all())})
+    report.update(rel_l2_vs_cpu=rels, box_max_abs_vs_cpu=box_err,
+                  checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"detector-camera[{family}]: {checks}; "
+                             f"{report}")
+    return report
+
+
+def run_detector_camera(torch) -> dict:
+    """BEVFusion and CaDDN on the card at their presets' width against the
+    CPU. `launches`: BEVFusion's detect's (the path's kernels)."""
+    report = {}
+    for family in CAMERA_PRESETS:
+        report[f"detect[{family}]"] = camera_detect(torch, family)
+        torch.cuda.empty_cache()
+    report["launches"] = report["detect[BEVFusion]"]["launches"]
+    return report
+
+
 # kernels printed by device_busy wherever they rank: PyTorch's bf16 adds
 # (the residual adds that K-a's add form takes in) and K-a itself
 # ---------------------------------------------------------------- training --
@@ -4364,8 +4660,8 @@ NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
 
 
 PHASES = ("kernels", "main-path", "lidar-bev", "detector-train",
-          "detector-zoo", "serving", "sam1280", "serving-runtime",
-          "train-step", "trainer")
+          "detector-zoo", "detector-camera", "serving", "sam1280",
+          "serving-runtime", "train-step", "trainer")
 # lidar-bev feeds its BEV to the float path's model; the serving phases hold
 # their logits to the float path's
 NEEDS = {"lidar-bev": "main-path", "serving": "main-path"}
@@ -4463,6 +4759,9 @@ def main(argv=None) -> int:
     if "detector-zoo" in run:
         paths["detector-zoo"] = run_detector_zoo(torch)
         emit("detector-zoo", paths["detector-zoo"])
+    if "detector-camera" in run:
+        paths["detector-camera"] = run_detector_camera(torch)
+        emit("detector-camera", paths["detector-camera"])
     if "serving" in run:
         served = serving_model(torch)
         paths["serving"], mlp_logits = run_serving_path(
@@ -4538,7 +4837,7 @@ def kernel_rows(rows, paths) -> list:
     def at(res) -> str:
         if isinstance(res, int):
             return f"SAM {res}²"
-        if res[0] == "zoo":
+        if res[0] in ("zoo", "camera"):
             return f"{res[1]}'s detect at its nuScenes preset (fp32)"
         if res[0] == "train":
             return (f"a train step at batch {res[1]} (its causal attention, "
@@ -4567,7 +4866,8 @@ def kernel_rows(rows, paths) -> list:
             library_ms=r["library_ms"] if r["has_library"] else None,
             times_per=("call (no path runs it)" if res is None
                        else at(res) if isinstance(res, tuple)
-                       and res[0] == "zoo" else f"generate at {at(res)}"))
+                       and res[0] in ("zoo", "camera")
+                       else f"generate at {at(res)}"))
         if len(by_res) > 1:
             row["per_generate_at"] = {
                 at(k): dict(ms=t["ms"], plain_ms=t["plain_ms"],

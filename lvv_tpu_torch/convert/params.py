@@ -13,9 +13,11 @@ variables, `{"params": ..., "batch_stats": ...}` (the running statistics
 of VoxelNeXt's "bn" norm, when the config has it), for every family the
 port builds: the port's buffers take the `batch_stats` leaves, sparse conv
 kernels keep the [K, Cin, Cout] layout, flax Dense kernels [in, out],
-flax LayerNorm scales and biases as they are, and a module of the port
-may convert its own leaves (`from_jax_leaf`: the transposed convs, whose
-flax kernels are flipped into PyTorch's layout).
+flax LayerNorm scales and biases as they are, every other conv kernel
+(Swin's patch embedding, the camera branches' convs) HWIO -> OIHW, Swin's
+relative-position tables [(2w - 1)², heads] as they are, and a module of
+the port may convert its own leaves (`from_jax_leaf`: the transposed
+convs, whose flax kernels are flipped into PyTorch's layout).
 
 `merge` overlays a partial state_dict from one of the checkpoint converters
 (`convert_*_state`) onto a model's, with the same shape checks.
@@ -96,16 +98,19 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, *,
 
 def from_jax_detector_params(variables: Mapping, det_cfg: VoxelNeXtConfig,
                              vox_cfg: VoxelizeConfig, *, device=None,
-                             detector: str = "VoxelNeXt"
+                             detector: str = "VoxelNeXt", **options
                              ) -> Dict[str, torch.Tensor]:
     """JAX detector variables ({"params"} and, with VoxelNeXt's norm "bn",
     {"batch_stats"}) of the family `detector` (a registry name the port
-    builds) -> the port's detector's state_dict, on `device` (the card
-    unless told otherwise)."""
+    builds, with the family's `options` where they change its shapes, as
+    the JAX module's attributes do: e.g. BEVFusion's Swin widths) -> the
+    port's detector's state_dict, on `device` (the card unless told
+    otherwise)."""
     from ..models.registry import build_detector
     flat = {**_flatten(variables["params"]),
             **_flatten(variables.get("batch_stats", {}))}
-    ref = build_detector(detector, det_cfg, vox_cfg, device="meta")
+    ref = build_detector(detector, det_cfg, vox_cfg, device="meta",
+                         **options)
     return _convert(flat, ref, resolve_device(device))
 
 

@@ -105,20 +105,25 @@ class FlaxLayerNorm(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """flax nn.Conv with padding "SAME": kernel [O, C, k, k] (the HWIO
-    leaf transposed by the converter), bias [O]."""
+    """flax nn.Conv with padding "SAME", or `padding` p on every side (its
+    ((p, p), (p, p))): kernel [O, C, k, k] (the HWIO leaf transposed by
+    the converter), bias [O]."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
-                 bias: bool = True, bias_init=0.0, *, device):
+                 bias: bool = True, bias_init=0.0,
+                 padding: Optional[int] = None, *, device):
         super().__init__()
         kw = dict(dtype=PARAM_FP32, device=device)
-        self.stride = stride
+        self.stride, self.padding = stride, padding
         self.kernel = new_param((cout, cin, k, k), ("lecun", cin * k * k),
                                 **kw)
         self.bias = (new_param((cout,), ("constant", bias_init) if bias_init
                                else "zeros", **kw) if bias else None)
 
     def forward(self, x):
+        if self.padding is not None:
+            return F.conv2d(x, self.kernel, self.bias, self.stride,
+                            self.padding)
         return same_conv(x, self.kernel, self.bias, self.stride)
 
 

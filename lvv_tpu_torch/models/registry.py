@@ -1,11 +1,14 @@
 """Detector registry and `build_detector` (counterpart of
 lvv_tpu/models/registry.py).
 
-The JAX package registers 17 detector families. The port builds
-VoxelNeXt, PointPillars, CenterPoint, SECOND and TransFusion; every other
-registered name raises NotImplementedError until its family is ported
-(ROADMAP.md, queue 1, item 2: the detector zoo), and an unknown name
-raises KeyError, as JAX's `build_detector` does.
+The JAX package registers 17 detector families. The port builds seven:
+VoxelNeXt, PointPillars, CenterPoint, SECOND and TransFusion (LiDAR), and
+BEVFusion and CaDDN (camera input: their `forward` and `detect` take
+views and calibration, and they do not train, since the JAX package has
+no train step that takes camera tensors). Every other registered name
+raises NotImplementedError until its family is ported (ROADMAP.md, queue
+1, item 2: the detector zoo), and an unknown name raises KeyError, as
+JAX's `build_detector` does.
 """
 from __future__ import annotations
 
@@ -20,13 +23,17 @@ PORTED = {"VoxelNeXt": ("voxelnext", "VoxelNeXtDetector"),
           "PointPillars": ("pointpillars", "PointPillarsDetector"),
           "CenterPoint": ("centerpoint", "CenterPointDetector"),
           "SECOND": ("second", "SECONDDetector"),
-          "TransFusion": ("transfusion", "TransFusionDetector")}
+          "TransFusion": ("transfusion", "TransFusionDetector"),
+          "BEVFusion": ("bevfusion", "BEVFusionDetector"),
+          "CaDDN": ("caddn", "CaDDNDetector")}
 
 
 def build_detector(name: str, det_cfg, vox_cfg, *, device=None,
-                   seed: int = 0):
+                   seed: int = 0, **options):
     """The detector `name` on `device` (the card unless told otherwise),
-    its weights random from `seed`, in eval mode."""
+    its weights random from `seed`, in eval mode; `options` go to the
+    family's class (e.g. BEVFusion's `image_hw`, TransFusion's
+    `num_queries`)."""
     if name not in DETECTORS:
         raise KeyError(f"unknown detector {name!r}; "
                        f"registered: {sorted(DETECTORS)}")
@@ -37,4 +44,5 @@ def build_detector(name: str, det_cfg, vox_cfg, *, device=None,
             f"{', '.join(PORTED)}")
     module, cls = PORTED[name]
     mod = importlib.import_module(f"{__package__}.{module}")
-    return getattr(mod, cls)(det_cfg, vox_cfg, device=device, seed=seed)
+    return getattr(mod, cls)(det_cfg, vox_cfg, device=device, seed=seed,
+                             **options)

@@ -10,9 +10,11 @@ global norm 10, then AdamW (weight decay 1e-4) at a warmup-cosine schedule
 from lr / 10 (`train.optim.detector_optimizer`). The family is --detector,
 else the config file's `_detector` key (configs/nuscenes_*.json), else
 VoxelNeXt; the port trains VoxelNeXt, PointPillars, CenterPoint, SECOND
-and TransFusion. `--synthetic` takes tiny_config() (or --config) and one
-fixed generated batch (uniform points, 8 boxes), as the JAX CLI's smoke
-mode does. Each step prints `[i] loss L` and the family's loss terms
+and TransFusion. BEVFusion and CaDDN build (`build_detector`) but do not
+train: the JAX package has no train step that takes camera tensors, and
+the CLI exits saying so. `--synthetic` takes tiny_config() (or --config)
+and one fixed generated batch (uniform points, 8 boxes), as the JAX CLI's
+smoke mode does. Each step prints `[i] loss L` and the family's loss terms
 (e.g. `hm_loss H reg_loss R`) and `T ms`; checkpoints go to
 OUT/checkpoints/step_N (the detector's parameters and running
 statistics, without the optimizer state) every --save-every steps and at
@@ -110,8 +112,11 @@ def main(argv=None):
     batch = synthetic_batch(rng, args.batch, cfg.voxelize.max_points // 4,
                             8, cfg.voxelize.point_range)
     tx = detector_optimizer(args.lr, args.steps)
-    step = make_detector_train_step(det, tx, cfg.model.voxelnext,
-                                    cfg.voxelize)
+    try:
+        step = make_detector_train_step(det, tx, cfg.model.voxelnext,
+                                        cfg.voxelize)
+    except NotImplementedError as e:            # the camera-input families
+        raise SystemExit(str(e)) from None
     state = (det, tx.init(dict(det.named_parameters())))
     ckpt = CheckpointManager(args.out + "/checkpoints")
     metrics = {}

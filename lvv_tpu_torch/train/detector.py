@@ -15,7 +15,9 @@ lvv_tpu/train/detector.py).
 
 The step trains VoxelNeXt, PointPillars, CenterPoint, SECOND and
 TransFusion; MPPNet's train step waits for MPPNet (ROADMAP.md, queue 1,
-item 2).
+item 2). The camera-input families (BEVFusion, CaDDN) raise: the JAX
+package's step feeds a detector points alone and has none that takes
+camera tensors.
 """
 from __future__ import annotations
 
@@ -78,6 +80,11 @@ def make_detector_train_step(det, tx, det_cfg: VoxelNeXtConfig,
     and `grad_norm` before the clip, as 0-d tensors on the device. The
     step leaves the detector in train mode; the detector is also
     `step.det`."""
+    if getattr(det, "camera_input", False):
+        raise NotImplementedError(
+            f"{type(det).__name__} builds in the port but does not train: "
+            "the JAX package has no train step that takes camera tensors "
+            "(its step feeds a detector points alone)")
     if stride is None:
         stride = det_cfg.spatial_stride
     params = dict(det.named_parameters())
