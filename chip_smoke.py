@@ -4,12 +4,11 @@
 
 With no flag every phase runs. `--only` runs the named ones of kernels,
 main-path, lidar-bev, detector-train, detector-zoo, detector-camera,
-serving, sam1280, serving-runtime, train-step, trainer (lidar-bev and
-serving bring
-main-path with them; the
-kernel build is skipped when only detector-train runs, and the kernels
-line, which needs every path's launches, is printed only when every phase
-ran); the last line is the same.
+detector-two-stage, serving, sam1280, serving-runtime, train-step,
+trainer (lidar-bev and serving bring main-path with them; the kernel
+build is skipped when only detector-train and detector-two-stage run, and
+the kernels line, which needs every path's launches, is printed only when
+every phase ran); the last line is the same.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds every CUDA kernel from the sources in this checkout
@@ -93,9 +92,8 @@ ran); the last line is the same.
    questions from 3 threads: launches equal expected_launches per
    dispatched bucket, every answer equal to greedy_generate on its padded
    bucket, each bucket's prefill and first-step logits against every
-   kernel swapped for its plain version, the share equal to batch 1
-   reported, latencies, frames/s and device busy; the same workload at
-   pipeline_depth 2 for comparison);
+   kernel swapped for its plain version, latencies, frames/s and device
+   busy);
    "continuous[8]" (ContinuousServingEngine: a burst of 8 equal to
    greedy_generate at the slab's cache length, 4 staggered admissions
    reported against batch 1, launches per admission and slab step);
@@ -187,6 +185,29 @@ ran); the last line is the same.
    (`camera_derived_launches`); CaDDN's launches none. K-a is checked in
    2 at Swin's fp32 shapes (SWIN_NORMS, eps 1e-5, FP32_REL_L2_TOL and the
    bf16-rounded-parameter trap).
+3e. Then the two-stage detectors ("detector-two-stage"): PV-RCNN,
+   PV-RCNN++, Part-A², Voxel R-CNN (its LiDAR trunk), SECOND-IoU and
+   PointRCNN at their configs/kitti_*.json presets' full width (fp32, TF32
+   off, seeded weights; a 1408 x 1600 x 40 grid, 40,000 voxels, channels
+   16-128) on a seeded 120,000-point surface scene in KITTI's range,
+   zero-padded to 300,000 rows. Each one's detect: the stage split
+   (voxelize, 3D trunk, 2D trunk + RPN, proposal decode + NMS, FPS
+   keypoints, second-stage pooling, RoI head, refine; PointRCNN's
+   PointNet++, point head, decode + NMS, pooling, RoI head, refine) p50 of
+   3 after a warm-up, peak memory, one profiled call's device busy and
+   idle, the detections, the second stage's ops alone at its shapes (FPS,
+   the ball query, PointRCNN's kNN and RoI-aware pool), and the same call
+   through the port on the CPU with the card's picks (FPS samples,
+   ball-query lists, kNN indices, the RPN's top-K, NMS keeps) replayed and
+   the CPU's own counted (sparse stage ids equal, BEV / RPN / RoI outputs
+   within BEV_REL_TOL, detections within BOX_ABS_TOL). Each family trains
+   ZOO_STEPS steps at batch ZOO_BATCH (s/step, samples/s, peak, idle, a
+   step below the first); PV-RCNN and PointRCNN also at batch 1, card
+   against CPU with every ReLU gate and pick replayed from the card (loss
+   within DET_LOSS_TOL, each top-level group's gradient within
+   DET_GRAD_TOL). None of them launches a hand-written kernel (checked).
+   Then the train CLI on configs/kitti_pv_rcnn.json at tiny_config()'s
+   sizes as a subprocess, its checkpoint reloaded bit-equal.
 8. Trains at full width: default_config() in bf16 with fp32 masters,
    TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
    ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
@@ -2045,7 +2066,8 @@ PREPROCESS_TOL = 1e-5
 def run_bench_stream(torch, served, serving: dict) -> dict:
     """bench.py's headline (bench.py:121-140) on the serving model under
     LVV_Q8_SCOPE "mlp": its frame stacked STREAM_G times through
-    greedy_generate_multi at B = 1, one warm-up, then two timed dispatches;
+    greedy_generate_multi at B = 1, two timed dispatches (no warm-up
+    dispatch: the serving path has just run this model at these shapes);
     stream = their time / (2·G), value = 1 / min(stream, p50) frames/s with
     the serving path's p50. Every group's tokens must equal the serving
     path's, and the launches of one dispatch G times its counts. Groups run
@@ -2058,7 +2080,6 @@ def run_bench_stream(torch, served, serving: dict) -> dict:
         return greedy_generate_multi(model, *xs, max_new_tokens=NEW_TOKENS,
                                      eos_id=EOS_ID, params_decode=packed)[0]
     with q8_scope_env("mlp"):
-        dispatch()
         torch.cuda.synchronize()
         kernels.launches.clear()
         t0 = time.perf_counter()
@@ -2110,10 +2131,9 @@ def run_serving_batch(torch, served) -> dict:
     counts as at batch 1: each wrapper runs once per layer for the whole
     batch; identical tokens on repeated runs), then every row's prefill and
     first-step logits against the same batch with every kernel swapped for
-    its plain version. For information, the share of rows whose tokens equal
-    a batch-1 greedy_generate of that frame (the products run at other
-    shapes, where cuBLAS may sum in another order)."""
-    from lvv_tpu_torch import greedy_generate
+    its plain version. (The share of rows equal to a batch-1 generate of
+    their frame, a report without a check, went to keep the script within
+    its time: PERF.md §5.)"""
     cfg, model, _, packed = served
     args = [torch.as_tensor(a, device="cuda")
             for a in serving_batch_inputs(cfg, SERVING_BATCH)]
@@ -2121,16 +2141,10 @@ def run_serving_batch(torch, served) -> dict:
         report = drive(torch, model, args, packed,
                        expected_launches(cfg, serving=True))
         checks, _ = against_plain_kernels(torch, model, args, packed)
-        same = 0
-        for i in range(SERVING_BATCH):
-            toks, _ = greedy_generate(
-                model, *(a[i:i + 1] for a in args), max_new_tokens=NEW_TOKENS,
-                eos_id=EOS_ID, params_decode=packed)
-            same += toks[0].tolist() == report["tokens"][i]
     report.update(batch=SERVING_BATCH, s_per_batch=report["p50_s"],
                   frames_s=SERVING_BATCH / report["p50_s"],
                   ragged_row=dict(row=RAGGED_ROW, prompt_len=RAGGED_LEN),
-                  rows_equal_to_batch1=same / SERVING_BATCH, **checks)
+                  **checks)
     return report
 
 
@@ -2370,11 +2384,10 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
     bucket; each answer must equal greedy_generate's on its padded bucket
     (the engine's dispatches are recorded), and each bucket's prefill and
     first-step logits are held to the same batch with every kernel swapped
-    for its plain version; the share equal to the request's batch-1 answer
-    is reported. A second, profiled run of the same workload gives the
-    device's busy time; a third, on an engine with pipeline_depth 2 (the
-    next bucket issued before the last one's tokens are fetched), its
-    latencies for comparison."""
+    for its plain version. A second, profiled run of the same workload
+    gives the device's busy time. (The batch-1 comparison of every answer
+    and the pipeline_depth 2 run, reports without a check, went to keep
+    the script within its time: PERF.md §5.)"""
     from lvv_tpu_torch import kernels
     from lvv_tpu_torch.inference import ServingEngine
     cfg = model.cfg
@@ -2405,9 +2418,6 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
             busy = device_busy(torch, lambda: engine_workload(eng, reqs))
             stats = eng.stats()
             bucket_sizes, depth = eng.buckets, eng.pipeline_depth
-        with ServingEngine(model, tok, pipeline_depth=2, **kw) as eng:
-            got2, _, wall2, lat2 = engine_workload(eng, reqs)
-            buckets2 = eng.stats()["batch_sizes"]
         if counts != scaled(per_bucket, n_batches):
             raise AssertionError(f"serving-engine: launch counts {counts} "
                                  f"!= {n_batches} x {per_bucket}")
@@ -2427,8 +2437,6 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
             checks, _ = against_plain_kernels(
                 torch, model, bucket_args(torch, model, mine, size), packed)
             vs_plain.append(dict(bucket=size, **checks))
-        alone = [direct_generate(torch, model, [r], 1, packed)[0]
-                 for r in reqs]
     worst = {key: max(c[key] for c in vs_plain)
              for key in ("logits_rel_l2_vs_plain",
                          "step_logits_rel_l2_vs_plain")}
@@ -2441,9 +2449,6 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
         pipeline_depth=depth, prompt_width=width,
         buckets=[len(b) for b in buckets],
         equal_to_padded_bucket=len(reqs),
-        equal_to_batch1=sum(a == b for a, b in zip(got, alone)),
-        first_difference_vs_batch1=[first_difference(a, b)
-                                    for a, b in zip(got, alone)],
         wall_s=wall, frames_per_s=len(reqs) / wall,
         request_latency_p50_s=lat[len(lat) // 2],
         request_latency_max_s=lat[-1],
@@ -2451,11 +2456,6 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
         answer_lengths=[len(t) for t in got], stats=stats,
         **worst, **by_row,
         vs_plain_by_bucket=vs_plain,
-        depth2=dict(buckets=buckets2, wall_s=wall2,
-                    frames_per_s=len(reqs) / wall2,
-                    request_latency_p50_s=lat2[len(lat2) // 2],
-                    request_latency_max_s=lat2[-1],
-                    tokens_equal=got2 == got),
         launches=per_bucket, launches_total=counts)
 
 
@@ -3092,15 +3092,15 @@ def detector_config(norm: str):
                                                  norm=norm)))
 
 
-def detector_batch(cfg, seeds) -> dict:
-    """lidar_cloud's surface clouds and their vehicle boxes (class 0),
-    padded to MAX_GT with a mask."""
+def detector_batch(cfg, seeds, cloud=lidar_cloud) -> dict:
+    """`cloud`'s surface clouds (lidar_cloud's unless told) and their
+    vehicle boxes (class 0), padded to MAX_GT with a mask."""
     import numpy as np
     out = {k: [] for k in ("points", "num_points", "gt_boxes", "gt_labels",
                            "gt_mask")}
     for seed in seeds:
         boxes = []
-        pts, n = lidar_cloud(cfg, seed, boxes=boxes)
+        pts, n = cloud(cfg, seed, boxes=boxes)
         gt = np.zeros((MAX_GT, 9), np.float32)
         gt[:len(boxes)] = boxes
         mask = np.zeros(MAX_GT, bool)
@@ -3651,19 +3651,21 @@ def zoo_outputs(out) -> dict:
     return got
 
 
-def zoo_detect(torch, family: str) -> dict:
-    """The family's call on the card, timed and profiled, against the same
-    call through the port on the CPU."""
+def timed_detect(torch, tag: str, det, pts, n, first=contextlib.nullcontext
+                 ) -> tuple:
+    """`det`'s call on the card stage by stage (zoo_staged): a warm-up,
+    three calls (the first traced, inside `first()`, its launches counted
+    from zero and the peak memory read after it), one profiled ->
+    (report: the call's and each stage's p50, peak, device busy and idle,
+    detections, launches; the first call's forward dict, detections and
+    trace)."""
     from lvv_tpu_torch import kernels
-    cfg = zoo_config(family)
-    pts_np, n = lidar_cloud(cfg)
-    det = zoo_detector(torch, family, cfg, "cuda")
-    pts = torch.from_numpy(pts_np).cuda()
     zoo_staged(torch, det, pts, n)                      # warm-up
     torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()
     trace = []
-    stages = [zoo_staged(torch, det, pts, n, trace)]
+    with first():
+        stages = [zoo_staged(torch, det, pts, n, trace)]
     launches = {k: v for k, v in kernels.launches.items() if v}
     peak = torch.cuda.max_memory_allocated()
     stages += [zoo_staged(torch, det, pts, n) for _ in range(2)]
@@ -3671,8 +3673,27 @@ def zoo_detect(torch, family: str) -> dict:
     stage_p50 = {k: sorted(s[0][k] for s in stages)[1]
                  for k in stages[0][0]}
     _, out, dets = stages[0]
-    print(f"detector-zoo[{family}] profile of one call:", flush=True)
+    del stages
+    print(f"{tag} profile of one call:", flush=True)
     device = device_busy(torch, lambda: zoo_staged(torch, det, pts, n))
+    report = dict(points=n, call_s=totals, call_p50_s=totals[1],
+                  stage_p50_s=stage_p50, peak_mem_gib=peak / 2 ** 30,
+                  **device,
+                  device_idle_share=1 - device["device_busy_s"] / totals[1],
+                  detections=int(dets.count), launches=launches)
+    return report, out, dets, trace
+
+
+def zoo_detect(torch, family: str) -> dict:
+    """The family's call on the card, timed and profiled, against the same
+    call through the port on the CPU."""
+    cfg = zoo_config(family)
+    pts_np, n = lidar_cloud(cfg)
+    det = zoo_detector(torch, family, cfg, "cuda")
+    pts = torch.from_numpy(pts_np).cuda()
+    report, out, dets, trace = timed_detect(
+        torch, f"detector-zoo[{family}]", det, pts, n)
+    launches = report["launches"]
     cpu = zoo_detector(torch, family, cfg, "cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
     trace_cpu = []
@@ -3682,14 +3703,9 @@ def zoo_detect(torch, family: str) -> dict:
     cpu_s = time.perf_counter() - t0
     ids_equal = {name: torch.equal(a.ids.cpu(), b.ids)
                  for (name, a), (_, b) in zip(trace, trace_cpu)}
-    report = dict(points=n, grid=list(det.voxel_grid().grid_size),
-                  bev_shape=list(out["bev_dense"].shape),
-                  call_s=totals, call_p50_s=totals[1],
-                  stage_p50_s=stage_p50, peak_mem_gib=peak / 2 ** 30,
-                  **device,
-                  device_idle_share=1 - device["device_busy_s"] / totals[1],
-                  detections=int(dets.count), cpu_call_s=cpu_s,
-                  stage_ids_equal_cpu=ids_equal, launches=launches)
+    report.update(grid=list(det.voxel_grid().grid_size),
+                  bev_shape=list(out["bev_dense"].shape), cpu_call_s=cpu_s,
+                  stage_ids_equal_cpu=ids_equal)
     if family == "TransFusion":
         picks, picks_cpu = (o["preds"]["top_idx"].cpu()
                             for o in (out, out_cpu))
@@ -3757,7 +3773,7 @@ def zoo_picks(torch, det, log, replay=None, own=None):
     """TransFusion's query picks appended to log["idx"] and its Hungarian
     matches to log["match"], in call order; given `replay` (another run's
     picks), the head takes those, and the count of picks it would have
-    taken otherwise is added to `own[0]`."""
+    taken otherwise is added to own["queries"]."""
     from lvv_tpu_torch.models import transfusion as T
     head, calls = det.head, [0]
     plain_match = T.hungarian_one_to_one
@@ -3770,7 +3786,8 @@ def zoo_picks(torch, det, log, replay=None, own=None):
         if replay is not None:
             peak = torch.sigmoid(out["hm"].float()).amax(-1).reshape(-1)
             mine = set(T.top_k(peak, len(idx))[1].tolist())
-            own[0] += len(mine - set(replay[i].tolist()))
+            own["queries"] = own.get("queries", 0) + len(
+                mine - set(replay[i].tolist()))
         return out
 
     def match(cost, mask):
@@ -3785,45 +3802,43 @@ def zoo_picks(torch, det, log, replay=None, own=None):
         T.hungarian_one_to_one = plain_match
 
 
-def zoo_step(torch, det, batch, gates, picks=None, replay=None):
+def zoo_step(torch, det, batch, gates, picks=None, replay=None,
+             picker=None):
     """One train step of `det` (the CLI's chain) with every ReLU gate
     recorded into `gates`, or with `replay` = (gates, picks) of another
-    run taken instead; TransFusion's picks and matches logged into `picks`
-    -> (metrics as floats, gradients on the host, gates and picks that
-    differ from the replayed ones)."""
+    run taken instead; the family's picks logged into `picks` by
+    `picker(log, replayed, own)` (TransFusion's queries and matches,
+    `zoo_picks`, unless told) -> (metrics as floats, gradients on the
+    host, the gates and {kind: picks} that differ from the replayed
+    ones)."""
     from lvv_tpu_torch.train.detector import make_detector_train_step
     from lvv_tpu_torch.train.optim import detector_optimizer
     tx = detector_optimizer(DET_LR, ZOO_STEPS)
     step = make_detector_train_step(det, tx, det.det_cfg, det.vox_cfg)
-    own_g, own_p = [0], [0]
+    picker = picker or (lambda log, rep, own: zoo_picks(torch, det, log,
+                                                        rep, own))
+    own_g, own_p = [0], {}
     with contextlib.ExitStack() as ctx:
         ctx.enter_context(zoo_gates(
             torch, None if replay else gates, replay and replay[0], own_g))
         if picks is not None:
-            ctx.enter_context(zoo_picks(torch, det, picks,
-                                        replay and replay[1], own_p))
+            ctx.enter_context(picker(picks, replay and replay[1], own_p))
         _, m = step((det, tx.init(dict(det.named_parameters()))), batch)
     grads = {k: None if p.grad is None else p.grad.cpu()
              for k, p in det.named_parameters()}
-    return ({k: float(v) for k, v in m.items()}, grads, own_g[0],
-            own_p[0])
+    return {k: float(v) for k, v in m.items()}, grads, own_g[0], own_p
 
 
-def zoo_train(torch, family: str) -> dict:
-    """The family's train step at batch ZOO_BATCH (timed, profiled,
-    launches of one step, losses falling); for the ZOO_TRAIN families
-    also a step at batch 1 on the card against the CPU
-    (`zoo_against_cpu`)."""
+def timed_train(torch, tag: str, det, batch) -> dict:
+    """ZOO_STEPS train steps of `det` on `batch` (the CLI's chain, the
+    first a warm-up; the launches of the second counted), one profiled ->
+    {losses, s/step p50, samples/s, peak, device busy and idle, launches
+    a step, checks: the losses finite and a step below the first}."""
     from lvv_tpu_torch import kernels
     from lvv_tpu_torch.train.detector import make_detector_train_step
     from lvv_tpu_torch.train.optim import detector_optimizer
-    cfg = zoo_config(family)
-    batch = detector_batch(cfg, range(ZOO_BATCH))
-    det = zoo_detector(torch, family, cfg, "cuda")
-    start = {k: v.clone() for k, v in det.state_dict().items()}
     tx = detector_optimizer(DET_LR, ZOO_STEPS + 1)
-    step = make_detector_train_step(det, tx, cfg.model.voxelnext,
-                                    cfg.voxelize)
+    step = make_detector_train_step(det, tx, det.det_cfg, det.vox_cfg)
     state = (det, tx.init(dict(det.named_parameters())))
     losses, step_s = [], []
     for i in range(ZOO_STEPS):
@@ -3838,7 +3853,7 @@ def zoo_train(torch, family: str) -> dict:
             launches = {k: v for k, v in kernels.launches.items() if v}
     peak = torch.cuda.max_memory_allocated()
     p50 = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    print(f"detector-zoo[{family}] profile of one train step:", flush=True)
+    print(f"{tag} profile of one train step:", flush=True)
     device = device_busy(torch, lambda: (step(state, batch),
                                          torch.cuda.synchronize()))
     del step, state
@@ -3846,17 +3861,30 @@ def zoo_train(torch, family: str) -> dict:
     # need not fall at every step (TransFusion's rises again by the fourth)
     checks = {"losses finite, a step below the first at batch 2": min(
         losses[1:]) < losses[0] and all(math.isfinite(x) for x in losses)}
+    return dict(losses=losses, step_s=step_s, s_per_step_p50=p50,
+                samples_per_s=ZOO_BATCH / p50,
+                peak_mem_gib=peak / 2 ** 30, **device,
+                device_idle_share=1 - device["device_busy_s"] / p50,
+                launches_per_step=launches, checks=checks)
+
+
+def zoo_train(torch, family: str) -> dict:
+    """The family's train step at batch ZOO_BATCH (`timed_train`); for the
+    ZOO_TRAIN families also a step at batch 1 on the card against the CPU
+    (`zoo_against_cpu`)."""
+    cfg = zoo_config(family)
+    batch = detector_batch(cfg, range(ZOO_BATCH))
+    det = zoo_detector(torch, family, cfg, "cuda")
+    start = {k: v.clone() for k, v in det.state_dict().items()}
+    report = timed_train(torch, f"detector-zoo[{family}]", det, batch)
+    checks = report.pop("checks")
+    launches = report["launches_per_step"]
     if family == "TransFusion":
         checks["K-e fp32 and K-a launched, 2 and 6 a sample"] = (
             launches == {"flash_attention[fp32]": 2 * ZOO_BATCH,
                          "norm": 6 * ZOO_BATCH})
     else:
         checks["no hand-written kernel on the path"] = launches == {}
-    report = dict(losses=losses, step_s=step_s, s_per_step_p50=p50,
-                  samples_per_s=ZOO_BATCH / p50,
-                  peak_mem_gib=peak / 2 ** 30, **device,
-                  device_idle_share=1 - device["device_busy_s"] / p50,
-                  launches_per_step=launches)
     if family in ZOO_TRAIN:
         det.load_state_dict(start)
         report.update(zoo_against_cpu(torch, family, cfg, det, start,
@@ -3910,7 +3938,7 @@ def zoo_against_cpu(torch, family: str, cfg, det, start, one) -> dict:
                   cpu_own_gates_differing=gates_differ, cpu_step_s=cpu_s,
                   checks=checks)
     if tf:
-        report["cpu_own_picks_differing"] = picks_differ
+        report["cpu_own_picks_differing"] = picks_differ.get("queries", 0)
         report["hungarian_matches_differing"] = sum(
             int((a != b).sum()) for a, b in zip(*(g["match"] for g in logs)))
     print(f"detector-zoo[{family}] train: batch 1 card vs CPU on the card's "
@@ -3933,20 +3961,22 @@ def zoo_tiny_overrides() -> list:
     return [x for p in pairs for x in ("--set", p)]
 
 
-def zoo_cli(torch) -> dict:
-    """`python -m lvv_tpu_torch.tools.train_detector --config
-    configs/nuscenes_transfusion_lidar.json --synthetic --steps 2
-    --save-every 1` at tiny_config()'s sizes (--set) as a subprocess on
-    the card: exit 0, the preset's family (its `_detector` key), both
-    checkpoints, the last restored into a new detector bit-equal."""
+def zoo_cli(torch, family: str = "TransFusion", preset: str | None = None,
+            out_dir=ZOO_DIR, loss_key: str = "tf_cls_loss") -> dict:
+    """`python -m lvv_tpu_torch.tools.train_detector --config PRESET
+    --synthetic --steps 2 --save-every 1` (TransFusion's preset unless
+    told) at tiny_config()'s sizes (--set) as a subprocess on the card:
+    exit 0, the preset's family (its `_detector` key) with its loss term
+    `loss_key` in the log, both checkpoints, the last restored into a new
+    detector bit-equal."""
     from lvv_tpu_torch import config as C
     from lvv_tpu_torch.models.registry import build_detector
     from lvv_tpu_torch.train.checkpoints import CheckpointManager
-    shutil.rmtree(ZOO_DIR, ignore_errors=True)
-    preset = ZOO_PRESETS["TransFusion"]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    preset = preset or ZOO_PRESETS[family]
     sets = zoo_tiny_overrides()
     argv = ["--config", preset, "--synthetic", "--steps", "2",
-            "--save-every", "1", "--out", str(ZOO_DIR / "cli"), *sets]
+            "--save-every", "1", "--out", str(out_dir / "cli"), *sets]
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "lvv_tpu_torch.tools.train_detector", *argv],
@@ -3959,16 +3989,16 @@ def zoo_cli(torch) -> dict:
     lines = proc.stdout.strip().splitlines()
     final = json.loads(lines[-1])
     cfg = C.load(C.VQAConfig, REPO / preset, sets[1::2])
-    fresh = build_detector("TransFusion", cfg.model.voxelnext, cfg.voxelize,
+    fresh = build_detector(family, cfg.model.voxelnext, cfg.voxelize,
                            device="cuda", seed=7)
-    ckpt = ZOO_DIR / "cli" / "checkpoints"
+    ckpt = out_dir / "cli" / "checkpoints"
     CheckpointManager(ckpt).restore("step_2", fresh)
     saved = torch.load(ckpt / "step_2" / "state" / "state.pt",
                        map_location="cuda")
     checks = {"exit 0, 2 log lines, final line": final["steps"] == 2
               and [ln.split()[0] for ln in lines[:2]] == ["[0]", "[1]"]
               and math.isfinite(final["final_loss"])
-              and "tf_cls_loss" in lines[0],
+              and loss_key in lines[0],
               "checkpoints step_1, step_2": all(
                   (ckpt / s).is_dir() for s in ("step_1", "step_2")),
               "reloads bit-equal": set(saved) == set(fresh.state_dict())
@@ -3977,7 +4007,7 @@ def zoo_cli(torch) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"train_detector CLI ({preset}): {checks}; "
                              f"{proc.stdout[-1500:]}")
-    shutil.rmtree(ZOO_DIR)
+    shutil.rmtree(out_dir)
     return dict(checks=checks, subprocess_s=sub_s, log=lines)
 
 
@@ -4262,6 +4292,337 @@ def run_detector_camera(torch) -> dict:
         report[f"detect[{family}]"] = camera_detect(torch, family)
         torch.cuda.empty_cache()
     report["launches"] = report["detect[BEVFusion]"]["launches"]
+    return report
+
+
+# ----------------------------------------------------- detector-two-stage --
+
+TWO_STAGE_DIR = REPO / "build" / "detector_two_stage"
+# The two-stage families at their KITTI presets' full width (fp32, TF32
+# off, seeded weights: channels 16-128, a 1408 x 1600 x 40 grid of 0.05 x
+# 0.05 x 0.1 m voxels, 40,000 voxels, 1,000 boxes before NMS and 83 after)
+# on a seeded surface cloud of TWO_STAGE_POINTS points (about one HDL-64E
+# sweep; surface_cloud's scene over +-38 m moved into KITTI's range x in
+# [0, 70.4], zero-padded to the presets' 300,000 rows): each detect split
+# by stage (p50 of 3 after a warm-up), one profiled call, and the same call
+# through the port on the CPU from the same weights (the sparse stages'
+# ids equal; the BEV, RPN and RoI outputs within BEV_REL_TOL relative L2;
+# detections as detector-zoo holds them). The first stage's anchor head
+# takes SECOND's biases from ZOO_PRESETS' note (scores above the 0.1
+# threshold, boxes e^-3 of the anchors, so that NMS compares no IoU near
+# its threshold); PointRCNN's point head takes the heading's cosine bias
+# of 4. The discrete picks (farthest-point samples, ball-query lists, kNN
+# indices, the RPN's top-K and NMS keeps) are recorded on the card and
+# replayed on the CPU, which counts the picks it would have made
+# otherwise, as detector-zoo replays TransFusion's queries.
+TWO_STAGE_PRESETS = {"PVRCNN": "configs/kitti_pv_rcnn.json",
+                     "PVRCNNPlusPlus": "configs/kitti_pv_rcnn_plusplus.json",
+                     "PartA2": "configs/kitti_parta2.json",
+                     "VoxelRCNN": "configs/kitti_voxel_rcnn_car.json",
+                     "SECONDNetIoU": "configs/kitti_second_iou.json",
+                     "PointRCNN": "configs/kitti_pointrcnn.json"}
+TWO_STAGE_POINTS = 120000
+KITTI_X0 = 35.2          # the scene's centre moved to the middle of x
+# these also train at batch 1 on the card against the CPU, every ReLU
+# gate and pick replayed (loss within DET_LOSS_TOL, each group within
+# DET_GRAD_TOL)
+TWO_STAGE_TRAIN = ("PVRCNN", "PointRCNN")
+# the families whose detect also times the second stage's ops alone (the
+# FPS and ball query at the cloud's shapes are the same op for every
+# family)
+TWO_STAGE_OPS = ("PVRCNN", "PointRCNN")
+# the modules whose picks two_stage_picks records and replays, and the
+# functions each takes them from
+PICK_SITES = (("pointnet2", ("farthest_point_sample", "ball_query", "knn")),
+              ("pv_rcnn", ("farthest_point_sample", "ball_query")),
+              ("pv_rcnn_pp", ("farthest_point_sample", "ball_query")),
+              ("anchor_head", ("top_k", "nms")),
+              ("point_rcnn", ("nms",)))
+
+
+def kitti_cloud(cfg, seed: int = 0, boxes=None):
+    """(points [max_points, 4] float32, n): TWO_STAGE_POINTS points of
+    surface_cloud's scene over +-38 m, ground at -1.7 m, moved by KITTI_X0
+    along x (its vehicles' boxes into `boxes`, moved alike)."""
+    import numpy as np
+    found = []
+    pts = surface_cloud(np.random.default_rng(seed), TWO_STAGE_POINTS, 38.0,
+                        z0=-1.7, z1=0.9, boxes=found)
+    pts[:, 0] += KITTI_X0
+    if boxes is not None:
+        boxes += [[b[0] + KITTI_X0, *b[1:]] for b in found]
+    out = np.zeros((cfg.voxelize.max_points, 4), np.float32)
+    out[:len(pts)] = pts
+    return out, len(pts)
+
+
+def two_stage_config(family: str):
+    from lvv_tpu_torch import config as C
+    return C.load(C.VQAConfig, REPO / TWO_STAGE_PRESETS[family])
+
+
+def two_stage_detector(torch, family: str, cfg, device):
+    """The family at its preset's width with seeded weights and the biases
+    TWO_STAGE_PRESETS' note sets."""
+    from lvv_tpu_torch.models.registry import build_detector
+    det = build_detector(family, cfg.model.voxelnext, cfg.voxelize,
+                         device=device, seed=0)
+    with torch.no_grad():
+        if family == "PointRCNN":
+            det.point_head.box.bias[7] = 4.0
+        else:
+            head = {"PartA2": lambda: det.head,
+                    "SECONDNetIoU": lambda: det.second.head}.get(
+                        family, lambda: det.rpn)()
+            head.cls.bias.fill_(-1.0)
+            head.box.kernel.mul_(1e-3)
+            head.box.bias.view(-1, 7)[:, 3:6] = -3.0
+    return det
+
+
+@contextlib.contextmanager
+def two_stage_picks(torch, log, replay=None, own=None):
+    """Every call of PICK_SITES' functions: its index outputs appended to
+    log[name] (on the host) in call order; given `replay` (another run's
+    log), the call returns those instead (its float outputs taken at the
+    replayed indices), and the count of entries it would have picked
+    otherwise is added to own[name]."""
+    import importlib
+    from lvv_tpu_torch.ops import nms as N
+    from lvv_tpu_torch.ops import sampling as S
+    plain = {"farthest_point_sample": S.farthest_point_sample,
+             "ball_query": S.ball_query, "knn": S.knn, "top_k": N.top_k,
+             "nms": N.nms}
+    calls = collections.Counter()
+
+    def wrap(name):
+        fn = plain[name]
+
+        def picked(*args, **kw):
+            got = fn(*args, **kw)
+            idx = got if name == "farthest_point_sample" else \
+                got[0] if name in ("ball_query", "nms") else got[1]
+            i, calls[name] = calls[name], calls[name] + 1
+            if replay is None:
+                log.setdefault(name, []).append(
+                    tuple(t.cpu() for t in (got if isinstance(got, tuple)
+                                            else (got,))))
+                return got
+            want = tuple(t.to(idx.device) for t in replay[name][i])
+            mine = got if isinstance(got, tuple) else (got,)
+            differ = sum(int((a != b).sum()) for a, b in zip(mine, want)
+                         if not a.is_floating_point())
+            own[name] = own.get(name, 0) + differ
+            if name in ("farthest_point_sample", "ball_query"):
+                return want[0] if len(want) == 1 else want
+            if name == "knn":
+                q, p = args[0][:, :3].float(), args[1][:, :3].float()
+                nb = p[want[1]]
+                d = [(q[:, None, j] - nb[..., j]) ** 2 for j in range(3)]
+                return torch.sqrt(((d[0] + d[1]) + d[2]).clamp_min(0.0)), \
+                    want[1]
+            if name == "top_k":
+                return args[0][want[1]], want[1]
+            scores = args[1]                               # nms
+            if kw.get("valid") is not None:
+                scores = torch.where(kw["valid"], scores, -torch.inf)
+            keep = want[0]
+            return keep, want[1], torch.where(
+                keep >= 0, scores[keep.clamp_min(0).long()], -torch.inf)
+        return picked
+    patched = []
+    for mod, names in PICK_SITES:
+        m = importlib.import_module(f"lvv_tpu_torch.models.{mod}")
+        for name in names:
+            patched.append((m, name, getattr(m, name)))
+            setattr(m, name, wrap(name))
+    try:
+        yield
+    finally:
+        for m, name, fn in patched:
+            setattr(m, name, fn)
+
+
+def two_stage_outputs(out) -> dict:
+    """The forward's float tensors to compare: the BEV, the RPN's or
+    point head's outputs, the keypoint features, the pooled RoI features
+    and the RoI head's outputs."""
+    got = {k: out[k] for k in ("bev_dense", "keypoint_features", "pooled",
+                               "iou_logits", "point_features") if k in out}
+    for group in ("rpn_preds", "preds", "point_preds", "roi_preds"):
+        got.update({f"{group}.{k}": v for k, v in out.get(group, {}).items()
+                    if v.is_floating_point()})
+    return got
+
+
+def two_stage_ops(torch, det, family, pts, n) -> dict:
+    """The second stage's ops alone at this family's shapes on the card,
+    ms a call (`timed_ms`, 3 calls): farthest-point sampling and the ball
+    query over the raw cloud; PointRCNN's later FPS levels, its kNN from
+    the cloud to 512 samples and its RoI-aware pool of 64 RoIs."""
+    from lvv_tpu_torch.ops import pool, sampling
+    valid = torch.arange(pts.shape[0], device=pts.device) < n
+    xyz = pts[:, :3].contiguous()
+    kp = xyz[sampling.farthest_point_sample(xyz, 512, valid)]
+    out = {"fps_512_of_cloud_ms": timed_ms(
+        lambda: sampling.farthest_point_sample(xyz, 512, valid), 3),
+        "ball_query_512x16_of_cloud_ms": timed_ms(
+            lambda: sampling.ball_query(kp, xyz, 0.8, 16, valid), 3)}
+    if family == "PointRCNN":
+        out["fps_levels_ms"] = [timed_ms(
+            lambda m=m, k=k: sampling.farthest_point_sample(xyz[:m], k), 3)
+            for m, k in ((512, 128), (128, 32), (32, 16))]
+        out["knn_cloud_to_512_ms"] = timed_ms(
+            lambda: sampling.knn(xyz, kp, 3), 3)
+        with torch.no_grad():
+            s = det.stages()
+            feats = s[0][1](pts, n)["point_features"]
+            rois = torch.cat([kp[:64], torch.full_like(kp[:64], 2.0),
+                              torch.zeros_like(kp[:64, :1])], 1)
+        out["roiaware_pool_64_rois_ms"] = timed_ms(
+            lambda: pool.roiaware_pool3d(xyz, feats, rois, 4,
+                                         valid_points=valid), 3)
+    return out
+
+
+def two_stage_detect(torch, family: str) -> dict:
+    """The family's detect on the card, timed and profiled, against the
+    same call through the port on the CPU with the card's picks
+    replayed."""
+    cfg = two_stage_config(family)
+    pts_np, n = kitti_cloud(cfg)
+    det = two_stage_detector(torch, family, cfg, "cuda")
+    pts = torch.from_numpy(pts_np).cuda()
+    picks = {}
+    report, out, dets, trace = timed_detect(
+        torch, f"detector-two-stage[{family}]", det, pts, n,
+        lambda: two_stage_picks(torch, picks))
+    ops = (two_stage_ops(torch, det, family, pts, n)
+           if family in TWO_STAGE_OPS else None)
+    cpu = two_stage_detector(torch, family, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    trace_cpu, own = [], {}
+    t0 = time.perf_counter()
+    with two_stage_picks(torch, {}, picks, own):
+        _, out_cpu, dets_cpu = zoo_staged(torch, cpu,
+                                          torch.from_numpy(pts_np), n,
+                                          trace_cpu)
+    cpu_s = time.perf_counter() - t0
+    ids_equal = {name: torch.equal(a.ids.cpu(), b.ids)
+                 for (name, a), (_, b) in zip(trace, trace_cpu)}
+    rels = {k: rel_l2(v.float().cpu(), two_stage_outputs(out_cpu)[k].float())
+            for k, v in two_stage_outputs(out).items()}
+    boxes, boxes_cpu = by_position(dets), by_position(dets_cpu)
+    box_err = (float(abs(boxes - boxes_cpu).max())
+               if boxes.shape == boxes_cpu.shape and len(boxes) else None)
+    report.update(cpu_call_s=cpu_s, stage_ids_equal_cpu=ids_equal,
+                  picks={k: sum(int(t[0].numel()) for t in v)
+                         for k, v in picks.items()},
+                  cpu_own_picks_differing=own, ops_ms=ops,
+                  rel_l2_vs_cpu=rels, box_max_abs_vs_cpu=box_err)
+    if "bev_dense" in out:
+        report["bev_shape"] = list(out["bev_dense"].shape)
+    checks = {"stage ids equal": bool(trace) == (family != "PointRCNN")
+              and all(ids_equal.values()),
+              "outputs within BEV_REL_TOL": max(rels.values())
+              <= BEV_REL_TOL,
+              "detection count": int(dets.count) == int(dets_cpu.count)
+              and int(dets.count) > 0,
+              "boxes within BOX_ABS_TOL": box_err is not None
+              and box_err <= BOX_ABS_TOL,
+              "finite detections": bool(torch.isfinite(dets.boxes).all()
+                                        and torch.isfinite(dets.scores).all()),
+              "no hand-written kernel on the path":
+              report["launches"] == {}}
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-two-stage[{family}]: {checks}; "
+                             f"{report}")
+    return report
+
+
+def two_stage_train(torch, family: str) -> dict:
+    """The family's train step at batch ZOO_BATCH (`timed_train`); for
+    TWO_STAGE_TRAIN also a step at batch 1 on the card against the CPU."""
+    cfg = two_stage_config(family)
+    batch = detector_batch(cfg, range(ZOO_BATCH), kitti_cloud)
+    det = two_stage_detector(torch, family, cfg, "cuda")
+    start = {k: v.clone() for k, v in det.state_dict().items()}
+    report = timed_train(torch, f"detector-two-stage[{family}]", det, batch)
+    checks = report.pop("checks")
+    checks["no hand-written kernel on the path"] = (
+        report["launches_per_step"] == {})
+    if family in TWO_STAGE_TRAIN:
+        det.load_state_dict(start)
+        report.update(two_stage_against_cpu(
+            torch, family, cfg, det, start,
+            {k: v[:1] for k, v in batch.items()}))
+        checks.update(report.pop("checks"))
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-two-stage[{family}] train: "
+                             f"{checks}; {report}")
+    return report
+
+
+def two_stage_against_cpu(torch, family, cfg, det, start, one) -> dict:
+    """A step of `det` (at `start`) on batch `one`, then the same step on
+    the CPU from the same weights with every ReLU gate and pick replayed
+    from the card's: the loss, each top-level group's gradient, and the
+    gates and picks the CPU would have taken otherwise."""
+    gates, picks = [], {}
+
+    def picker(log, replayed, own):
+        return two_stage_picks(torch, log, replayed, own)
+    card_m, card_g, _, _ = zoo_step(torch, det, one, gates, picks,
+                                    picker=picker)
+    cpu = two_stage_detector(torch, family, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    t0 = time.perf_counter()
+    cpu_m, cpu_g, gates_differ, picks_differ = zoo_step(
+        torch, cpu, one, None, {}, replay=(gates, picks), picker=picker)
+    cpu_s = time.perf_counter() - t0
+    no_grad = sorted(k for k, g in card_g.items() if g is None)
+    groups = collections.defaultdict(list)
+    for name in cpu_g:
+        if name not in no_grad:
+            groups[name.split(".")[0]].append(name)
+    rel = group_rel_l2(torch, dict(groups), card_g, cpu_g)
+    loss_rel = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    checks = {"loss card vs CPU within DET_LOSS_TOL": loss_rel
+              <= DET_LOSS_TOL,
+              "group gradients within DET_GRAD_TOL": all(
+                  v is not None and v <= DET_GRAD_TOL for v in rel.values()),
+              "the same parameters without a gradient on both devices":
+              no_grad == sorted(k for k, g in cpu_g.items() if g is None)}
+    report = dict(loss_card=card_m["loss"], loss_cpu=cpu_m["loss"],
+                  loss_rel=loss_rel, group_grad_rel_l2=rel,
+                  relu_entries=sum(int(g.numel()) for g in gates),
+                  cpu_own_gates_differing=gates_differ,
+                  cpu_own_picks_differing=picks_differ, cpu_step_s=cpu_s,
+                  no_gradient=no_grad, checks=checks)
+    print(f"detector-two-stage[{family}] train: batch 1 card vs CPU on the "
+          f"card's gates and picks: loss {loss_rel:.2e}, groups {rel}; the "
+          f"CPU's own gates differ at {gates_differ} of "
+          f"{report['relu_entries']}, picks {picks_differ}", flush=True)
+    return report
+
+
+def run_detector_two_stage(torch) -> dict:
+    """The two-stage families on the card: each one's detect at its KITTI
+    preset's width against the CPU, each one's train step (PV-RCNN's and
+    PointRCNN's also against the CPU), and the train CLI on PV-RCNN's
+    preset. `launches`: none of them launches a hand-written kernel."""
+    report = {}
+    for family in TWO_STAGE_PRESETS:
+        report[f"detect[{family}]"] = two_stage_detect(torch, family)
+        torch.cuda.empty_cache()
+    for family in TWO_STAGE_PRESETS:
+        report[f"train[{family}]"] = two_stage_train(torch, family)
+        torch.cuda.empty_cache()
+    report["cli"] = zoo_cli(torch, "PVRCNN", TWO_STAGE_PRESETS["PVRCNN"],
+                            TWO_STAGE_DIR, "roi_cls_loss")
+    report["launches"] = {}
     return report
 
 
@@ -4660,8 +5021,8 @@ NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
 
 
 PHASES = ("kernels", "main-path", "lidar-bev", "detector-train",
-          "detector-zoo", "detector-camera", "serving", "sam1280",
-          "serving-runtime", "train-step", "trainer")
+          "detector-zoo", "detector-camera", "detector-two-stage", "serving",
+          "sam1280", "serving-runtime", "train-step", "trainer")
 # lidar-bev feeds its BEV to the float path's model; the serving phases hold
 # their logits to the float path's
 NEEDS = {"lidar-bev": "main-path", "serving": "main-path"}
@@ -4708,8 +5069,10 @@ def main(argv=None) -> int:
 
     from lvv_tpu_torch import kernels
     t0 = time.perf_counter()
-    # VoxelNeXt's path runs no hand-written kernel
-    reports = kernels.build_all() if run - {"detector-train"} else {}
+    # VoxelNeXt's and the two-stage detectors' paths run no hand-written
+    # kernel
+    reports = (kernels.build_all()
+               if run - {"detector-train", "detector-two-stage"} else {})
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     spills = []
     for name, log in reports.items():
@@ -4762,6 +5125,9 @@ def main(argv=None) -> int:
     if "detector-camera" in run:
         paths["detector-camera"] = run_detector_camera(torch)
         emit("detector-camera", paths["detector-camera"])
+    if "detector-two-stage" in run:
+        paths["detector-two-stage"] = run_detector_two_stage(torch)
+        emit("detector-two-stage", paths["detector-two-stage"])
     if "serving" in run:
         served = serving_model(torch)
         paths["serving"], mlp_logits = run_serving_path(

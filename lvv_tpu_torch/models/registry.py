@@ -1,14 +1,17 @@
 """Detector registry and `build_detector` (counterpart of
 lvv_tpu/models/registry.py).
 
-The JAX package registers 17 detector families. The port builds seven:
-VoxelNeXt, PointPillars, CenterPoint, SECOND and TransFusion (LiDAR), and
-BEVFusion and CaDDN (camera input: their `forward` and `detect` take
-views and calibration, and they do not train, since the JAX package has
-no train step that takes camera tensors). Every other registered name
-raises NotImplementedError until its family is ported (ROADMAP.md, queue
-1, item 2: the detector zoo), and an unknown name raises KeyError, as
-JAX's `build_detector` does.
+The JAX package registers 17 detector families. The port builds 13:
+VoxelNeXt, PointPillars, CenterPoint, SECOND and TransFusion (LiDAR, one
+stage); PVRCNN, PVRCNNPlusPlus, PartA2, VoxelRCNN (its LiDAR trunk; a
+config with `focal` raises), SECONDNetIoU and PointRCNN (LiDAR, two
+stages); and BEVFusion and CaDDN (camera input: their `forward` and
+`detect` take views and calibration, and they do not train, since the
+JAX package has no train step that takes camera tensors). Every other
+registered name (DSVT, PillarNet, MPPNet, MPPNetE2E) raises
+NotImplementedError until its family is ported (ROADMAP.md, queue 1,
+item 2: the detector zoo), and an unknown name raises KeyError, as JAX's
+`build_detector` does.
 """
 from __future__ import annotations
 
@@ -24,6 +27,12 @@ PORTED = {"VoxelNeXt": ("voxelnext", "VoxelNeXtDetector"),
           "CenterPoint": ("centerpoint", "CenterPointDetector"),
           "SECOND": ("second", "SECONDDetector"),
           "TransFusion": ("transfusion", "TransFusionDetector"),
+          "PVRCNN": ("pv_rcnn", "PVRCNNDetector"),
+          "PVRCNNPlusPlus": ("pv_rcnn_pp", "PVRCNNPlusPlusDetector"),
+          "PartA2": ("part_a2", "PartA2Detector"),
+          "VoxelRCNN": ("voxel_rcnn", "VoxelRCNNDetector"),
+          "SECONDNetIoU": ("second_iou", "SECONDNetIoUDetector"),
+          "PointRCNN": ("point_rcnn", "PointRCNNDetector"),
           "BEVFusion": ("bevfusion", "BEVFusionDetector"),
           "CaDDN": ("caddn", "CaDDNDetector")}
 

@@ -9,10 +9,13 @@ Trains a detector with the JAX CLI's flags, defaults and chain: clip by
 global norm 10, then AdamW (weight decay 1e-4) at a warmup-cosine schedule
 from lr / 10 (`train.optim.detector_optimizer`). The family is --detector,
 else the config file's `_detector` key (configs/nuscenes_*.json), else
-VoxelNeXt; the port trains VoxelNeXt, PointPillars, CenterPoint, SECOND
-and TransFusion. BEVFusion and CaDDN build (`build_detector`) but do not
+VoxelNeXt; the port trains VoxelNeXt, PointPillars, CenterPoint, SECOND,
+TransFusion and the two-stage families (PVRCNN, PVRCNNPlusPlus, PartA2,
+VoxelRCNN, SECONDNetIoU, PointRCNN: configs/kitti_*.json) through their
+own `.loss`. BEVFusion and CaDDN build (`build_detector`) but do not
 train: the JAX package has no train step that takes camera tensors, and
-the CLI exits saying so. `--synthetic` takes tiny_config() (or --config)
+the CLI exits saying so; so does a focal Voxel R-CNN config, whose trunk
+is not ported. `--synthetic` takes tiny_config() (or --config)
 and one fixed generated batch (uniform points, 8 boxes), as the JAX CLI's
 smoke mode does. Each step prints `[i] loss L` and the family's loss terms
 (e.g. `hm_loss H reg_loss R`) and `T ms`; checkpoints go to

@@ -21,7 +21,6 @@ zoo's registry and train CLI, against the JAX package's on the CPU.
 Tolerances as in torch_zoo_util (losses 1e-5 relative).
 """
 import dataclasses
-import json
 import pathlib
 
 import jax
@@ -40,7 +39,7 @@ from lvv_tpu_torch.train.checkpoints import CheckpointManager
 from lvv_tpu_torch.train.detector import detector_loss
 from torch_zoo_util import (FWD_REL_L2, GRAD_REL_L2, LOSS_REL, Run, batch,
                             check_detections, group_rel_l2, rel_l2,
-                            train_step)
+                            tiny_overrides, train_step)
 
 pytestmark = pytest.mark.fast
 
@@ -263,18 +262,6 @@ def test_centerpoint_trunk_takes_layernorm_whatever_the_norm():
         assert not list(det.buffers())
 
 
-def _tiny_overrides():
-    """--set pairs that cut a preset to tiny_config()'s sizes."""
-    cfg = tiny_config()
-    vox = dataclasses.asdict(cfg.voxelize)
-    det = dataclasses.asdict(cfg.model.voxelnext)
-    pairs = [f"voxelize.{k}={json.dumps(v)}" for k, v in vox.items()]
-    pairs += [f"model.voxelnext.{k}={json.dumps(det[k])}"
-              for k in ("channels", "out_channels", "num_classes",
-                        "class_names", "nms_pre_max", "nms_post_max")]
-    return [x for p in pairs for x in ("--set", p)]
-
-
 @pytest.mark.parametrize("preset,family", [
     ("nuscenes_transfusion_lidar", "TransFusion"),
     ("nuscenes_second_multihead", "SECOND"),
@@ -283,7 +270,7 @@ def _tiny_overrides():
 def test_cli_trains_the_presets_family(preset, family, tmp_path):
     argv = ["--config", str(REPO / "configs" / f"{preset}.json"),
             "--synthetic", "--steps", "2", "--save-every", "1", "--out",
-            str(tmp_path), "--device", "cpu", *_tiny_overrides()]
+            str(tmp_path), "--device", "cpu", *tiny_overrides()]
     det, metrics = cli.main(argv)
     assert type(det).__name__ == f"{family}Detector"
     assert np.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0

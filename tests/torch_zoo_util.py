@@ -17,6 +17,7 @@ tiny_config()'s `nms_post_max`, where JAX's loss runs (ROADMAP.md queue 3).
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +61,19 @@ def configs(family: str):
         out += [cfg.model.voxelnext, dataclasses.replace(cfg.voxelize,
                                                          **vox)]
     return out
+
+
+def tiny_overrides() -> list:
+    """The train CLI's --set pairs that cut a preset to tiny_config()'s
+    sizes."""
+    cfg = tiny_config()
+    vox = dataclasses.asdict(cfg.voxelize)
+    det = dataclasses.asdict(cfg.model.voxelnext)
+    pairs = [f"voxelize.{k}={json.dumps(v)}" for k, v in vox.items()]
+    pairs += [f"model.voxelnext.{k}={json.dumps(det[k])}"
+              for k in ("channels", "out_channels", "num_classes",
+                        "class_names", "nms_pre_max", "nms_post_max")]
+    return [x for p in pairs for x in ("--set", p)]
 
 
 def jax_detector(family: str, jdet, jvox):
