@@ -195,17 +195,20 @@ every phase ran); the last line is the same.
    keypoints, second-stage pooling, RoI head, refine; PointRCNN's
    PointNet++, point head, decode + NMS, pooling, RoI head, refine) p50 of
    3 after a warm-up, peak memory, one profiled call's device busy and
-   idle, the detections, the second stage's ops alone at its shapes (FPS,
-   the ball query, PointRCNN's kNN and RoI-aware pool), and the same call
-   through the port on the CPU with the card's picks (FPS samples,
-   ball-query lists, kNN indices, the RPN's top-K, NMS keeps) replayed and
-   the CPU's own counted (sparse stage ids equal, BEV / RPN / RoI outputs
-   within BEV_REL_TOL, detections within BOX_ABS_TOL). Each family trains
+   idle, the detections, the share of the kept RoIs' pooled cells that
+   hold a feature, the second stage's ops alone at its shapes (FPS, the
+   ball query, PointRCNN's kNN and RoI-aware pool), and the same call
+   through the port on the CPU: its own FPS samples, ball-query lists and
+   kNN indices equal to the card's, the RPN's top-K and NMS keeps replayed
+   from the card and the CPU's own counted (sparse stage ids equal, BEV /
+   RPN / RoI outputs within BEV_REL_TOL, detections within BOX_ABS_TOL).
+   The RPN's boxes are the size of their anchors. Each family trains
    ZOO_STEPS steps at batch ZOO_BATCH (s/step, samples/s, peak, idle, a
    step below the first); PV-RCNN and PointRCNN also at batch 1, card
-   against CPU with every ReLU gate and pick replayed from the card (loss
-   within DET_LOSS_TOL, each top-level group's gradient within
-   DET_GRAD_TOL). None of them launches a hand-written kernel (checked).
+   against CPU with every ReLU gate, top-K pick and NMS keep replayed from
+   the card and the sampling picks equal (loss within DET_LOSS_TOL, each
+   top-level group's gradient within DET_GRAD_TOL). None of them launches
+   a hand-written kernel (checked).
    Then the train CLI on configs/kitti_pv_rcnn.json at tiny_config()'s
    sizes as a subprocess, its checkpoint reloaded bit-equal.
 8. Trains at full width: default_config() in bf16 with fp32 masters,
@@ -2066,8 +2069,7 @@ PREPROCESS_TOL = 1e-5
 def run_bench_stream(torch, served, serving: dict) -> dict:
     """bench.py's headline (bench.py:121-140) on the serving model under
     LVV_Q8_SCOPE "mlp": its frame stacked STREAM_G times through
-    greedy_generate_multi at B = 1, two timed dispatches (no warm-up
-    dispatch: the serving path has just run this model at these shapes);
+    greedy_generate_multi at B = 1, one warm-up, then two timed dispatches;
     stream = their time / (2·G), value = 1 / min(stream, p50) frames/s with
     the serving path's p50. Every group's tokens must equal the serving
     path's, and the launches of one dispatch G times its counts. Groups run
@@ -2080,6 +2082,7 @@ def run_bench_stream(torch, served, serving: dict) -> dict:
         return greedy_generate_multi(model, *xs, max_new_tokens=NEW_TOKENS,
                                      eos_id=EOS_ID, params_decode=packed)[0]
     with q8_scope_env("mlp"):
+        dispatch()
         torch.cuda.synchronize()
         kernels.launches.clear()
         t0 = time.perf_counter()
@@ -2131,9 +2134,7 @@ def run_serving_batch(torch, served) -> dict:
     counts as at batch 1: each wrapper runs once per layer for the whole
     batch; identical tokens on repeated runs), then every row's prefill and
     first-step logits against the same batch with every kernel swapped for
-    its plain version. (The share of rows equal to a batch-1 generate of
-    their frame, a report without a check, went to keep the script within
-    its time: PERF.md §5.)"""
+    its plain version."""
     cfg, model, _, packed = served
     args = [torch.as_tensor(a, device="cuda")
             for a in serving_batch_inputs(cfg, SERVING_BATCH)]
@@ -2375,6 +2376,22 @@ def engine_workload(eng, reqs) -> tuple:
     return got, futs, wall, sorted(d - s for s, d in zip(t_sub, t_done))
 
 
+def record_buckets(eng, in_flight=None) -> list:
+    """The futures of each bucket `eng` dispatches, in order, appended to
+    the list returned; the number of earlier buckets not yet answered at
+    each dispatch appended to `in_flight`."""
+    dispatched, dispatch = [], eng._dispatch
+
+    def recorded(batch):
+        if in_flight is not None:
+            in_flight.append(sum(not all(f.done() for f in b)
+                                 for b in dispatched))
+        dispatched.append([r.future for r in batch])
+        return dispatch(batch)
+    eng._dispatch = recorded
+    return dispatched
+
+
 def run_serving_engine(torch, model, tok, packed) -> dict:
     """serving-engine[8]: ServingEngine(max_batch=8, max_new_tokens=32) over
     the loaded preset with the packed int8 decode (the serve CLI's
@@ -2385,9 +2402,12 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
     (the engine's dispatches are recorded), and each bucket's prefill and
     first-step logits are held to the same batch with every kernel swapped
     for its plain version. A second, profiled run of the same workload
-    gives the device's busy time. (The batch-1 comparison of every answer
-    and the pipeline_depth 2 run, reports without a check, went to keep
-    the script within its time: PERF.md §5.)"""
+    gives the device's busy time. A third, on an engine with
+    pipeline_depth 2 (the next bucket issued before the last one's tokens
+    are fetched), must dispatch a bucket while another is in flight,
+    launch the same kernels per bucket and give each answer
+    greedy_generate's on its padded bucket; its latencies, and whether
+    its answers equal the first run's, are reported beside."""
     from lvv_tpu_torch import kernels
     from lvv_tpu_torch.inference import ServingEngine
     cfg = model.cfg
@@ -2396,15 +2416,31 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
     per_bucket = expected_launches(cfg, serving=True, prompt_len=width)
     kw = dict(max_batch=ENGINE_BATCH, max_wait_ms=ENGINE_WAIT_MS,
               max_new_tokens=NEW_TOKENS, params_decode=packed)
-    dispatched = []
+    wants = {}
+
+    def check_buckets(buckets, futs, got, sizes, tag):
+        """Each answer against greedy_generate on its padded bucket (one
+        generate a distinct bucket) -> [(rows, size)]."""
+        index = {id(f): i for i, f in enumerate(futs)}
+        out = []
+        for bucket in buckets:
+            rows = [index[id(f)] for f in bucket]
+            size = next(b for b in sizes if b >= len(rows))
+            if (tuple(rows), size) not in wants:
+                wants[tuple(rows), size] = direct_generate(
+                    torch, model, [reqs[i] for i in rows], size, packed)
+            for i, w in zip(rows, wants[tuple(rows), size]):
+                if got[i] != w:
+                    raise AssertionError(
+                        f"serving-engine{tag}: request {i} (bucket {rows}) "
+                        f"differs from greedy_generate on its padded bucket "
+                        f"at step {first_difference(got[i], w)}")
+            out.append((rows, size))
+        return out
+
     with q8_scope_env("mlp"):
         with ServingEngine(model, tok, **kw) as eng:
-            dispatch = eng._dispatch
-
-            def recorded(batch):       # the futures of each bucket, in order
-                dispatched.append([r.future for r in batch])
-                return dispatch(batch)
-            eng._dispatch = recorded
+            dispatched = record_buckets(eng)
             r = reqs[0]
             eng.submit(r["bev"], r["images"], r["view_valid"], r["text_ids"],
                        r["text_len"]).result(timeout=600)      # warm-up
@@ -2418,24 +2454,30 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
             busy = device_busy(torch, lambda: engine_workload(eng, reqs))
             stats = eng.stats()
             bucket_sizes, depth = eng.buckets, eng.pipeline_depth
+        with ServingEngine(model, tok, pipeline_depth=2, **kw) as eng:
+            in_flight = []
+            dispatched2 = record_buckets(eng, in_flight)
+            kernels.launches.clear()
+            got2, futs2, wall2, lat2 = engine_workload(eng, reqs)
+            counts2 = {k: v for k, v in kernels.launches.items() if v}
+            depth2 = dict(pipeline_depth=eng.pipeline_depth,
+                          batches=eng.stats()["batches"],
+                          in_flight_at_dispatch=in_flight)
         if counts != scaled(per_bucket, n_batches):
             raise AssertionError(f"serving-engine: launch counts {counts} "
                                  f"!= {n_batches} x {per_bucket}")
-        index = {id(f): i for i, f in enumerate(futs)}
+        if depth2["pipeline_depth"] != 2 or max(in_flight) != 1 or \
+                counts2 != scaled(per_bucket, depth2["batches"]):
+            raise AssertionError(f"serving-engine at pipeline_depth 2: "
+                                 f"{depth2}, launch counts {counts2}")
+        check_buckets(dispatched2, futs2, got2, bucket_sizes,
+                      " at pipeline_depth 2")
         vs_plain = []
-        for bucket in buckets:
-            rows = [index[id(f)] for f in bucket]
-            size = next(b for b in bucket_sizes if b >= len(rows))
-            mine = [reqs[i] for i in rows]
-            want = direct_generate(torch, model, mine, size, packed)
-            for i, w in zip(rows, want):
-                if got[i] != w:
-                    raise AssertionError(
-                        f"serving-engine: request {i} (bucket {rows}) "
-                        f"differs from greedy_generate on its padded bucket "
-                        f"at step {first_difference(got[i], w)}")
+        for rows, size in check_buckets(buckets, futs, got, bucket_sizes, ""):
             checks, _ = against_plain_kernels(
-                torch, model, bucket_args(torch, model, mine, size), packed)
+                torch, model,
+                bucket_args(torch, model, [reqs[i] for i in rows], size),
+                packed)
             vs_plain.append(dict(bucket=size, **checks))
     worst = {key: max(c[key] for c in vs_plain)
              for key in ("logits_rel_l2_vs_plain",
@@ -2456,6 +2498,12 @@ def run_serving_engine(torch, model, tok, packed) -> dict:
         answer_lengths=[len(t) for t in got], stats=stats,
         **worst, **by_row,
         vs_plain_by_bucket=vs_plain,
+        depth2=dict(**depth2, buckets=[len(b) for b in dispatched2],
+                    wall_s=wall2, frames_per_s=len(reqs) / wall2,
+                    request_latency_p50_s=lat2[len(lat2) // 2],
+                    request_latency_max_s=lat2[-1],
+                    equal_to_padded_bucket=len(reqs),
+                    tokens_equal_to_depth1=got2 == got),
         launches=per_bucket, launches_total=counts)
 
 
@@ -4308,13 +4356,15 @@ TWO_STAGE_DIR = REPO / "build" / "detector_two_stage"
 # through the port on the CPU from the same weights (the sparse stages'
 # ids equal; the BEV, RPN and RoI outputs within BEV_REL_TOL relative L2;
 # detections as detector-zoo holds them). The first stage's anchor head
-# takes SECOND's biases from ZOO_PRESETS' note (scores above the 0.1
-# threshold, boxes e^-3 of the anchors, so that NMS compares no IoU near
-# its threshold); PointRCNN's point head takes the heading's cosine bias
-# of 4. The discrete picks (farthest-point samples, ball-query lists, kNN
-# indices, the RPN's top-K and NMS keeps) are recorded on the card and
-# replayed on the CPU, which counts the picks it would have made
-# otherwise, as detector-zoo replays TransFusion's queries.
+# takes a class bias of -1 (scores above the 0.1 threshold) and a box
+# kernel shrunk by 1e-3 (boxes the size of their anchors, so that the
+# second stage pools over whole cars); PointRCNN's point head takes the
+# heading's cosine bias of 4. The discrete picks are recorded on the card:
+# the CPU's own farthest-point samples, ball-query lists and kNN indices
+# must equal them, and the RPN's top-K and NMS keeps, where near-equal
+# scores may order apart, are replayed on the CPU, which counts the picks
+# it would have made otherwise, as detector-zoo replays TransFusion's
+# queries.
 TWO_STAGE_PRESETS = {"PVRCNN": "configs/kitti_pv_rcnn.json",
                      "PVRCNNPlusPlus": "configs/kitti_pv_rcnn_plusplus.json",
                      "PartA2": "configs/kitti_parta2.json",
@@ -4338,6 +4388,9 @@ PICK_SITES = (("pointnet2", ("farthest_point_sample", "ball_query", "knn")),
               ("pv_rcnn_pp", ("farthest_point_sample", "ball_query")),
               ("anchor_head", ("top_k", "nms")),
               ("point_rcnn", ("nms",)))
+SAMPLING = ("farthest_point_sample", "ball_query", "knn")
+SAMPLES_BY_FAMILY = {"PVRCNN": SAMPLING[:2], "PVRCNNPlusPlus": SAMPLING[:2],
+                     "PointRCNN": SAMPLING}
 
 
 def kitti_cloud(cfg, seed: int = 0, boxes=None):
@@ -4376,7 +4429,6 @@ def two_stage_detector(torch, family: str, cfg, device):
                         family, lambda: det.rpn)()
             head.cls.bias.fill_(-1.0)
             head.box.kernel.mul_(1e-3)
-            head.box.bias.view(-1, 7)[:, 3:6] = -3.0
     return det
 
 
@@ -4384,9 +4436,10 @@ def two_stage_detector(torch, family: str, cfg, device):
 def two_stage_picks(torch, log, replay=None, own=None):
     """Every call of PICK_SITES' functions: its index outputs appended to
     log[name] (on the host) in call order; given `replay` (another run's
-    log), the call returns those instead (its float outputs taken at the
-    replayed indices), and the count of entries it would have picked
-    otherwise is added to own[name]."""
+    log), the count of entries that differ from it is added to own[name],
+    and the RPN's top-K and NMS calls return the replayed picks instead
+    (their scores taken at the replayed indices). The sampling ops'
+    (SAMPLING) own picks are kept: they must equal the replayed ones."""
     import importlib
     from lvv_tpu_torch.ops import nms as N
     from lvv_tpu_torch.ops import sampling as S
@@ -4400,27 +4453,17 @@ def two_stage_picks(torch, log, replay=None, own=None):
 
         def picked(*args, **kw):
             got = fn(*args, **kw)
-            idx = got if name == "farthest_point_sample" else \
-                got[0] if name in ("ball_query", "nms") else got[1]
+            mine = got if isinstance(got, tuple) else (got,)
             i, calls[name] = calls[name], calls[name] + 1
             if replay is None:
-                log.setdefault(name, []).append(
-                    tuple(t.cpu() for t in (got if isinstance(got, tuple)
-                                            else (got,))))
+                log.setdefault(name, []).append(tuple(t.cpu() for t in mine))
                 return got
-            want = tuple(t.to(idx.device) for t in replay[name][i])
-            mine = got if isinstance(got, tuple) else (got,)
-            differ = sum(int((a != b).sum()) for a, b in zip(mine, want)
-                         if not a.is_floating_point())
-            own[name] = own.get(name, 0) + differ
-            if name in ("farthest_point_sample", "ball_query"):
-                return want[0] if len(want) == 1 else want
-            if name == "knn":
-                q, p = args[0][:, :3].float(), args[1][:, :3].float()
-                nb = p[want[1]]
-                d = [(q[:, None, j] - nb[..., j]) ** 2 for j in range(3)]
-                return torch.sqrt(((d[0] + d[1]) + d[2]).clamp_min(0.0)), \
-                    want[1]
+            want = tuple(t.to(mine[0].device) for t in replay[name][i])
+            own[name] = own.get(name, 0) + sum(
+                int((a != b).sum()) for a, b in zip(mine, want)
+                if not a.is_floating_point())
+            if name in SAMPLING:
+                return got
             if name == "top_k":
                 return args[0][want[1]], want[1]
             scores = args[1]                               # nms
@@ -4443,6 +4486,15 @@ def two_stage_picks(torch, log, replay=None, own=None):
             setattr(m, name, fn)
 
 
+def sampling_checks(family: str, picks: dict, own: dict) -> dict:
+    """The sampling ops ran where the family has them, and the CPU's own
+    picks equal the card's."""
+    ran = {k for k in SAMPLING if picks.get(k)}
+    return {"sampling ops ran": ran == set(SAMPLES_BY_FAMILY.get(family, ())),
+            "the CPU's own FPS / ball-query / kNN picks equal the card's":
+            all(own.get(k, 0) == 0 for k in SAMPLING)}
+
+
 def two_stage_outputs(out) -> dict:
     """The forward's float tensors to compare: the BEV, the RPN's or
     point head's outputs, the keypoint features, the pooled RoI features
@@ -4453,6 +4505,16 @@ def two_stage_outputs(out) -> dict:
         got.update({f"{group}.{k}": v for k, v in out.get(group, {}).items()
                     if v.is_floating_point()})
     return got
+
+
+def pooled_cells_filled(det, out, dets) -> float:
+    """The share of the kept RoIs' pooled cells (grid³ a RoI; SECOND-IoU's
+    BEV samples grid²) whose feature vector is not all zero."""
+    head = det.iou_head if hasattr(det, "iou_head") else det.roi_head
+    cells = head.grid ** (2 if hasattr(det, "iou_head") else 3)
+    pooled = out["pooled"]
+    kept = pooled.reshape(pooled.shape[0], cells, -1)[dets.labels >= 0]
+    return float(kept.ne(0).any(-1).float().mean())
 
 
 def two_stage_ops(torch, det, family, pts, n) -> dict:
@@ -4519,6 +4581,7 @@ def two_stage_detect(torch, family: str) -> dict:
                   picks={k: sum(int(t[0].numel()) for t in v)
                          for k, v in picks.items()},
                   cpu_own_picks_differing=own, ops_ms=ops,
+                  pooled_cells_filled=pooled_cells_filled(det, out, dets),
                   rel_l2_vs_cpu=rels, box_max_abs_vs_cpu=box_err)
     if "bev_dense" in out:
         report["bev_shape"] = list(out["bev_dense"].shape)
@@ -4533,7 +4596,8 @@ def two_stage_detect(torch, family: str) -> dict:
               "finite detections": bool(torch.isfinite(dets.boxes).all()
                                         and torch.isfinite(dets.scores).all()),
               "no hand-written kernel on the path":
-              report["launches"] == {}}
+              report["launches"] == {},
+              **sampling_checks(family, picks, own)}
     report["checks"] = checks
     if not all(checks.values()):
         raise AssertionError(f"detector-two-stage[{family}]: {checks}; "
@@ -4567,9 +4631,10 @@ def two_stage_train(torch, family: str) -> dict:
 
 def two_stage_against_cpu(torch, family, cfg, det, start, one) -> dict:
     """A step of `det` (at `start`) on batch `one`, then the same step on
-    the CPU from the same weights with every ReLU gate and pick replayed
-    from the card's: the loss, each top-level group's gradient, and the
-    gates and picks the CPU would have taken otherwise."""
+    the CPU from the same weights with every ReLU gate, top-K pick and
+    NMS keep replayed from the card's (its sampling picks must equal the
+    card's): the loss, each top-level group's gradient, and the gates and
+    picks the CPU would have taken otherwise."""
     gates, picks = [], {}
 
     def picker(log, replayed, own):
@@ -4594,7 +4659,8 @@ def two_stage_against_cpu(torch, family, cfg, det, start, one) -> dict:
               "group gradients within DET_GRAD_TOL": all(
                   v is not None and v <= DET_GRAD_TOL for v in rel.values()),
               "the same parameters without a gradient on both devices":
-              no_grad == sorted(k for k, g in cpu_g.items() if g is None)}
+              no_grad == sorted(k for k, g in cpu_g.items() if g is None),
+              **sampling_checks(family, picks, picks_differ)}
     report = dict(loss_card=card_m["loss"], loss_cpu=cpu_m["loss"],
                   loss_rel=loss_rel, group_grad_rel_l2=rel,
                   relu_entries=sum(int(g.numel()) for g in gates),
