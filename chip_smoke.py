@@ -163,7 +163,8 @@ every phase ran); the last line is the same.
    --save-every 1` at tiny_config()'s sizes as a subprocess, its
    checkpoint reloaded bit-equal. K-e's fp32 form and K-a on fp32 x are
    checked in 2 at TransFusion's shapes (FP32_REL_L2_TOL; the scale
-   dropped, or the norm parameters rounded to bf16, must fail it).
+   dropped, a single TF32 pass in place of K-e's 3xTF32, or the norm
+   parameters rounded to bf16, must fail it).
 3d. Then the camera-input detectors ("detector-camera"), each at its
    preset's full width (fp32, TF32 off, seeded weights): BEVFusion at
    configs/nuscenes_bevfusion.json (lidar_cloud's 300,000 points at 0.075
@@ -259,6 +260,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 INT8_OPS = 1979e12                 # dense int8 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
+TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
 # Kernel vs plain version, both bf16 out of fp32 math. Elementwise
 # |err| <= BF16_TOL * (|plain| + rms(plain)): 4 bf16 ulps of the value, or
 # of the output's scale where the value is near 0 (attention outputs are
@@ -801,23 +803,38 @@ def kernel_cases(torch):
         return setup
 
     def flash_f32_case(sq, sk, h, d, b=1):
-        # K-e's fp32 form, q / k / v as views of the fp32 projections
+        # K-e's fp32 form, q / k / v as views of the fp32 projections; its
+        # products run in 3xTF32, three TF32 passes a product
         def setup():
             q, k, v = (fp32(b, s, h * d).view(b, s, h, d).transpose(1, 2)
                        for s in (sq, sk, sk))
-            splits = A.flash_splits(b, h, sq, sk, 64)
+            plan = A.flash_f32_plan(b, h, sq, sk, d)
+            flops = 4 * b * sq * sk * d * h
+
+            def f64_gaps(got):
+                # both fp32 results against the function in float64
+                w = torch.softmax(q.double() @ k.double().transpose(-1, -2)
+                                  * d ** -0.5, -1) @ v.double()
+                plain = A.flash_attention_plain(q, k, v).double()
+                return {name: float((x.double() - w).norm() / w.norm())
+                        for name, x in (("f64_rel_l2", got),
+                                        ("plain_f64_rel_l2", plain))}
             return dict(
-                notes=dict(kv_splits=splits,
-                           blocks=-(-sq // 64) * h * b * splits,
+                check=f64_gaps,
+                notes=dict(kv_splits=plan["splits"], blocks=plan["blocks"],
+                           rows_a_block=plan["rows"], keys_a_tile=plan["keys"],
+                           fp32_fma_bound_ms=flops / FP32_FLOPS * 1e3,
                            library="SDPA on fp32, TF32 off"),
                 kernel=lambda: A.flash_attention(q, k, v),
                 plain=lambda: A.flash_attention_plain(q, k, v),
                 library=lambda: F.scaled_dot_product_attention(q, k, v),
-                flops=4 * b * sq * sk * d * h, peak=FP32_FLOPS,
+                flops=3 * flops, peak=TF32_FLOPS,
                 bytes=4 * b * h * d * (2 * sq + 2 * sk),
                 rel_l2_tol=FP32_REL_L2_TOL,
                 traps={"scale_dropped": lambda: A.flash_attention_plain(
-                    q, k, v, scale=1.0)})
+                    q, k, v, scale=1.0),
+                       "single_tf32": lambda: A.flash_attention_tf32_plain(
+                    q, k, v, passes=1)})
         return setup
 
     def relpos_case(b, g, heads, d):
@@ -3636,10 +3653,11 @@ ZOO_PRESETS = {"PointPillars": "configs/nuscenes_pp_multihead.json",
 # each group's gradient (backbone3d, backbone2d, head) within DET_GRAD_TOL
 ZOO_TRAIN = ("TransFusion", "SECOND")
 ZOO_BATCH, ZOO_STEPS = 2, 4
-# K-e's fp32 form against its plain version: both true fp32 (TF32 off);
-# the kernel sums the score and value products in another order and its
-# kv splits combine partial softmax states, ~1e-6 relative L2 at
-# TransFusion's shape; dropping the scale gives ~1 and has to fail
+# K-e's fp32 form against its plain version (true fp32, TF32 off): the
+# kernel's 3xTF32 products keep ~22 bits of each operand and sum in
+# another order, and its kv splits combine partial softmax states, ~5e-7
+# relative L2 at TransFusion's shape (emulated on the CPU); dropping the
+# scale gives ~1 and one TF32 pass ~4.5e-4, and both have to fail
 FP32_REL_L2_TOL = 1e-5
 
 
@@ -5038,7 +5056,8 @@ def run_trainer(torch) -> dict:
     return report
 
 
-PROFILE_WATCH = re.compile(r"CUDAFunctor_add<c10::BFloat16>|norm_kernel")
+PROFILE_WATCH = re.compile(
+    r"CUDAFunctor_add<c10::BFloat16>|norm_kernel|flash_f32_")
 
 
 def device_busy(torch, generate) -> dict:
@@ -5061,7 +5080,8 @@ def device_busy(torch, generate) -> dict:
     for e in ranked[:20]:
         print(f"profile-top {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:100]}")
-    # the launches that K-a's add form takes in, wherever they rank
+    # the launches that K-a's add form takes in, and K-e's fp32 form,
+    # wherever they rank
     for e in ranked[20:]:
         if PROFILE_WATCH.search(e.key):
             print(f"profile-watch {e.self_device_time_total / 1e3:9.3f} ms "

@@ -165,20 +165,45 @@ _SPLIT_MIN_KV = 512      # keys a kv split holds at least
 _SPLIT_COST = 0.02       # each split's partials cost ~2% of the kernel
 
 
-def flash_splits(b: int, hq: int, sq: int, sk: int,
-                 block_q: int = _FLASH_BQ) -> int:
-    """How many kv splits the flash kernel runs, from the shapes alone (so
-    results repeat run to run): 1 where the q tiles (`block_q` rows; the
-    fp32 form's are 64), heads and batch give a block per SM; otherwise the
-    count n (each split at least 512 keys) that minimises the waves of
-    blocks per unit of work, ceil(blocks·n / SMs) / n, times 1 + 2% per
-    split for the partials' round trip (ties: fewer)."""
-    blocks = -(-sq // block_q) * hq * b
+def flash_splits(b: int, hq: int, sq: int, sk: int) -> int:
+    """How many kv splits the bf16 flash kernel runs, from the shapes alone
+    (so results repeat run to run): 1 where the q tiles (128 rows), heads
+    and batch give a block per SM; otherwise the count n (each split at
+    least 512 keys) that minimises the waves of blocks per unit of work,
+    ceil(blocks·n / SMs) / n, times 1 + 2% per split for the partials'
+    round trip (ties: fewer)."""
+    blocks = -(-sq // _FLASH_BQ) * hq * b
     most = max(1, sk // _SPLIT_MIN_KV)
     if blocks >= _SMS:
         return 1
     return min(range(1, most + 1), key=lambda n: (
         -(-blocks * n // _SMS) / n * (1 + _SPLIT_COST * n), n))
+
+
+_F32_ROWS, _F32_WARPS = 16, 7   # the fp32 form's rows a warp, warps a block
+_F32_KEYS = 32                  # the fp32 form's keys a tile
+_F32_MIN_TILES = 4              # kv tiles a split of the fp32 form holds
+
+
+def flash_f32_plan(b: int, hq: int, sq: int, sk: int, d: int) -> dict:
+    """The fp32 form's launch (flash_attention_f32.cu) from the shapes
+    alone: each warp owns a row tile of 16 q rows; a block holds the fewest
+    warps, at most 7, that even out the row tiles over the fewest blocks
+    (`rows` q rows a block, `q_blocks` a head); `keys` a kv tile, `dp` the
+    head dim padded to a multiple of 8; `splits` of the kv axis, enough for
+    two blocks on each SM where the q blocks, heads and batch give fewer
+    (each split at least 4 tiles), cut as `flash_attention_split_plain`
+    cuts it; `blocks` in the grid. The kernel derives `rows` and `keys` by
+    the same rule."""
+    dp = -(-d // 8) * 8
+    row_tiles = -(-sq // _F32_ROWS)
+    q_blocks = -(-row_tiles // _F32_WARPS)
+    warps = -(-row_tiles // q_blocks)
+    blocks = q_blocks * hq * b
+    most = max(1, -(-sk // _F32_KEYS) // _F32_MIN_TILES)
+    splits = 1 if blocks >= 2 * _SMS else min(most, -(-2 * _SMS // blocks))
+    return dict(dp=dp, keys=_F32_KEYS, rows=_F32_ROWS * warps,
+                q_blocks=q_blocks, splits=splits, blocks=blocks * splits)
 
 
 def flash_attention_split_plain(q, k, v, *, n_split: int,
@@ -223,6 +248,45 @@ def flash_attention_split_plain(q, k, v, *, n_split: int,
         num = num + w * o
         den = den + w * l
     return (num / torch.clamp_min(den, 1e-30)).to(q.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit operations: what the fp32 form's cvt.rna.tf32.f32
+    gives."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def flash_attention_tf32_plain(q, k, v, *, passes: int = 3,
+                               causal: bool = False,
+                               kv_len: Optional[torch.Tensor] = None,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """The fp32 form's arithmetic in plain PyTorch (for the tests): q scaled
+    by scale·log2 e, the scores and p·v as products of TF32 operands summed
+    in fp32, the softmax in base 2. passes=3 is 3xTF32, the kernel's: each
+    operand x = big + small (big = `tf32_round(x)`, small =
+    `tf32_round(x - big)`) and each product big·big + big·small +
+    small·big. passes=1 is a single TF32 pass, big·big alone: the trap that
+    the kernel's 1e-5 bound must see."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, not {passes}")
+    n_rep = q.shape[1] // k.shape[1]
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+    def product(a, b):
+        ab, bb = tf32_round(a), tf32_round(b)
+        if passes == 1:
+            return ab @ bb
+        return (tf32_round(a - ab) @ bb + ab @ tf32_round(b - bb)) + ab @ bb
+    s2 = product(q.float() * (scale * _LOG2E), k.float().transpose(-1, -2))
+    keep = _keep(q, k.shape[2], causal, kv_len)
+    if keep is not None:
+        s2 = s2.masked_fill(~keep, _NEG_INF)
+    p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+    return (product(p, v.float()) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -288,13 +352,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     return out
 
 
-_F32_BQ, _F32_BK = 64, 64     # the fp32 form's q rows a block, keys a tile
-
-
 def _flash_f32(q, k, v, causal: bool, kv_len, scale) -> torch.Tensor:
     """K-e's fp32 form (kernels/csrc/flash_attention_f32.cu): what
     `_flash_kernel` computes on fp32 inputs, s, p and the accumulator in
-    fp32, head dim up to 64 (`_flash_padded` pads such heads to 64)."""
+    fp32, head dim up to 64 (`_flash_padded` pads such heads to 64), its
+    products in 3xTF32 on the tensor cores (`flash_attention_tf32_plain`
+    is that arithmetic in PyTorch), launched as `flash_f32_plan` says."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, sk, d) or v.shape != k.shape or hq % hkv
@@ -315,7 +378,7 @@ def _flash_f32(q, k, v, causal: bool, kv_len, scale) -> torch.Tensor:
     out = torch.empty(b, sq, hq, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    n_split = flash_splits(b, hq, sq, sk, _F32_BQ)
+    n_split = flash_f32_plan(b, hq, sq, sk, d)["splits"]
     part_o = part_ml = None
     if n_split > 1:
         part_o = torch.empty(n_split * b * hq * sq * d, dtype=torch.float32,

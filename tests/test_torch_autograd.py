@@ -150,22 +150,50 @@ def test_ln_mlp_residual_fn_matches_jax_vjp(act, quant8):
             "LnMlpResidualQ8Fn" if quant8 else "LnMlpResidualFn")
 
 
+def _bf16_steps(a, b):
+    """How many bf16 values lie between a and b, elementwise (0: equal,
+    1: neighbours), from the bit patterns in sign-magnitude order."""
+    def key(x):
+        i = torch.tensor(x).to(torch.bfloat16).view(torch.int16).numpy()
+        i = i.astype(np.int32)
+        return np.where(i < 0, -(i & 0x7FFF), i)
+    return np.abs(key(a) - key(b))
+
+
+def _is_xla_forward(got, want) -> bool:
+    """Every output within one bf16 step of JAX's, at most 1% differing."""
+    steps = _bf16_steps(got, want)
+    return steps.max() <= 1 and (steps > 0).mean() <= 0.01
+
+
 def test_recompute_is_jax_xla_forward():
     """K-b's recompute (`ln_mlp_residual_xla`) is JAX's `_xla_forward` in
-    bf16, bit for bit: z not rounded before the activation."""
+    bf16: z not rounded before the activation. Bit equality cannot hold
+    across CPUs: z = y·w1 comes from two fp32 GEMMs that sum in their own
+    order (up to 6.0e-7 apart at these inputs on an AMD EPYC) and the
+    activation from two vector maths (up to 4.8e-7 apart), so a bf16
+    rounding tie may land on either side: there 1 of 1,152 quick_gelu
+    outputs is one step off, none of gelu's. The check (every output
+    within one bf16 step, at most 1% differing) still tells the recompute
+    from the kernel's arithmetic, which rounds z before the activation
+    (`ln_mlp_residual_plain`: 455 and 497 of 1,152 differ, by up to 76
+    and 235 steps)."""
     rng = np.random.default_rng(4)
     c, h = 128, 256
     args = [_rand(rng, 9, c), 1 + _rand(rng, c, std=0.1),
             _rand(rng, c, std=0.1), _rand(rng, c, h, std=c ** -0.5),
             _rand(rng, h, std=0.1), _rand(rng, h, c, std=h ** -0.5),
             _rand(rng, c, std=0.1)]
+    targs = [torch.tensor(a).to(torch.bfloat16) for a in args]
     for act in ("gelu", "quick_gelu"):
-        got = M.ln_mlp_residual_xla(
-            *(torch.tensor(a).to(torch.bfloat16) for a in args), eps=1e-6,
-            act=act).float().numpy()
-        want = jmlp._xla_forward(*(jnp.asarray(a, jnp.bfloat16)
-                                   for a in args), 1e-6, act)
-        np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+        want = np.asarray(jmlp._xla_forward(
+            *(jnp.asarray(a, jnp.bfloat16) for a in args), 1e-6, act),
+            np.float32)
+        got = M.ln_mlp_residual_xla(*targs, eps=1e-6, act=act)
+        assert _is_xla_forward(got.float().numpy(), want), act
+        # the trap: z rounded before the activation fails the same check
+        trap = M.ln_mlp_residual_plain(*targs, eps=1e-6, act=act)
+        assert not _is_xla_forward(trap.float().numpy(), want), act
 
 
 def test_guarded_kernels_refuse_a_gradient():

@@ -19,8 +19,11 @@
   `torch_zoo_util`'s grid.
 - K-e's fp32 form: its plain version (the CPU path of `flash_attention`)
   against JAX's `attention(..., interpret=True)` at head dim 32 with Sq and
-  Sk that are not tile multiples, and the kernel's split-kv arithmetic at
-  its 64-key tiles against the plain version.
+  Sk that are not tile multiples; the kernel's split-kv arithmetic at
+  `flash_f32_plan`'s tiles and splits against the plain version; its 3xTF32
+  products emulated (`flash_attention_tf32_plain`, TF32 rounding by bit
+  operations as cvt.rna) within 1e-5 of the plain version, where a single
+  TF32 pass must fail; the plan pinned at TransFusion's shape.
 
 Tolerances (torch_zoo_util): fp32 forward 1e-5 relative L2, detections
 equal in count and labels with boxes and scores within 1e-4, a train
@@ -312,16 +315,58 @@ def test_flash_fp32_plain_matches_pallas(kv_len):
 
 
 def test_flash_fp32_split_arithmetic():
-    """The fp32 kernel's split count at TransFusion's shape (16 blocks of
-    64 q rows: 8 splits) and its 64-key-tile split arithmetic against the
-    plain version, at a smaller kv with the same cut."""
-    assert A.flash_splits(1, 4, 200, 32400, 64) == 8
+    """The fp32 kernel's split arithmetic at `flash_f32_plan`'s 32-key
+    tiles and split count against the plain version, at a smaller kv than
+    TransFusion's (32 splits of 5 tiles, the first 26 holding them all)."""
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                for s in ((1, 4, 200, 32), (1, 4, 4100, 32),
                          (1, 4, 4100, 32)))
-    n = A.flash_splits(1, 4, 200, 4100, 64)
-    assert n == 8
-    got = A.flash_attention_split_plain(q, k, v, n_split=n, block_k=64)
+    plan = A.flash_f32_plan(1, 4, 200, 4100, 32)
+    assert (plan["keys"], plan["splits"]) == (32, 32)
+    got = A.flash_attention_split_plain(q, k, v, n_split=plan["splits"],
+                                        block_k=plan["keys"])
     want = A.flash_attention_plain(q, k, v)
     assert rel_l2(got.numpy(), want.numpy()) <= 1e-6
+
+
+def test_flash_f32_plan():
+    """The fp32 form's launch from the shapes alone: at TransFusion's shape
+    (q [1, 4, 200, 32] over 32,400 keys) 2 blocks of 7 warps (112 rows) a
+    head and 33 kv splits, 264 blocks, two on each of the 132 SMs; at the
+    train step's batch of 2 17 splits; head dims padded to a multiple of 8;
+    enough q blocks need no split, a kv under 8 tiles none either."""
+    assert A.flash_f32_plan(1, 4, 200, 32400, 32) == dict(
+        dp=32, keys=32, rows=112, q_blocks=2, splits=33, blocks=264)
+    assert A.flash_f32_plan(2, 4, 200, 32400, 32)["splits"] == 17
+    assert A.flash_f32_plan(1, 4, 200, 32400, 7)["dp"] == 8
+    wide = A.flash_f32_plan(2, 8, 70, 2000, 64)
+    assert (wide["dp"], wide["rows"], wide["splits"]) == (64, 80, 15)
+    assert A.flash_f32_plan(8, 16, 4096, 4096, 64)["splits"] == 1
+    assert A.flash_f32_plan(2, 4, 24, 200, 32)["splits"] == 1
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal,ragged", [
+    (1, 4, 4, 200, 4100, False, False),     # TransFusion's head, cut kv
+    (2, 4, 2, 130, 1500, True, True)])      # causal, GQA, ragged kv_len
+def test_flash_fp32_3xtf32_arithmetic(b, hq, hkv, sq, sk, causal, ragged):
+    """The kernel's 3xTF32 products (operands split into TF32 big + small,
+    small·small dropped) emulated in PyTorch stay within the 1e-5 bound of
+    the plain version (read 5.1e-7 in both cases), while a single TF32
+    pass fails it (read 4.4e-4 and 4.7e-4). `tf32_round` rounds to
+    nearest, ties away from zero, as cvt.rna.tf32.f32."""
+    x = torch.tensor([1.0, 1 + 2 ** -11, 1 + 3 * 2 ** -11, -1 - 2 ** -11,
+                      1 + 2 ** -11 - 2 ** -20])
+    assert A.tf32_round(x).tolist() == [1.0, 1 + 2 ** -10, 1 + 2 ** -9,
+                                        -1 - 2 ** -10, 1.0]
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((b, hq, sq, 32), (b, hkv, sk, 32),
+                         (b, hkv, sk, 32)))
+    kw = dict(causal=causal, kv_len=torch.tensor([sk, sk - 77])
+              if ragged else None)
+    want = A.flash_attention_plain(q, k, v, **kw).numpy()
+    three = A.flash_attention_tf32_plain(q, k, v, **kw).numpy()
+    one = A.flash_attention_tf32_plain(q, k, v, passes=1, **kw).numpy()
+    assert rel_l2(three, want) <= 1e-5
+    assert rel_l2(one, want) > 1e-5

@@ -227,19 +227,22 @@ def test_flash_attention(gen, sq, sk, hq, hkv, d, causal):
     _agree(got, want)
 
 
-# K-e's fp32 form: TransFusion's cross-attention (8 kv splits), a
-# self-attention shape without a split, GQA with a ragged kv_len, causal,
-# and head dims 7, 16, 48 and 64 (the kernel pads to 32 or 64)
+# K-e's fp32 form: TransFusion's cross-attention (33 kv splits) and at its
+# train step's batch of 2, a self-attention shape without a split, GQA with
+# a ragged kv_len, causal, and head dims 7, 16, 48 and 64 (the kernel pads
+# to a multiple of 8)
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,ragged", [
     (1, 4, 4, 200, 32400, 32, False, False),
     (2, 4, 4, 24, 300, 32, False, False),
     (2, 8, 2, 70, 2000, 64, False, True),
     (1, 4, 4, 300, 300, 48, True, False),
     (3, 1, 1, 5, 1100, 7, False, False),
-    (2, 4, 2, 130, 1500, 16, True, True)])
+    (2, 4, 2, 130, 1500, 16, True, True),
+    (2, 4, 4, 200, 32400, 32, False, False)])
 def test_flash_attention_fp32(gen, b, hq, hkv, sq, sk, d, causal, ragged):
     """Against the plain version within 1e-5 relative L2 (chip_smoke's
-    FP32_REL_L2_TOL), which a scale dropped must fail."""
+    FP32_REL_L2_TOL), which a scale dropped and a single TF32 pass in place
+    of the kernel's 3xTF32 must fail."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     q = rnd(b, sq, hq * d).view(b, sq, hq, d).transpose(1, 2)
@@ -251,9 +254,13 @@ def test_flash_attention_fp32(gen, b, hq, hkv, sq, sk, d, causal, ragged):
                     lambda: A.flash_attention(q, k, v, **kw))
     assert got.dtype == torch.float32 and got.shape == q.shape
     want = A.flash_attention_plain(q, k, v, **kw)
-    assert float((got - want).norm() / want.norm()) <= 1e-5
-    trap = A.flash_attention_plain(q, k, v, scale=1.0, **kw)
-    assert float((got - trap).norm() / trap.norm()) > 1e-3
+
+    def rel(ref):
+        return float((got - ref).norm() / ref.norm())
+    assert rel(want) <= 1e-5
+    assert rel(A.flash_attention_plain(q, k, v, scale=1.0, **kw)) > 1e-3
+    single = A.flash_attention_tf32_plain(q, k, v, passes=1, **kw)
+    assert float((single - want).norm() / want.norm()) > 1e-5
 
 
 @pytest.mark.parametrize("b,gh,gw,heads", [(5, 14, 14, 3), (1, 32, 32, 2),
