@@ -4,11 +4,12 @@
 
 With no flag every phase runs. `--only` runs the named ones of kernels,
 main-path, lidar-bev, detector-train, detector-zoo, detector-camera,
-detector-two-stage, serving, sam1280, serving-runtime, train-step,
-trainer (lidar-bev and serving bring main-path with them; the kernel
-build is skipped when only detector-train and detector-two-stage run, and
-the kernels line, which needs every path's launches, is printed only when
-every phase ran); the last line is the same.
+detector-two-stage, detector-waymo, serving, sam1280, serving-runtime,
+train-step, trainer (lidar-bev and serving bring main-path with them; the
+kernel build is skipped when only detector-train, detector-two-stage and
+detector-waymo run, and the kernels line, which needs every path's
+launches, is printed only when every phase ran); the last line is the
+same.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds every CUDA kernel from the sources in this checkout
@@ -212,6 +213,24 @@ every phase ran); the last line is the same.
    a hand-written kernel (checked).
    Then the train CLI on configs/kitti_pv_rcnn.json at tiny_config()'s
    sizes as a subprocess, its checkpoint reloaded bit-equal.
+3f. Then the Waymo detectors ("detector-waymo"): PillarNet, DSVT-pillar
+   and DSVT-voxel at configs/waymo_*.json's full width (fp32, TF32 off,
+   seeded weights; PillarNet's 1504² pillars, DSVT's 470² grid, 470² x
+   32 voxels with ZPoolAttention between its four stages) on waymo_cloud's
+   ~180,000-point ray-cast scene (a 64-beam LiDAR over ground, vehicles
+   and walls) in the presets' 300,000 rows. Each detect: the stage split
+   (VFE or voxelizer, sparse 2D trunk or DSVT stages, collapse + BEV
+   trunk, head, decode + NMS; p50 of 3 after a warm-up), peak memory, one
+   profiled call's device busy and idle, the telemetry of every
+   capacity-bound op (no drops), the sets each DSVT block uses against
+   max_sets and the host planner's count, and the same call on the CPU
+   (voxel ids, each point's voxel and every block's set tables equal, BEV
+   and head outputs within BEV_REL_TOL, detections within BOX_ABS_TOL);
+   the trap, DSVT's x layer over y-sorted sets, has to miss BEV_REL_TOL.
+   Each trains ZOO_STEPS steps at batch ZOO_BATCH, then one step at batch
+   1 card against CPU with every ReLU gate and segment-max winner replayed
+   (DSVT-voxel on a 30,000-point cloud, its capacities cut to it:
+   WAYMO_CPU_STEP). None launches a hand-written kernel (checked).
 8. Trains at full width: default_config() in bf16 with fp32 masters,
    TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
    ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
@@ -4710,6 +4729,455 @@ def run_detector_two_stage(torch) -> dict:
     return report
 
 
+# ------------------------------------------------------- detector-waymo --
+
+# PillarNet and DSVT (pillar and voxel) at their Waymo presets' full width
+# (fp32, TF32 off, seeded weights) on waymo_cloud's scene. Each detect is
+# split by stage (the VFE or voxelizer, the sparse 2D trunk or the DSVT
+# stages, the z-collapse and BEV trunk, the head, decode + NMS; p50 of 3
+# after a warm-up), one profiled call, and the same call through the port
+# on the CPU from the same weights: the voxel or pillar ids and each
+# point's voxel equal, every DSVT block's (set_row, col, ok) tables for both
+# axes equal, the sparse stages' ids equal, the BEV and head outputs within
+# BEV_REL_TOL, the detections as detector-zoo holds them. With telemetry on,
+# every capacity-bound op (the VFE, the set partitions, the sparse convs,
+# the collapse) must drop nothing; the sets each block uses are reported
+# against max_sets, and the host planner's count (`plan_max_sets`, bucket 1)
+# on each stage's input must fit. The trap: DSVT with its second layer taken
+# over the y-sorted sets again (the rotation dropped) must miss BEV_REL_TOL.
+# Each preset trains at batch ZOO_BATCH (timed_train), then one step at
+# batch 1 on the card and on the CPU with every ReLU gate and every segment
+# max's winners (the VFE's, ZPoolAttention's query) replayed from the card's
+# (loss within DET_LOSS_TOL, each group's gradient within DET_GRAD_TOL);
+# the voxel preset's step is taken on a smaller cloud (WAYMO_CPU_STEP), so
+# that the CPU's backward stays short. No hand-written kernel lies on these
+# paths: DSVT's attention has 36 or 48 keys (or ZPoolAttention's bias), the
+# plain path under the JAX package's rule (checked: no launches). The
+# heatmap bias is -1 and the size bias makes boxes smaller than a decode
+# cell (-1.5 at PillarNet's 0.8 m cells, -2.5 at DSVT's 0.32 m), the
+# heading's cosine bias 4, as ZOO_PRESETS' note explains.
+WAYMO_PRESETS = {"waymo_pillarnet": "configs/waymo_pillarnet.json",
+                 "waymo_dsvt_pillar": "configs/waymo_dsvt_pillar.json",
+                 "waymo_dsvt_voxel": "configs/waymo_dsvt_voxel.json"}
+# waymo_cloud: a 64-beam spinning LiDAR 2.1 m above the ground plane, its
+# beams at Waymo's top LiDAR's elevations (+2.4 to -17.6 degrees), cast onto
+# the ground, WAYMO_VEHICLES vehicle boxes and WAYMO_WALLS walls within
+# +-70 m; WAYMO_AZIMUTHS columns give ~180,000 returns inside the +-75 m
+# range (the points land in rings, as a real sweep's do: ~18,000 pillars at
+# 0.32 m, where a uniform disc of as many points fills ~67,000)
+WAYMO_POINTS = 180000
+WAYMO_AZIMUTHS = 3300
+WAYMO_ELEVATION_DEG = (2.4, -17.6)
+WAYMO_SENSOR_Z = 2.1
+WAYMO_VEHICLES, WAYMO_WALLS = 32, 16
+# the voxel preset's batch-1 card-vs-CPU step: a 30,000-point cloud, at
+# its widths with capacities cut to that cloud (its tensors are sized by
+# capacity, not by points: at the preset's 300,000 rows, 150,000 voxels
+# and 5,120 sets the CPU's step took 69-73 s on the 8-core host of an H100
+# machine). No drop is possible: voxels <= points <= 32,768, and each
+# stage's sets <= 41 x 41 windows (every stage's window spans its whole z
+# extent) + ceil(32,768 / 48) = 2,364 < 2,560
+WAYMO_CPU_STEP = {"waymo_dsvt_voxel": dict(points=30000, max_points=32768,
+                                           max_voxels=32768,
+                                           dsvt_max_sets=2560)}
+WAYMO_SCENES: dict = {}
+
+
+def waymo_cloud(cfg, seed: int = 0, boxes=None, points: int = WAYMO_POINTS):
+    """(points [max_points, 4] float32, n): the seeded scene's returns of
+    about `points` rays' worth (WAYMO_AZIMUTHS scaled), x y z and an
+    intensity, zero-padded to the voxelizer's max_points; the vehicles'
+    boxes (x, y, z, 4.4, 2.0, 1.8, 0, 0, 0) into `boxes`. Each scene is
+    cast once (WAYMO_SCENES) and copied out."""
+    key = (seed, points, cfg.voxelize.max_points)
+    if key not in WAYMO_SCENES:
+        WAYMO_SCENES[key] = _cast_waymo_scene(cfg, seed, points)
+    pts, n, found = WAYMO_SCENES[key]
+    if boxes is not None:
+        boxes += [list(b) for b in found]
+    return pts.copy(), n
+
+
+def _cast_waymo_scene(cfg, seed: int, points: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    solids, found = [], []
+    while len(found) < WAYMO_VEHICLES:
+        cx, cy = rng.uniform(-70.0, 70.0, 2)
+        if math.hypot(cx, cy) >= 6.0:
+            found.append([cx, cy, 0.9, 4.4, 2.0, 1.8, 0.0, 0.0, 0.0])
+            solids.append([cx - 2.2, cy - 1.0, 0.0, cx + 2.2, cy + 1.0, 1.8])
+    while len(solids) < WAYMO_VEHICLES + WAYMO_WALLS:
+        cx, cy = rng.uniform(-70.0, 70.0, 2)
+        hx, hy = (8.0, 0.15) if rng.uniform() < 0.5 else (0.15, 8.0)
+        if math.hypot(cx, cy) >= 10.0:
+            solids.append([cx - hx, cy - hy, 0.0, cx + hx, cy + hy, 3.0])
+    cols = max(round(WAYMO_AZIMUTHS * points / WAYMO_POINTS), 1)
+    el = np.radians(np.linspace(*WAYMO_ELEVATION_DEG, 64))
+    az = (np.linspace(0, 2 * np.pi, cols, endpoint=False)
+          + rng.uniform(0, 2 * np.pi / cols))
+    el, az = np.meshgrid(el, az, indexing="ij")
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).reshape(-1, 3)
+    o = np.array([0.0, 0.0, WAYMO_SENSOR_Z])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(d[:, 2] < 0, -WAYMO_SENSOR_Z / d[:, 2], np.inf)
+        inv = 1.0 / d
+        for b in np.asarray(solids):              # slab test per box
+            t1, t2 = (b[:3] - o) * inv, (b[3:] - o) * inv
+            near = np.nanmax(np.minimum(t1, t2), 1)
+            far = np.nanmin(np.maximum(t1, t2), 1)
+            t = np.where((near <= far) & (near > 0) & (near < t), near, t)
+    p = o + d * t[:, None]
+    keep = (np.isfinite(t) & (np.abs(p[:, 0]) < 75.0)
+            & (np.abs(p[:, 1]) < 75.0))
+    n = int(keep.sum())
+    out = np.zeros((cfg.voxelize.max_points, 4), np.float32)
+    out[:n, :3] = p[keep] + rng.normal(0, 0.02, (n, 3))
+    out[:n, 3] = rng.uniform(0, 1, n)
+    return out, n, found
+
+
+def waymo_config(preset: str):
+    from lvv_tpu_torch import config as C
+    return C.load(C.VQAConfig, REPO / WAYMO_PRESETS[preset])
+
+
+def waymo_detector(torch, preset: str, cfg, device):
+    """The preset's family with seeded weights and the biases the note
+    above sets."""
+    from lvv_tpu_torch import config as C
+    from lvv_tpu_torch.models.registry import build_detector
+    name = C.load_file(REPO / WAYMO_PRESETS[preset])["_detector"]
+    det = build_detector(name, cfg.model.voxelnext, cfg.voxelize,
+                         device=device, seed=0)
+    with torch.no_grad():
+        det.head.hm.bias.fill_(-1.0)
+        det.head.dim.bias.fill_(-1.5 if name == "PillarNet" else -2.5)
+        det.head.rot.bias[1] = 4.0
+    return det
+
+
+@contextlib.contextmanager
+def dsvt_sets(torch, log, rotation: bool = True):
+    """Every set partition of DSVT's blocks, in call order: its (set_row,
+    col, ok) and the voxels' valid mask appended to `log` (on the host);
+    `rotation` False (the trap) takes the y-sorted sets for the x layer
+    too."""
+    from lvv_tpu_torch.models import dsvt as D
+    plain = D.rotated_set_partition
+
+    def partition(wid, inner, valid, window, set_size, max_sets, axis):
+        got = plain(wid, inner, valid, window, set_size, max_sets,
+                    axis if rotation else "y")
+        if log is not None:
+            log.append(tuple(t.cpu() for t in (*got, valid)))
+        return got
+    D.rotated_set_partition = partition
+    try:
+        yield
+    finally:
+        D.rotated_set_partition = plain
+
+
+@contextlib.contextmanager
+def waymo_winners(torch, log, replay=None, own=None):
+    """The segment maxes of the VFE and ZPoolAttention's group max, in call
+    order: each one's winners (the entries equal to their segment's max)
+    appended to log["max"] on the host; given `replay` (another run's log),
+    each max is the mean of its replayed winners instead (the max itself
+    where they are this run's own; a tie's gradient split evenly, as JAX's
+    scatter-max rule and torch's amax split it), and the winners this run
+    would have taken otherwise are counted into own["max"]."""
+    from lvv_tpu_torch.models import dsvt as D
+    from lvv_tpu_torch.models import vfe as V
+    from lvv_tpu_torch.ops.segment import segment_sum
+    plain_seg, plain_group, calls = V.segment_max, D.group_max, [0]
+
+    def winners(mine):
+        i, calls[0] = calls[0], calls[0] + 1
+        if replay is None:
+            log.setdefault("max", []).append(mine.cpu())
+            return None
+        want = replay["max"][i].to(mine.device)
+        own["max"] = own.get("max", 0) + int((mine != want).sum())
+        return want
+
+    def seg_max(data, seg, num):
+        out = plain_seg(data, seg, num)
+        ids = seg.long()
+        won = winners(data.detach() == out.detach()[ids])
+        if won is None:
+            return out
+        total = segment_sum(torch.where(won, data, 0.0), ids, num)
+        count = segment_sum(won.to(data.dtype), ids, num)
+        return torch.where(count > 0, total / count.clamp_min(1),
+                           -torch.inf)
+
+    def group_max(pre, filled):
+        q = plain_group(pre, filled)
+        won = winners((pre.detach() == q.detach()[:, None])
+                      & filled[..., None])
+        if won is None:
+            return q
+        mean = (torch.where(won, pre, 0.0).sum(1)
+                / won.sum(1).clamp_min(1).to(pre.dtype))
+        return torch.where(filled.any(1)[:, None], mean, 0.0)
+    V.segment_max, D.group_max = seg_max, group_max
+    try:
+        yield
+    finally:
+        V.segment_max, D.group_max = plain_seg, plain_group
+
+
+def waymo_voxels(torch, det, pts, n):
+    """The detector's voxels: DSVT's DynamicVoxelVFE, PillarNet's
+    voxelize_mean (coords, each point's voxel)."""
+    from lvv_tpu_torch.ops.voxelize import voxelize_mean
+    grid, cap = det.voxel_grid(), det.vox_cfg.max_voxels
+    with torch.no_grad():
+        vox = (det.vfe(pts, n, grid, cap) if hasattr(det, "vfe")
+               else voxelize_mean(pts, n, grid, max_voxels=cap))
+    return vox
+
+
+def dsvt_plan(det, vox, trace) -> dict:
+    """{block: (the host planner's exact set count on the block's input,
+    max_sets)}: the voxels feed the first block, a block or reduction's
+    output the next."""
+    from lvv_tpu_torch.models.dsvt import plan_max_sets
+    from lvv_tpu_torch.ops.sparse import from_voxels
+    grid = det.voxel_grid().grid_size
+    st = from_voxels(vox.coords, vox.features, grid)
+    plans = {}
+    for name, out in trace:
+        blk = getattr(det.backbone3d, name)
+        if hasattr(blk, "window"):
+            plans[name] = (plan_max_sets(st.ids.cpu().numpy(), st.grid,
+                                         blk.window, blk.set_size, bucket=1),
+                           blk.max_sets)
+        st = out
+    return plans
+
+
+def waymo_detect(torch, preset: str) -> tuple:
+    """The preset's detect on the card, timed and profiled, its tables and
+    telemetry, against the same call through the port on the CPU, and the
+    DSVT trap -> (report, the CPU's detector at the card's weights)."""
+    from lvv_tpu_torch.ops import sparse as S
+    clock = [time.perf_counter()]
+    part_s = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name], clock[0] = now - clock[0], now
+    cfg = waymo_config(preset)
+    pts_np, n = waymo_cloud(cfg)
+    det = waymo_detector(torch, preset, cfg, "cuda")
+    dsvt = hasattr(det, "vfe")
+    pts = torch.from_numpy(pts_np).cuda()
+    lap("cloud and card build")
+    sets = []
+    report, out, dets, trace = timed_detect(
+        torch, f"detector-waymo[{preset}]", det, pts, n,
+        lambda: dsvt_sets(torch, sets))
+    lap("timed detect and profile")
+    S.set_overflow_debug(True)
+    S.reset_overflow_log()
+    det.detect(pts, n)
+    telemetry = S.overflow_log()
+    S.set_overflow_debug(False)
+    cpu = waymo_detector(torch, preset, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    pts_cpu = torch.from_numpy(pts_np)
+    lap("telemetry and CPU build")
+    trace_cpu, sets_cpu = [], []
+    t0 = time.perf_counter()
+    with dsvt_sets(torch, sets_cpu):
+        cpu_stage_s, out_cpu, dets_cpu = zoo_staged(torch, cpu, pts_cpu, n,
+                                                    trace_cpu)
+    cpu_s = time.perf_counter() - t0
+    lap("CPU detect")
+    vox, vox_cpu = (waymo_voxels(torch, d, p, n)
+                    for d, p in ((det, pts), (cpu, pts_cpu)))
+    ids_equal = {name: torch.equal(a.ids.cpu(), b.ids)
+                 for (name, a), (_, b) in zip(trace, trace_cpu)}
+    voxels_equal = all(torch.equal(getattr(vox, k).cpu(),
+                                   getattr(vox_cpu, k))
+                       for k in ("coords", "point_voxel", "num_points"))
+    tables_equal = len(sets) == len(sets_cpu) and all(
+        all(torch.equal(a, b) for a, b in zip(x, y))
+        for x, y in zip(sets, sets_cpu))
+    rels = {k: rel_l2(v.float().cpu(), zoo_outputs(out_cpu)[k].float())
+            for k, v in zoo_outputs(out).items()}
+    boxes, boxes_cpu = by_position(dets), by_position(dets_cpu)
+    box_err = (float(abs(boxes - boxes_cpu).max())
+               if boxes.shape == boxes_cpu.shape and len(boxes) else None)
+    dropped = {k: v["dropped"] for k, v in telemetry.items() if v["dropped"]}
+    report.update(points=n, grid=list(det.voxel_grid().grid_size),
+                  voxels=int(vox.num_voxels),
+                  bev_shape=list(out["bev_dense"].shape), cpu_call_s=cpu_s,
+                  cpu_stage_s=cpu_stage_s,
+                  stage_ids_equal_cpu=ids_equal, telemetry=telemetry,
+                  rel_l2_vs_cpu=rels, box_max_abs_vs_cpu=box_err)
+    checks = {"voxel ids and each point's voxel equal": voxels_equal,
+              "stage ids equal": bool(trace) and all(ids_equal.values()),
+              "BEV and head outputs within BEV_REL_TOL": max(
+                  rels.values()) <= BEV_REL_TOL,
+              "detection count": int(dets.count) == int(dets_cpu.count)
+              and int(dets.count) > 0,
+              "boxes within BOX_ABS_TOL": box_err is not None
+              and box_err <= BOX_ABS_TOL,
+              "nothing dropped (telemetry)": bool(telemetry)
+              and not dropped,
+              "no hand-written kernel on the path":
+              report["launches"] == {}}
+    if dsvt:
+        blocks = [nm for nm, is_block in det.backbone3d.names if is_block]
+        used = [int(row[ok].unique().numel()) for row, _, ok, _ in sets]
+        lost = [int((valid & ~ok).sum()) for _, _, ok, valid in sets]
+        plans = dsvt_plan(det, vox, trace)
+        with torch.no_grad(), dsvt_sets(torch, None, rotation=False):
+            trap = det(pts, n)
+        trap_rel = rel_l2(trap["bev_dense"].float().cpu(),
+                          out_cpu["bev_dense"].float())
+    lap("voxels, tables, plans and trap")
+    report["seconds_by_part"] = part_s
+    if dsvt:
+        labels = [f"{b}.{axis}" for b in blocks for axis in ("y", "x")]
+        report.update(
+            sets_used=dict(zip(labels, used)),
+            max_sets=det.backbone3d.max_sets, sets_dropped=sum(lost),
+            planned_sets=plans, trap_bev_rel_l2=trap_rel)
+        checks.update({
+            "every block's (set_row, col, ok) equal on both axes":
+            tables_equal and len(sets) == 2 * len(blocks),
+            "no set drops": sum(lost) == 0,
+            "the host planner's sets fit max_sets": all(
+                need <= cap for need, cap in plans.values()),
+            "trap (rotation dropped) misses BEV_REL_TOL":
+            trap_rel > BEV_REL_TOL})
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-waymo[{preset}]: {checks}; {report}")
+    return report, cpu
+
+
+def waymo_train(torch, preset: str, cpu) -> dict:
+    """The preset's train step at batch ZOO_BATCH (`timed_train`), then a
+    step at batch 1 on the card against `cpu` (the same family on the CPU,
+    reloaded with the card's starting weights)."""
+    cfg = waymo_config(preset)
+    batch = detector_batch(cfg, range(ZOO_BATCH), waymo_cloud)
+    det = waymo_detector(torch, preset, cfg, "cuda")
+    start = {k: v.clone() for k, v in det.state_dict().items()}
+    t0 = time.perf_counter()
+    report = timed_train(torch, f"detector-waymo[{preset}]", det, batch)
+    report["timed_train_s"] = time.perf_counter() - t0
+    checks = report.pop("checks")
+    checks["no hand-written kernel on the path"] = (
+        report["launches_per_step"] == {})
+    del batch
+    det.load_state_dict(start)
+    cut = WAYMO_CPU_STEP.get(preset)
+    points = WAYMO_POINTS
+    if cut:             # the same weights at the cut capacities
+        import dataclasses
+        points = cut["points"]
+        cfg = dataclasses.replace(cfg, voxelize=dataclasses.replace(
+            cfg.voxelize, max_points=cut["max_points"],
+            max_voxels=cut["max_voxels"]), model=dataclasses.replace(
+            cfg.model, voxelnext=dataclasses.replace(
+                cfg.model.voxelnext, dsvt_max_sets=cut["dsvt_max_sets"])))
+        det = waymo_detector(torch, preset, cfg, "cuda")
+        det.load_state_dict(start)
+        cpu = waymo_detector(torch, preset, cfg, "cpu")
+    one = detector_batch(cfg, (0,), functools.partial(waymo_cloud,
+                                                      points=points))
+    report.update(waymo_against_cpu(torch, preset, det, cpu, start, one))
+    report["cpu_step_points"] = int(one["num_points"][0])
+    report["cpu_step_capacities"] = dict(
+        max_points=cfg.voxelize.max_points,
+        max_voxels=cfg.voxelize.max_voxels,
+        max_sets=getattr(getattr(det, "backbone3d", None), "max_sets",
+                         None))
+    checks.update(report.pop("checks"))
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-waymo[{preset}] train: {checks}; "
+                             f"{report}")
+    return report
+
+
+def waymo_against_cpu(torch, preset, det, cpu, start, one) -> dict:
+    """A step of `det` (at `start`) on batch `one`, then the same step on
+    the CPU from the same weights with every ReLU gate and every segment
+    max's winners replayed from the card's: the loss, each group's
+    gradient (the VFE, each DSVT block or sparse stage, the BEV trunk, the
+    head), and the gates and winners the CPU would have taken
+    otherwise."""
+    gates, winners = [], {}
+
+    def picker(log, replayed, own):
+        return waymo_winners(torch, log, replayed, own)
+    t0 = time.perf_counter()
+    card_m, card_g, _, _ = zoo_step(torch, det, one, gates, winners,
+                                    picker=picker)
+    card_s = time.perf_counter() - t0
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    t0 = time.perf_counter()
+    cpu_m, cpu_g, gates_differ, winners_differ = zoo_step(
+        torch, cpu, one, None, {}, replay=(gates, winners), picker=picker)
+    cpu_s = time.perf_counter() - t0
+    groups = collections.defaultdict(list)
+    for name in cpu_g:
+        part = name.split(".")
+        deep = part[0] in ("backbone3d", "backbone2d_sparse")
+        groups[".".join(part[:2] if deep else part[:1])].append(name)
+    rel = group_rel_l2(torch, dict(groups), card_g, cpu_g)
+    loss_rel = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    no_grad = sorted(k for k, g in card_g.items() if g is None)
+    checks = {"loss card vs CPU within DET_LOSS_TOL": loss_rel
+              <= DET_LOSS_TOL,
+              "group gradients within DET_GRAD_TOL": all(
+                  v is not None and v <= DET_GRAD_TOL for v in rel.values()),
+              "every parameter has a gradient on both devices":
+              no_grad == [] == sorted(k for k, g in cpu_g.items()
+                                      if g is None)}
+    report = dict(loss_card=card_m["loss"], loss_cpu=cpu_m["loss"],
+                  loss_rel=loss_rel, group_grad_rel_l2=rel,
+                  relu_entries=sum(int(g.numel()) for g in gates),
+                  cpu_own_gates_differing=gates_differ,
+                  max_entries=sum(int(w.numel())
+                                  for w in winners.get("max", [])),
+                  cpu_own_winners_differing=winners_differ.get("max", 0),
+                  card_recording_step_s=card_s, cpu_step_s=cpu_s,
+                  checks=checks)
+    print(f"detector-waymo[{preset}] train: batch 1 card vs CPU on the "
+          f"card's gates and winners: loss {loss_rel:.2e}, groups {rel}; "
+          f"the CPU's own gates differ at {gates_differ} of "
+          f"{report['relu_entries']}, winners at "
+          f"{report['cpu_own_winners_differing']}", flush=True)
+    return report
+
+
+def run_detector_waymo(torch) -> dict:
+    """PillarNet and DSVT at their Waymo presets on the card: each one's
+    detect against the CPU, each one's train step at batch ZOO_BATCH and
+    at batch 1 against the CPU. `launches`: none of them launches a
+    hand-written kernel."""
+    report = {}
+    for preset in WAYMO_PRESETS:
+        t0 = time.perf_counter()
+        report[f"detect[{preset}]"], cpu = waymo_detect(torch, preset)
+        torch.cuda.empty_cache()
+        report[f"train[{preset}]"] = waymo_train(torch, preset, cpu)
+        torch.cuda.empty_cache()
+        report[f"seconds[{preset}]"] = time.perf_counter() - t0
+    report["launches"] = {}
+    return report
+
+
 # kernels printed by device_busy wherever they rank: PyTorch's bf16 adds
 # (the residual adds that K-a's add form takes in) and K-a itself
 # ---------------------------------------------------------------- training --
@@ -5107,8 +5575,9 @@ NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
 
 
 PHASES = ("kernels", "main-path", "lidar-bev", "detector-train",
-          "detector-zoo", "detector-camera", "detector-two-stage", "serving",
-          "sam1280", "serving-runtime", "train-step", "trainer")
+          "detector-zoo", "detector-camera", "detector-two-stage",
+          "detector-waymo", "serving", "sam1280", "serving-runtime",
+          "train-step", "trainer")
 # lidar-bev feeds its BEV to the float path's model; the serving phases hold
 # their logits to the float path's
 NEEDS = {"lidar-bev": "main-path", "serving": "main-path"}
@@ -5155,10 +5624,11 @@ def main(argv=None) -> int:
 
     from lvv_tpu_torch import kernels
     t0 = time.perf_counter()
-    # VoxelNeXt's and the two-stage detectors' paths run no hand-written
-    # kernel
+    # VoxelNeXt's, the two-stage detectors' and the Waymo detectors' paths
+    # run no hand-written kernel
     reports = (kernels.build_all()
-               if run - {"detector-train", "detector-two-stage"} else {})
+               if run - {"detector-train", "detector-two-stage",
+                         "detector-waymo"} else {})
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     spills = []
     for name, log in reports.items():
@@ -5214,6 +5684,9 @@ def main(argv=None) -> int:
     if "detector-two-stage" in run:
         paths["detector-two-stage"] = run_detector_two_stage(torch)
         emit("detector-two-stage", paths["detector-two-stage"])
+    if "detector-waymo" in run:
+        paths["detector-waymo"] = run_detector_waymo(torch)
+        emit("detector-waymo", paths["detector-waymo"])
     if "serving" in run:
         served = serving_model(torch)
         paths["serving"], mlp_logits = run_serving_path(

@@ -5,7 +5,10 @@ lvv_tpu/models/anchor_head.py).
   anchor's diagonal, log-ratio sizes, angle residual).
 - `generate_anchors`: the anchor table, [H·W·C·R, 7], cells in row-major
   order, then class, then rotation.
-- `AnchorHead`: 1x1 convs cls / box / dir over the dense BEV map.
+- `AnchorHead`: 1x1 convs cls / box / dir over the dense BEV map;
+  `AnchorHeadMulti`: one AnchorHead per class group, the group's logits
+  lifted into the global classes (-1e9 elsewhere) and the groups
+  concatenated, with `multi_anchor_table` its anchors.
 - `assign_anchor_targets`: axis-aligned IoU assignment per class, each gt's
   best anchor forced positive where it overlaps any.
 - `sigmoid_focal_loss`, `smooth_l1`, `anchor_head_loss`: focal cls,
@@ -115,6 +118,50 @@ class AnchorHead(nn.Module):
         return {"cls": head(self.cls, self.num_classes),
                 "box": head(self.box, self.code_size),
                 "dir": head(self.dir, 2)}
+
+
+class AnchorHeadMulti(nn.Module):
+    """One AnchorHead per class group (`head_{i}`, `rotations` anchors per
+    class a cell) over the shared map; each group's class logits lifted
+    into the global class space (-1e9 at the other classes) and the
+    groups' outputs concatenated in group order."""
+
+    def __init__(self, cin: int, num_classes: int,
+                 class_groups: Sequence[Sequence[int]], rotations: int = 2,
+                 code_size: int = 7, *, device):
+        super().__init__()
+        self.num_classes = num_classes
+        self.class_groups = tuple(tuple(g) for g in class_groups)
+        for gi, group in enumerate(self.class_groups):
+            setattr(self, f"head_{gi}", AnchorHead(
+                cin, len(group), len(group) * rotations, code_size,
+                device=device))
+
+    def forward(self, bev_chw: torch.Tensor) -> Dict[str, torch.Tensor]:
+        outs = []
+        for gi, group in enumerate(self.class_groups):
+            preds = getattr(self, f"head_{gi}")(bev_chw)
+            cls = preds["cls"]
+            idx = torch.tensor(group, device=cls.device)
+            full = cls.new_full((cls.shape[0], self.num_classes), -1e9)
+            outs.append(dict(preds, cls=full.index_copy(1, idx, cls)))
+        return {k: torch.cat([o[k] for o in outs]) for k in
+                ("cls", "box", "dir")}
+
+
+def multi_anchor_table(grid_hw, class_groups, class_sizes, point_range,
+                       stride_m, rotations=(0.0, np.pi / 2)
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """AnchorHeadMulti's anchors: one `generate_anchors` block per group in
+    group order, class ids global."""
+    anchors, cls = [], []
+    for group in class_groups:
+        a, local = generate_anchors(grid_hw, [class_sizes[g] for g in group],
+                                    point_range, stride_m,
+                                    rotations=rotations)
+        anchors.append(a)
+        cls.append(np.asarray([group[i] for i in local], np.int32))
+    return np.concatenate(anchors), np.concatenate(cls)
 
 
 def assign_anchor_targets(anchors: torch.Tensor, anchor_cls: torch.Tensor,

@@ -7,7 +7,9 @@ lvv_tpu/models/pointpillars.py).
 - `pillar_scatter`: the pillars' features onto the dense [C, H, W] canvas.
 - `BaseBEVBackbone`: the dense multi-scale trunk (strided 3x3 convs, each
   level upsampled back by a transposed conv and concatenated), which
-  CenterPoint, SECOND and TransFusion share.
+  CenterPoint, SECOND, TransFusion and PillarNet share;
+  `BaseBEVResBackbone`, its residual form (`ResBlock2D`s), DSVT's 2D
+  trunk; `BaseBEVBackboneV1`, the two-level neck JAX's tests pin.
 - `DenseCenterHead` and `decode_dense`: the dense centre head and its top-K
   decode with class-agnostic rotated NMS.
 - `PointPillarsDetector`: points -> pillars -> canvas -> trunk -> head.
@@ -256,6 +258,125 @@ class BaseBEVBackbone(nn.Module):
                 up = up[:, :, :ups[0].shape[2], :ups[0].shape[3]]
             ups.append(up)
         return torch.cat(ups, 1)[0]                  # [C, H, W]
+
+
+class ResBlock2D(nn.Module):
+    """JAX's `_ResBlock2D` (BasicBlock): two 3x3 convs without bias, each
+    LayerNorm'd (ReLU after the first), plus the identity, projected by a
+    1x1 conv and LayerNorm where the block strides or changes width; ReLU
+    of the sum. On [1, C, H, W]."""
+
+    def __init__(self, cin: int, ch: int, stride: int = 1, *, device):
+        super().__init__()
+        kw = dict(bias=False, device=device)
+        self.conv1 = Conv2d(cin, ch, 3, stride, **kw)
+        self.n1 = FlaxLayerNorm(ch, 1, device=device)
+        self.conv2 = Conv2d(ch, ch, 3, **kw)
+        self.n2 = FlaxLayerNorm(ch, 1, device=device)
+        if stride != 1 or cin != ch:
+            self.down = Conv2d(cin, ch, 1, stride, **kw)
+            self.dn = FlaxLayerNorm(ch, 1, device=device)
+
+    def forward(self, x):
+        y = torch.relu(self.n1(self.conv1(x)))
+        y = self.n2(self.conv2(y))
+        idn = self.dn(self.down(x)) if hasattr(self, "down") else x
+        return torch.relu(y + idn)
+
+
+class BaseBEVResBackbone(nn.Module):
+    """Residual multi-scale trunk (DSVT's 2D trunk): per level a strided
+    ResBlock2D and `layer_nums[i]` unit-stride ones, upsampled back by the
+    level's total stride (a transposed conv without bias, LayerNorm +
+    ReLU), cropped to the first level's size and concatenated."""
+
+    def __init__(self, cin: int, layer_channels: Sequence[int] = (64, 128,
+                                                                   256),
+                 layer_strides: Sequence[int] = (2, 2, 2),
+                 layer_nums: Sequence[int] = (1, 1, 1),
+                 upsample_channels: Sequence[int] = (128, 128, 128), *,
+                 device):
+        super().__init__()
+        kw = dict(device=device)
+        self.layer_nums = tuple(layer_nums)
+        total = 1
+        for i, (ch, st, n) in enumerate(zip(layer_channels, layer_strides,
+                                            layer_nums)):
+            total *= st
+            setattr(self, f"res{i}_0", ResBlock2D(cin, ch, st, **kw))
+            for k in range(n):
+                setattr(self, f"res{i}_{k + 1}", ResBlock2D(ch, ch, **kw))
+            setattr(self, f"up{i}", ConvTranspose2d(
+                ch, upsample_channels[i], total, bias=False, **kw))
+            setattr(self, f"uln{i}", FlaxLayerNorm(upsample_channels[i], 1,
+                                                   **kw))
+            cin = ch
+        self.out_channels = sum(upsample_channels)
+
+    def forward(self, x_chw: torch.Tensor) -> torch.Tensor:
+        x = x_chw[None]
+        ups = []
+        for i, n in enumerate(self.layer_nums):
+            for k in range(n + 1):
+                x = getattr(self, f"res{i}_{k}")(x)
+            up = torch.relu(getattr(self, f"uln{i}")(
+                getattr(self, f"up{i}")(x)))
+            if ups:
+                up = up[:, :, :ups[0].shape[2], :ups[0].shape[3]]
+            ups.append(up)
+        return torch.cat(ups, 1)[0]                  # [C, H, W]
+
+
+class BaseBEVBackboneV1(nn.Module):
+    """Two-level neck over a sparse trunk's x_conv4 / x_conv5 dense maps:
+    x_conv4 upsampled by `upsample_strides[0]` (a transposed conv,
+    LayerNorm + ReLU), x_conv5 through `layer_nums[1] + 1` 3x3 convs of
+    `num_filters[1]` (each LayerNorm + ReLU) and upsampled by
+    `upsample_strides[1]`, cropped to the first's size, concatenated and
+    refined by `layer_nums[0] + 1` 3x3 convs at the concatenation's width
+    (JAX's `num_filters[0]` is not read)."""
+
+    def __init__(self, cin4: int, cin5: int,
+                 num_filters: Tuple[int, int] = (128, 256),
+                 layer_nums: Tuple[int, int] = (5, 5),
+                 upsample_channels: Tuple[int, int] = (256, 256),
+                 upsample_strides: Tuple[int, int] = (1, 2), *, device):
+        super().__init__()
+        kw = dict(device=device)
+        self.layer_nums = tuple(layer_nums)
+        s0, s1 = upsample_strides
+        self.de0 = ConvTranspose2d(cin4, upsample_channels[0], s0,
+                                   bias=False, **kw)
+        self.de0_ln = FlaxLayerNorm(upsample_channels[0], 1, **kw)
+        self._make_stack("b1", cin5, num_filters[1], layer_nums[1], kw)
+        self.de1 = ConvTranspose2d(num_filters[1], upsample_channels[1], s1,
+                                   bias=False, **kw)
+        self.de1_ln = FlaxLayerNorm(upsample_channels[1], 1, **kw)
+        width = sum(upsample_channels)
+        self._make_stack("b0", width, width, layer_nums[0], kw)
+        self.out_channels = width
+
+    def _make_stack(self, tag: str, cin: int, ch: int, n: int, kw) -> None:
+        for k in range(n + 1):
+            setattr(self, f"{tag}_conv{k}", Conv2d(cin, ch, 3, bias=False,
+                                                   **kw))
+            setattr(self, f"{tag}_ln{k}", FlaxLayerNorm(ch, 1, **kw))
+            cin = ch
+
+    def _stack(self, x, tag: str, n: int):
+        for k in range(n + 1):
+            x = torch.relu(getattr(self, f"{tag}_ln{k}")(
+                getattr(self, f"{tag}_conv{k}")(x)))
+        return x
+
+    def forward(self, x_conv4_chw: torch.Tensor,
+                x_conv5_chw: torch.Tensor) -> torch.Tensor:
+        up0 = torch.relu(self.de0_ln(self.de0(x_conv4_chw[None])))
+        x5 = self._stack(x_conv5_chw[None], "b1", self.layer_nums[1])
+        up1 = torch.relu(self.de1_ln(self.de1(x5)))
+        up1 = up1[:, :, :up0.shape[2], :up0.shape[3]]
+        x = self._stack(torch.cat([up0, up1], 1), "b0", self.layer_nums[0])
+        return x[0]
 
 
 BRANCHES = (("center", 2), ("center_z", 1), ("dim", 3), ("rot", 2))

@@ -1,14 +1,14 @@
 """Detector registry and `build_detector` (counterpart of
 lvv_tpu/models/registry.py).
 
-The JAX package registers 17 detector families. The port builds 13:
-VoxelNeXt, PointPillars, CenterPoint, SECOND and TransFusion (LiDAR, one
-stage); PVRCNN, PVRCNNPlusPlus, PartA2, VoxelRCNN (its LiDAR trunk; a
+The JAX package registers 17 detector families. The port builds 15:
+VoxelNeXt, PointPillars, CenterPoint, SECOND, TransFusion, PillarNet and
+DSVT (LiDAR, one stage); PVRCNN, PVRCNNPlusPlus, PartA2, VoxelRCNN (its LiDAR trunk; a
 config with `focal` raises), SECONDNetIoU and PointRCNN (LiDAR, two
 stages); and BEVFusion and CaDDN (camera input: their `forward` and
 `detect` take views and calibration, and they do not train, since the
 JAX package has no train step that takes camera tensors). Every other
-registered name (DSVT, PillarNet, MPPNet, MPPNetE2E) raises
+registered name (MPPNet, MPPNetE2E) raises
 NotImplementedError until its family is ported (ROADMAP.md, queue 1,
 item 2: the detector zoo), and an unknown name raises KeyError, as JAX's
 `build_detector` does.
@@ -34,7 +34,9 @@ PORTED = {"VoxelNeXt": ("voxelnext", "VoxelNeXtDetector"),
           "SECONDNetIoU": ("second_iou", "SECONDNetIoUDetector"),
           "PointRCNN": ("point_rcnn", "PointRCNNDetector"),
           "BEVFusion": ("bevfusion", "BEVFusionDetector"),
-          "CaDDN": ("caddn", "CaDDNDetector")}
+          "CaDDN": ("caddn", "CaDDNDetector"),
+          "PillarNet": ("pillarnet", "PillarNetDetector"),
+          "DSVT": ("dsvt", "DSVTDetector")}
 
 
 def build_detector(name: str, det_cfg, vox_cfg, *, device=None,

@@ -241,6 +241,13 @@ class _GatherRows(torch.autograd.Function):
         return out, None
 
 
+def gather_rows(features: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """features [V, C] at `rows` (any shape, int64), a zero row where rows
+    == V; the gradient skips those (`_GatherRows`): a masked gather whose
+    masked entries would otherwise all accumulate into one row."""
+    return _GatherRows.apply(features, rows)
+
+
 def wide(t: torch.Tensor) -> torch.Tensor:
     """t in fp32, or as it is in float64 (a float64 model's reference
     run); the weights of a product follow their features."""

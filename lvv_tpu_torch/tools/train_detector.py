@@ -10,7 +10,8 @@ global norm 10, then AdamW (weight decay 1e-4) at a warmup-cosine schedule
 from lr / 10 (`train.optim.detector_optimizer`). The family is --detector,
 else the config file's `_detector` key (configs/nuscenes_*.json), else
 VoxelNeXt; the port trains VoxelNeXt, PointPillars, CenterPoint, SECOND,
-TransFusion and the two-stage families (PVRCNN, PVRCNNPlusPlus, PartA2,
+TransFusion, PillarNet and DSVT (configs/waymo_pillarnet.json,
+waymo_dsvt_*.json) and the two-stage families (PVRCNN, PVRCNNPlusPlus, PartA2,
 VoxelRCNN, SECONDNetIoU, PointRCNN: configs/kitti_*.json) through their
 own `.loss`. BEVFusion and CaDDN build (`build_detector`) but do not
 train: the JAX package has no train step that takes camera tensors, and
@@ -23,7 +24,7 @@ OUT/checkpoints/step_N (the detector's parameters and running
 statistics, without the optimizer state) every --save-every steps and at
 the end; the last line is {"steps", "final_loss"}. Runs on the card
 unless `--device` says otherwise, in fp32 with TF32 off. Real datasets
-(--dataset without --synthetic), MPPNet and the families not ported yet
+(--dataset without --synthetic), MPPNet and MPPNetE2E
 wait for the detector zoo and its datasets (ROADMAP.md, queue 1, item
 2): they exit with a message saying so. The JAX CLI's real-data options (--tiny, --dataroot,
 --info-path, --max-gt, --augment, --gt-db, --gt-quota, --cbgs,

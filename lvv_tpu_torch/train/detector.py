@@ -14,7 +14,7 @@ lvv_tpu/train/detector.py).
 - `recall_stats`: recall of gt boxes at 3D IoU thresholds.
 
 The step trains VoxelNeXt, PointPillars, CenterPoint, SECOND,
-TransFusion and the two-stage families (PV-RCNN, PV-RCNN++, Part-A²,
+TransFusion, PillarNet, DSVT and the two-stage families (PV-RCNN, PV-RCNN++, Part-A²,
 Voxel R-CNN, SECOND-IoU, PointRCNN, each through its own `.loss`);
 MPPNet's train step waits for MPPNet (ROADMAP.md, queue 1, item 2). The camera-input families (BEVFusion, CaDDN) raise: the JAX
 package's step feeds a detector points alone and has none that takes
@@ -45,7 +45,7 @@ def detector_loss(det, out: Dict, boxes, labels, mask,
     labels, mask)` (SECOND, CaDDN, the two-stage families) -> that; `bev_sparse` in out -> the sparse
     VoxelNeXt loss; query-head preds (`cls` and `box`: TransFusion) ->
     transfusion_loss; dense centre-head preds (a 3-D `hm`: PointPillars,
-    CenterPoint) -> dense_center_loss."""
+    CenterPoint, PillarNet, DSVT) -> dense_center_loss."""
     if callable(getattr(type(det), "loss", None)):
         return det.loss(out, boxes, labels, mask)
     if not isinstance(out, dict):

@@ -479,7 +479,7 @@ def test_cli_says_camera_families_do_not_train():
 
 def test_other_families_still_raise():
     left = [n for n in DETECTORS if n not in PORTED]
-    assert len(left) == 4 and "BEVFusion" in PORTED and "CaDDN" in PORTED
+    assert len(left) == 2 and "BEVFusion" in PORTED and "CaDDN" in PORTED
     cfg = tiny_config()
     for name in left:
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -531,7 +531,7 @@ def test_cli_trains_and_checkpoints(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--steps", "1"],
-    ["--synthetic", "--detector", "DSVT"],
+    ["--synthetic", "--detector", "MPPNetE2E"],
     ["--synthetic", "--detector", "MPPNet"]])
 def test_cli_names_what_it_waits_for(argv, tmp_path):
     with pytest.raises(SystemExit, match="queue 1, item 2"):
