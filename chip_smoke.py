@@ -4,12 +4,12 @@
 
 With no flag every phase runs. `--only` runs the named ones of kernels,
 main-path, lidar-bev, detector-train, detector-zoo, detector-camera,
-detector-two-stage, detector-waymo, serving, sam1280, serving-runtime,
-train-step, trainer (lidar-bev and serving bring main-path with them; the
-kernel build is skipped when only detector-train, detector-two-stage and
-detector-waymo run, and the kernels line, which needs every path's
-launches, is printed only when every phase ran); the last line is the
-same.
+detector-two-stage, detector-waymo, detector-mppnet, detector-focal,
+serving, sam1280, serving-runtime, train-step, trainer (lidar-bev and
+serving bring main-path with them; the kernel build is skipped when only
+the phases of NO_KERNELS run, and the kernels line, which needs every
+path's launches, is printed only when every phase ran); the last line is
+the same.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds every CUDA kernel from the sources in this checkout
@@ -229,8 +229,31 @@ same.
    the trap, DSVT's x layer over y-sorted sets, has to miss BEV_REL_TOL.
    Each trains ZOO_STEPS steps at batch ZOO_BATCH, then one step at batch
    1 card against CPU with every ReLU gate and segment-max winner replayed
-   (DSVT-voxel on a 30,000-point cloud, its capacities cut to it:
-   WAYMO_CPU_STEP). None launches a hand-written kernel (checked).
+   (on a 30,000-point cloud, the capacities cut to it, the card's step
+   dropping nothing: WAYMO_CPU_STEP). None launches a hand-written kernel
+   (checked).
+3g. Then MPPNet ("detector-mppnet") at configs/waymo_mppnet_4frames.json's
+   full width (4 frames of 75,000 rows, 32 samples a (proposal, frame),
+   d_model 64, two layers of four heads): waymo_cloud's scene with its
+   vehicles moving, frame by frame, along seeded velocities. The detect
+   at R = 32 and 83 proposals: the stage split (trajectories, pool over
+   the 4 frames, head, refine), the share of (proposal, frame) pairs that
+   hold points, and the same call on the CPU (pooled points and empty mask
+   equal, outputs within MPPNET_REL_TOL); training at batch 2, then batch
+   1 card against CPU on the same RoI-sampling draws and gates; MPPNetE2E
+   on a 6-frame stream (the bank equal to the CPU's after each push, the
+   detections within MPPNET_REL_TOL); the 16-frame preset builds 4 frames.
+3h. Then Voxel R-CNN's focal / multimodal trunk ("detector-focal") at
+   configs/kitti_voxel_rcnn_car_focal_multimodal.json's full width on
+   kitti_cloud and a 375 x 1242 image with a KITTI-like projection: the
+   direct call with image and proj (stage split: voxelize, image, the
+   focal trunk, 2D + RPN, decode + NMS, pool, RoI head, refine; each focal
+   conv's spawned sites), the detect without the image against the CPU
+   (stage ids and spawned ids equal, picks replayed, outputs within
+   FOCAL_REL_TOL), training at batch 2 (LiDAR-only, as JAX's step) and
+   batch 1 against the CPU, the multimodal call's loss and gradients
+   against the CPU (the image branch's non-zero), and a zero-image trap.
+   Neither phase launches a hand-written kernel (checked).
 8. Trains at full width: default_config() in bf16 with fp32 masters,
    TrainConfig's batch 4 (six 1024² views each, BEV [128, 180, 180],
    ByteTokenizer text of 128 prompt and 96 answer tokens: a 1,765-token
@@ -3736,14 +3759,14 @@ def zoo_outputs(out) -> dict:
     return got
 
 
-def timed_detect(torch, tag: str, det, pts, n, first=contextlib.nullcontext
-                 ) -> tuple:
-    """`det`'s call on the card stage by stage (zoo_staged): a warm-up,
-    three calls (the first traced, inside `first()`, its launches counted
-    from zero and the peak memory read after it), one profiled ->
-    (report: the call's and each stage's p50, peak, device busy and idle,
-    detections, launches; the first call's forward dict, detections and
-    trace)."""
+def timed_detect(torch, tag: str, det, pts, n, first=contextlib.nullcontext,
+                 zoo_staged=zoo_staged) -> tuple:
+    """`det`'s call on the card stage by stage (`zoo_staged` unless told:
+    a function of (torch, det, pts, n, trace)): a warm-up, three calls
+    (the first traced, inside `first()`, its launches counted from zero
+    and the peak memory read after it), one profiled -> (report: the
+    call's and each stage's p50, peak, device busy and idle, detections,
+    launches; the first call's forward dict, detections and trace)."""
     from lvv_tpu_torch import kernels
     zoo_staged(torch, det, pts, n)                      # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -3914,16 +3937,19 @@ def zoo_step(torch, det, batch, gates, picks=None, replay=None,
     return {k: float(v) for k, v in m.items()}, grads, own_g[0], own_p
 
 
-def timed_train(torch, tag: str, det, batch) -> dict:
+def timed_train(torch, tag: str, det, batch, make_step=None) -> dict:
     """ZOO_STEPS train steps of `det` on `batch` (the CLI's chain, the
     first a warm-up; the launches of the second counted), one profiled ->
     {losses, s/step p50, samples/s, peak, device busy and idle, launches
-    a step, checks: the losses finite and a step below the first}."""
+    a step, checks: the losses finite and a step below the first}.
+    `make_step(det, tx)` builds the step (default: make_detector_train_step
+    on the detector's configs)."""
     from lvv_tpu_torch import kernels
     from lvv_tpu_torch.train.detector import make_detector_train_step
     from lvv_tpu_torch.train.optim import detector_optimizer
     tx = detector_optimizer(DET_LR, ZOO_STEPS + 1)
-    step = make_detector_train_step(det, tx, det.det_cfg, det.vox_cfg)
+    step = (make_step(det, tx) if make_step else
+            make_detector_train_step(det, tx, det.det_cfg, det.vox_cfg))
     state = (det, tx.init(dict(det.named_parameters())))
     losses, step_s = [], []
     for i in range(ZOO_STEPS):
@@ -4470,8 +4496,9 @@ def two_stage_detector(torch, family: str, cfg, device):
 
 
 @contextlib.contextmanager
-def two_stage_picks(torch, log, replay=None, own=None):
-    """Every call of PICK_SITES' functions: its index outputs appended to
+def two_stage_picks(torch, log, replay=None, own=None, sites=PICK_SITES):
+    """Every call of `sites`' functions (PICK_SITES unless told): its
+    index outputs appended to
     log[name] (on the host) in call order; given `replay` (another run's
     log), the count of entries that differ from it is added to own[name],
     and the RPN's top-K and NMS calls return the replayed picks instead
@@ -4511,7 +4538,7 @@ def two_stage_picks(torch, log, replay=None, own=None):
                 keep >= 0, scores[keep.clamp_min(0).long()], -torch.inf)
         return picked
     patched = []
-    for mod, names in PICK_SITES:
+    for mod, names in sites:
         m = importlib.import_module(f"lvv_tpu_torch.models.{mod}")
         for name in names:
             patched.append((m, name, getattr(m, name)))
@@ -4666,16 +4693,17 @@ def two_stage_train(torch, family: str) -> dict:
     return report
 
 
-def two_stage_against_cpu(torch, family, cfg, det, start, one) -> dict:
+def two_stage_against_cpu(torch, family, cfg, det, start, one,
+                          picker=None, tag=None) -> dict:
     """A step of `det` (at `start`) on batch `one`, then the same step on
     the CPU from the same weights with every ReLU gate, top-K pick and
-    NMS keep replayed from the card's (its sampling picks must equal the
+    NMS keep replayed from the card's (`picker(log, replayed, own)`:
+    two_stage_picks unless told; its sampling picks must equal the
     card's): the loss, each top-level group's gradient, and the gates and
     picks the CPU would have taken otherwise."""
     gates, picks = [], {}
-
-    def picker(log, replayed, own):
-        return two_stage_picks(torch, log, replayed, own)
+    picker = picker or (lambda log, replayed, own: two_stage_picks(
+        torch, log, replayed, own))
     card_m, card_g, _, _ = zoo_step(torch, det, one, gates, picks,
                                     picker=picker)
     cpu = two_stage_detector(torch, family, cfg, "cpu")
@@ -4704,7 +4732,8 @@ def two_stage_against_cpu(torch, family, cfg, det, start, one) -> dict:
                   cpu_own_gates_differing=gates_differ,
                   cpu_own_picks_differing=picks_differ, cpu_step_s=cpu_s,
                   no_gradient=no_grad, checks=checks)
-    print(f"detector-two-stage[{family}] train: batch 1 card vs CPU on the "
+    print(f"{tag or f'detector-two-stage[{family}]'} train: batch 1 card "
+          f"vs CPU on the "
           f"card's gates and picks: loss {loss_rel:.2e}, groups {rel}; the "
           f"CPU's own gates differ at {gates_differ} of "
           f"{report['relu_entries']}, picks {picks_differ}", flush=True)
@@ -4749,8 +4778,8 @@ def run_detector_two_stage(torch) -> dict:
 # batch 1 on the card and on the CPU with every ReLU gate and every segment
 # max's winners (the VFE's, ZPoolAttention's query) replayed from the card's
 # (loss within DET_LOSS_TOL, each group's gradient within DET_GRAD_TOL);
-# the voxel preset's step is taken on a smaller cloud (WAYMO_CPU_STEP), so
-# that the CPU's backward stays short. No hand-written kernel lies on these
+# that step is taken on a smaller cloud at capacities cut to it
+# (WAYMO_CPU_STEP), so that the CPU's backward stays short. No hand-written kernel lies on these
 # paths: DSVT's attention has 36 or 48 keys (or ZPoolAttention's bias), the
 # plain path under the JAX package's rule (checked: no launches). The
 # heatmap bias is -1 and the size bias makes boxes smaller than a decode
@@ -4770,14 +4799,23 @@ WAYMO_AZIMUTHS = 3300
 WAYMO_ELEVATION_DEG = (2.4, -17.6)
 WAYMO_SENSOR_Z = 2.1
 WAYMO_VEHICLES, WAYMO_WALLS = 32, 16
-# the voxel preset's batch-1 card-vs-CPU step: a 30,000-point cloud, at
-# its widths with capacities cut to that cloud (its tensors are sized by
-# capacity, not by points: at the preset's 300,000 rows, 150,000 voxels
-# and 5,120 sets the CPU's step took 69-73 s on the 8-core host of an H100
-# machine). No drop is possible: voxels <= points <= 32,768, and each
-# stage's sets <= 41 x 41 windows (every stage's window spans its whole z
-# extent) + ceil(32,768 / 48) = 2,364 < 2,560
-WAYMO_CPU_STEP = {"waymo_dsvt_voxel": dict(points=30000, max_points=32768,
+# each preset's batch-1 card-vs-CPU step: a 30,000-point cloud, at the
+# preset's widths with capacities cut to that cloud (its tensors are sized
+# by capacity, not by points: at the voxel preset's 300,000 rows, 150,000
+# voxels and 5,120 sets the CPU's step took 69-73 s on the 8-core host of
+# an H100 machine; PillarNet's and DSVT-pillar's full-capacity steps
+# 13.6 / 23.9 s on a faster one). The card's recording step runs with
+# the capacity telemetry on, and nothing may drop. Bounds: voxels or
+# pillars <= points; DSVT-voxel's sets a stage <= 41 x 41 windows (every
+# stage's window spans its whole z extent) + ceil(32,768 / 48) = 2,364 <
+# 2,560, DSVT-pillar's <= 41 x 41 + ceil(30,720 / 36) = 2,535 < 2,560;
+# PillarNet's strided stages keep 3/4 of 65,536, 3/4 of that, ...
+WAYMO_CPU_STEP = {"waymo_pillarnet": dict(points=30000, max_points=32768,
+                                          max_voxels=65536),
+                  "waymo_dsvt_pillar": dict(points=30000, max_points=32768,
+                                            max_voxels=30720,
+                                            dsvt_max_sets=2560),
+                  "waymo_dsvt_voxel": dict(points=30000, max_points=32768,
                                            max_voxels=32768,
                                            dsvt_max_sets=2560)}
 WAYMO_SCENES: dict = {}
@@ -5084,11 +5122,13 @@ def waymo_train(torch, preset: str, cpu) -> dict:
     if cut:             # the same weights at the cut capacities
         import dataclasses
         points = cut["points"]
+        sets = ({"dsvt_max_sets": cut["dsvt_max_sets"]}
+                if "dsvt_max_sets" in cut else {})
         cfg = dataclasses.replace(cfg, voxelize=dataclasses.replace(
             cfg.voxelize, max_points=cut["max_points"],
             max_voxels=cut["max_voxels"]), model=dataclasses.replace(
-            cfg.model, voxelnext=dataclasses.replace(
-                cfg.model.voxelnext, dsvt_max_sets=cut["dsvt_max_sets"])))
+            cfg.model, voxelnext=dataclasses.replace(cfg.model.voxelnext,
+                                                     **sets)))
         det = waymo_detector(torch, preset, cfg, "cuda")
         det.load_state_dict(start)
         cpu = waymo_detector(torch, preset, cfg, "cpu")
@@ -5116,14 +5156,20 @@ def waymo_against_cpu(torch, preset, det, cpu, start, one) -> dict:
     gradient (the VFE, each DSVT block or sparse stage, the BEV trunk, the
     head), and the gates and winners the CPU would have taken
     otherwise."""
+    from lvv_tpu_torch.ops import sparse as S
     gates, winners = [], {}
 
     def picker(log, replayed, own):
         return waymo_winners(torch, log, replayed, own)
+    S.set_overflow_debug(True)
+    S.reset_overflow_log()
     t0 = time.perf_counter()
     card_m, card_g, _, _ = zoo_step(torch, det, one, gates, winners,
                                     picker=picker)
     card_s = time.perf_counter() - t0
+    telemetry = S.overflow_log()
+    S.set_overflow_debug(False)
+    dropped = {k: v["dropped"] for k, v in telemetry.items() if v["dropped"]}
     cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
     t0 = time.perf_counter()
     cpu_m, cpu_g, gates_differ, winners_differ = zoo_step(
@@ -5143,8 +5189,11 @@ def waymo_against_cpu(torch, preset, det, cpu, start, one) -> dict:
                   v is not None and v <= DET_GRAD_TOL for v in rel.values()),
               "every parameter has a gradient on both devices":
               no_grad == [] == sorted(k for k, g in cpu_g.items()
-                                      if g is None)}
+                                      if g is None),
+              "the card's step drops nothing (telemetry)": bool(telemetry)
+              and not dropped}
     report = dict(loss_card=card_m["loss"], loss_cpu=cpu_m["loss"],
+                  step_telemetry=telemetry,
                   loss_rel=loss_rel, group_grad_rel_l2=rel,
                   relu_entries=sum(int(g.numel()) for g in gates),
                   cpu_own_gates_differing=gates_differ,
@@ -5174,6 +5223,685 @@ def run_detector_waymo(torch) -> dict:
         report[f"train[{preset}]"] = waymo_train(torch, preset, cpu)
         torch.cuda.empty_cache()
         report[f"seconds[{preset}]"] = time.perf_counter() - t0
+    report["launches"] = {}
+    return report
+
+
+# ------------------------------------------------------ detector-mppnet --
+
+# MPPNet at configs/waymo_mppnet_4frames.json's full width (4 frames, 32
+# samples a (proposal, frame), d_model 64, two layers of four heads; fp32,
+# TF32 off, seeded weights) on a 4-frame stack of max_points // 4 = 75,000
+# rows a frame: waymo_cloud's scene cast with that many rays' worth, its
+# vehicles given seeded velocities (N(0, 4) m/s a component), and frame t
+# (0 the current one) with each vehicle's returns moved back t · 0.1 s
+# along its velocity, so that the trajectories land on points. Proposals:
+# the vehicles' boxes (centres off by N(0, 0.1) m) with their velocities,
+# then boxes of a vehicle's size at random places in the range, R = 32
+# (the JAX CLI's n_rois) and R = 83 (the config's nms_post_max, what a
+# first stage of this repo hands on). Each detect is split by stage (p50
+# of 3 after a warm-up), profiled once, and held against the same call on
+# the CPU: the pooled points and the empty mask equal, the outputs within
+# MPPNET_REL_TOL relative L2. Training: batch 2 (the CLI's chain), then
+# batch 1 on the card and on the CPU on the same RoI-sampling draws with
+# every ReLU gate replayed (loss within DET_LOSS_TOL, each group within
+# DET_GRAD_TOL). MPPNetE2E on the same weights runs a MPPNET_STREAM-frame
+# stream through its bank on both devices: the bank equal after each push,
+# the detections within MPPNET_REL_TOL. No hand-written kernel lies on the
+# path (its attention holds 4 x 32 = 128 keys, its LayerNorm is 64 wide).
+MPPNET_PRESETS = {"4frames": "configs/waymo_mppnet_4frames.json",
+                  "16frames": "configs/waymo_mppnet_16frames.json",
+                  "e2e": "configs/waymo_mppnet_e2e.json"}
+MPPNET_ROIS = (32, 83)
+MPPNET_STREAM = 6
+MPPNET_DT = 0.1
+MPPNET_REL_TOL = 1e-5
+MPPNET_FIELDS = ("boxes", "scores", "labels", "count")
+
+
+def mppnet_config(which: str = "4frames"):
+    from lvv_tpu_torch import config as C
+    return C.load(C.VQAConfig, REPO / MPPNET_PRESETS[which])
+
+
+def mppnet_scene(cfg, seed: int = 0, frames: int = 4, now: int = 0):
+    """(frame_points [frames, P, 4], frame_counts [frames], the vehicles'
+    boxes [V, 9] at time `now`), P = max_points // 4: frame t holds the
+    scene at time (now - t) · MPPNET_DT, each vehicle's returns moved by
+    that time along its velocity."""
+    import numpy as np
+    per = cfg.voxelize.max_points // 4
+    found = []
+    pts, n = waymo_cloud(cfg, seed, boxes=found, points=per)
+    n = min(n, per)
+    boxes = np.asarray(found, np.float32)
+    boxes[:, 7:9] = np.random.default_rng(seed + 100).normal(
+        0, 4.0, (len(boxes), 2))
+    xyz = pts[:n, :3]
+    half = boxes[None, :, 3:6] / 2 + 0.05
+    inside = (np.abs(xyz[:, None] - boxes[None, :, :3]) <= half).all(-1)
+    owner = np.where(inside.any(1), inside.argmax(1), -1)
+    moved = owner >= 0
+    fp = np.zeros((frames, per, 4), np.float32)
+    for t in range(frames):
+        f = pts[:per].copy()
+        f[:n][moved, :2] += ((now - t) * MPPNET_DT
+                             * boxes[owner[moved], 7:9])
+        fp[t] = f
+    at_now = boxes.copy()
+    at_now[:, :2] += now * MPPNET_DT * boxes[:, 7:9]
+    return fp, np.full(frames, n, np.int32), at_now
+
+
+def mppnet_proposals(boxes, r: int, seed: int = 0) -> dict:
+    """r proposals: the vehicles' boxes, centres off by N(0, 0.1) m, then
+    vehicle-sized boxes at random places (scores 0.3-0.9, class 0)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 200)
+    k = min(len(boxes), r)
+    pb = np.zeros((r, 9), np.float32)
+    pb[:k] = boxes[:k]
+    pb[:k, :3] += rng.normal(0, 0.1, (k, 3))
+    pb[k:, :2] = rng.uniform(-70.0, 70.0, (r - k, 2))
+    pb[k:, 2:6] = (0.9, 4.4, 2.0, 1.8)
+    pb[k:, 7:9] = rng.normal(0, 4.0, (r - k, 2))
+    return {"boxes": pb,
+            "scores": rng.uniform(0.3, 0.9, r).astype(np.float32),
+            "labels": np.zeros(r, np.int32), "count": np.int32(r)}
+
+
+def mppnet_detector(torch, cfg, device, which: str = "MPPNet"):
+    from lvv_tpu_torch.models.registry import build_detector
+    return build_detector(which, cfg.model.voxelnext, cfg.voxelize,
+                          device=device, seed=0)
+
+
+def as_dets(torch, props: dict, device):
+    from lvv_tpu_torch.models.voxelnext import Detections
+    return Detections(*(torch.as_tensor(props[k]).to(device)
+                        for k in MPPNET_FIELDS))
+
+
+def mppnet_staged(torch, det, frames, proposals, trace=None) -> tuple:
+    """One MPPNet call stage by stage (trajectories, pool, head, refine),
+    each ending in a synchronise where on the card -> (seconds by stage,
+    the state dict, detections)."""
+    sync = torch.cuda.synchronize if det.device.type == "cuda" \
+        else (lambda: None)
+    secs = {}
+    with torch.no_grad():
+        for i, (name, fn) in enumerate(det.stages()):
+            t0 = time.perf_counter()
+            s = fn(*frames, proposals) if i == 0 else fn(s)
+            sync()
+            secs[name] = time.perf_counter() - t0
+    return secs, s, s["detections"]
+
+
+def mppnet_rels(torch, out, out_cpu) -> dict:
+    """The head's outputs and the refined boxes and scores, card against
+    CPU, relative L2."""
+    got = {"cls": (out["preds"]["cls"], out_cpu["preds"]["cls"]),
+           "reg": (out["preds"]["reg"], out_cpu["preds"]["reg"])}
+    for k in ("boxes", "scores"):
+        got[k] = (getattr(out["detections"], k),
+                  getattr(out_cpu["detections"], k))
+    return {k: rel_l2(a.float().cpu(), b.float()) for k, (a, b) in
+            got.items()}
+
+
+def mppnet_detect(torch, r: int) -> dict:
+    """MPPNet's detect on the card with r proposals, timed and profiled,
+    against the same call on the CPU."""
+    cfg = mppnet_config()
+    fp, fc, boxes = mppnet_scene(cfg)
+    props = mppnet_proposals(boxes, r)
+    det = mppnet_detector(torch, cfg, "cuda")
+    frames = (torch.from_numpy(fp).cuda(), torch.from_numpy(fc).cuda())
+    report, out, dets, _ = timed_detect(
+        torch, f"detector-mppnet[R={r}]", det, frames,
+        as_dets(torch, props, "cuda"), zoo_staged=mppnet_staged)
+    report.pop("points")
+    cpu = mppnet_detector(torch, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    t0 = time.perf_counter()
+    _, out_cpu, dets_cpu = mppnet_staged(
+        torch, cpu, (torch.from_numpy(fp), torch.from_numpy(fc)),
+        as_dets(torch, props, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    filled = float((~out["empty"]).float().mean())
+    rels = mppnet_rels(torch, out, out_cpu)
+    report.update(points_per_frame=int(fc[0]), frames=int(fp.shape[0]),
+                  proposals=r, vehicles=len(boxes),
+                  pairs_with_points=filled, cpu_call_s=cpu_s,
+                  rel_l2_vs_cpu=rels)
+    checks = {"pooled points equal the CPU's": torch.equal(
+                  out["pooled"].cpu(), out_cpu["pooled"]),
+              "empty mask equal": torch.equal(out["empty"].cpu(),
+                                              out_cpu["empty"]),
+              "some (proposal, frame) pairs hold points": filled > 0,
+              "outputs within MPPNET_REL_TOL": max(rels.values())
+              <= MPPNET_REL_TOL,
+              "labels and count equal": torch.equal(
+                  dets.labels.cpu(), dets_cpu.labels)
+              and int(dets.count) == int(dets_cpu.count) == r,
+              "finite detections": bool(torch.isfinite(dets.boxes).all()
+                                        and torch.isfinite(dets.scores).all()),
+              "no hand-written kernel on the path":
+              report["launches"] == {}}
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-mppnet[R={r}]: {checks}; {report}")
+    return report
+
+
+def mppnet_batch(cfg, seeds, r: int = MPPNET_ROIS[0]) -> dict:
+    """The train step's batch over `seeds`' scenes: frame stacks, r
+    proposals, the vehicles as gts (class 0) padded to MAX_GT, and seeded
+    RoI-sampling draws [B, 2, r]."""
+    import numpy as np
+    rows = []
+    for seed in seeds:
+        fp, fc, boxes = mppnet_scene(cfg, seed)
+        p = mppnet_proposals(boxes, r, seed)
+        gt = np.zeros((MAX_GT, 9), np.float32)
+        gt[:len(boxes)] = boxes
+        rows.append({"frame_points": fp, "frame_counts": fc,
+                     "prop_boxes": p["boxes"], "prop_scores": p["scores"],
+                     "prop_labels": p["labels"], "prop_count": p["count"],
+                     "gt_boxes": gt,
+                     "gt_mask": np.arange(MAX_GT) < len(boxes)})
+    out = {k: np.stack([row[k] for row in rows]) for k in rows[0]}
+    out["draws"] = np.random.default_rng(7).uniform(
+        size=(len(rows), 2, r)).astype(np.float32)
+    return out
+
+
+def mppnet_step(torch, det, batch, gates, replay=None) -> tuple:
+    """One MPPNet train step (the CLI's chain) with every ReLU gate
+    recorded into `gates`, or replayed from `replay` -> (metrics as
+    floats, gradients on the host, gates that differ from the replayed
+    ones)."""
+    from lvv_tpu_torch.train.detector import make_mppnet_train_step
+    from lvv_tpu_torch.train.optim import detector_optimizer
+    tx = detector_optimizer(DET_LR, ZOO_STEPS)
+    step = make_mppnet_train_step(det, tx)
+    own = [0]
+    with zoo_gates(torch, None if replay else gates, replay, own):
+        _, m = step((det, tx.init(dict(det.named_parameters()))), batch)
+    grads = {k: None if p.grad is None else p.grad.cpu()
+             for k, p in det.named_parameters()}
+    return {k: float(v) for k, v in m.items()}, grads, own[0]
+
+
+def mppnet_train(torch) -> dict:
+    """MPPNet's train step at batch ZOO_BATCH (`timed_train`), then batch
+    1 on the card against the CPU on the same draws and gates."""
+    from lvv_tpu_torch.train.detector import make_mppnet_train_step
+    cfg = mppnet_config()
+    batch = mppnet_batch(cfg, range(ZOO_BATCH))
+    det = mppnet_detector(torch, cfg, "cuda")
+    start = {k: v.clone() for k, v in det.state_dict().items()}
+    report = timed_train(torch, "detector-mppnet", det, batch,
+                         make_step=make_mppnet_train_step)
+    checks = report.pop("checks")
+    checks["no hand-written kernel on the path"] = (
+        report["launches_per_step"] == {})
+    det.load_state_dict(start)
+    one = {k: v[:1] for k, v in batch.items()}
+    gates = []
+    card_m, card_g, _ = mppnet_step(torch, det, one, gates)
+    cpu = mppnet_detector(torch, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    t0 = time.perf_counter()
+    cpu_m, cpu_g, differ = mppnet_step(torch, cpu, one, None, gates)
+    cpu_s = time.perf_counter() - t0
+    groups = collections.defaultdict(list)
+    for name in cpu_g:
+        groups[".".join(name.split(".")[:2])].append(name)
+    rel = group_rel_l2(torch, dict(groups), card_g, cpu_g)
+    loss_rel = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    checks.update({
+        "loss card vs CPU within DET_LOSS_TOL": loss_rel <= DET_LOSS_TOL,
+        "group gradients within DET_GRAD_TOL": all(
+            v is not None and v <= DET_GRAD_TOL for v in rel.values()),
+        "every parameter has a gradient on both devices": all(
+            g is not None for g in (*card_g.values(), *cpu_g.values()))})
+    report.update(loss_card=card_m["loss"], loss_cpu=cpu_m["loss"],
+                  loss_rel=loss_rel, group_grad_rel_l2=rel,
+                  relu_entries=sum(int(g.numel()) for g in gates),
+                  cpu_own_gates_differing=differ, cpu_step_s=cpu_s,
+                  checks=checks)
+    print(f"detector-mppnet train: batch 1 card vs CPU on the same draws "
+          f"and the card's gates: loss {loss_rel:.2e}, worst group "
+          f"{max(rel.values()):.2e}; the CPU's own gates differ at {differ} "
+          f"of {report['relu_entries']}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"detector-mppnet train: {checks}; {report}")
+    return report
+
+
+def mppnet_stream(torch, weights) -> dict:
+    """MPPNetE2E (MPPNet's weights) over MPPNET_STREAM consecutive frames
+    on the card and on the CPU: each step's bank equal, its detections
+    within MPPNET_REL_TOL; the card's step p50 after the first."""
+    from lvv_tpu_torch import kernels
+    cfg = mppnet_config("e2e")
+    e2e = mppnet_detector(torch, cfg, "cuda", "MPPNetE2E")
+    e2e.load_state_dict(weights)
+    cpu = mppnet_detector(torch, cfg, "cpu", "MPPNetE2E")
+    cpu.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    per = cfg.voxelize.max_points // 4
+    bank, bank_cpu = e2e.create_bank(per), cpu.create_bank(per)
+    kernels.launches.clear()
+    step_s, banks_equal, rels = [], [], []
+    for k in range(MPPNET_STREAM):
+        fp, fc, boxes = mppnet_scene(cfg, frames=1, now=k)
+        props = mppnet_proposals(boxes, MPPNET_ROIS[0])
+        pts = torch.from_numpy(fp[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            bank, dets = e2e(bank, pts.cuda(), int(fc[0]),
+                             as_dets(torch, props, "cuda"))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            bank_cpu, dets_cpu = cpu(bank_cpu, pts, int(fc[0]),
+                                     as_dets(torch, props, "cpu"))
+        banks_equal.append(torch.equal(bank.points.cpu(), bank_cpu.points)
+                           and torch.equal(bank.counts.cpu(),
+                                           bank_cpu.counts))
+        rels.append(max(rel_l2(dets.boxes.cpu(), dets_cpu.boxes),
+                        rel_l2(dets.scores.cpu(), dets_cpu.scores)))
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    checks = {"bank equal the CPU's after every push": all(banks_equal),
+              "detections within MPPNET_REL_TOL at every step":
+              max(rels) <= MPPNET_REL_TOL,
+              "the bank holds the last three frames":
+              int((bank.counts > 0).sum()) == 3,
+              "no hand-written kernel on the path": launches == {}}
+    report = dict(frames=MPPNET_STREAM, step_s=step_s,
+                  step_p50_s=sorted(step_s[1:])[len(step_s[1:]) // 2],
+                  rel_l2_vs_cpu_by_step=rels, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"detector-mppnet[e2e]: {checks}; {report}")
+    return report
+
+
+def run_detector_mppnet(torch) -> dict:
+    """MPPNet at its 4-frame preset on the card: the detect at R = 32 and
+    83 against the CPU, training, MPPNetE2E's stream, and the 16-frame
+    preset's frame count (4, as JAX's registry builds it)."""
+    report = {f"detect[R={r}]": mppnet_detect(torch, r)
+              for r in MPPNET_ROIS}
+    torch.cuda.empty_cache()
+    report["train"] = mppnet_train(torch)
+    torch.cuda.empty_cache()
+    weights = mppnet_detector(torch, mppnet_config(), "cuda").state_dict()
+    report["e2e"] = mppnet_stream(torch, weights)
+    frames16 = mppnet_detector(torch, mppnet_config("16frames"), "meta")
+    report["16frames_builds_frames"] = frames16.num_frames
+    if frames16.num_frames != 4:
+        raise AssertionError("the 16-frame preset should run 4 frames")
+    report["launches"] = {}
+    return report
+
+
+# ------------------------------------------------------- detector-focal --
+
+# Voxel R-CNN with its focal / multimodal trunk at configs/
+# kitti_voxel_rcnn_car_focal_multimodal.json's full width (fp32, TF32
+# off, seeded weights, the RPN's biases as TWO_STAGE_PRESETS' note sets;
+# focal_spawn 128) on kitti_cloud's scene and one seeded 375 x 1242 image.
+# `proj` is KITTI's P2 · R0_rect · Tr_velo_to_cam (its 2011_09_26 drives)
+# after the affine map that takes the focal trunk's centres back to metric
+# (x, y, z): the trunk projects delinearize's (z, y, x) coordinates times
+# the voxel size in (x, y, z) order (a reference trait, ROADMAP.md queue
+# 3), so that with KITTI's matrix alone almost no voxel would land in the
+# image; the phase reports the share that does. The direct call with image
+# and proj is split by stage (p50 of 3 after a warm-up), profiled once,
+# and reports each focal conv's spawned sites against focal_spawn. The
+# detect without the image (what `detect` and the train step run) is held
+# against the CPU: stage ids and every focal conv's spawned ids equal, the
+# RPN's top-K, NMS keeps and the focal convs' top-K replayed on the CPU
+# (its own picks counted), outputs within FOCAL_REL_TOL. Training: batch 2
+# (JAX's step, LiDAR-only), then batch 1 card vs CPU with gates and picks
+# replayed; the multimodal call's loss and gradients card vs CPU (one CPU
+# forward serves the direct call's output check, its gradients and the
+# trap: the card's call on a zero image must miss FOCAL_REL_TOL against
+# it); the image branch's gradients non-zero on both.
+FOCAL_PRESET = "configs/kitti_voxel_rcnn_car_focal_multimodal.json"
+KITTI_R0_RECT = ((9.999239e-01, 9.837760e-03, -7.445048e-03),
+                 (-9.869795e-03, 9.999421e-01, -4.278459e-03),
+                 (7.402527e-03, 4.351614e-03, 9.999631e-01))
+KITTI_P2_T = (4.485728e+01, 2.163791e-01, 2.745884e-03)
+FOCAL_REL_TOL = 1e-5
+# seeded weights spawn a focal conv's whole focal_spawn (128) where its
+# importance bias is 0 (every conv of the image call, both later convs
+# of the LiDAR-only one: its V·26 candidates hold thousands above 0.5); at
+# -1 the spawn stays partial where the scene is sparse
+FOCAL_IMPORTANCE_BIAS = -1.0
+FOCAL_SITES = (*PICK_SITES, ("focal_conv", ("top_k",)))
+
+
+@contextlib.contextmanager
+def roi_winners(torch, log, replay=None, own=None):
+    """Voxel R-CNN's RoI head max over each lattice point's neighbours, in
+    call order: its winners (the finite entries equal to the max) appended
+    to log["max"] on the host; given `replay`, each max is the mean of the
+    replayed winners instead (a tie's gradient split evenly, as torch's
+    amax and jnp.max split it), and the winners this run would have taken
+    otherwise are counted into own["max"]. Near-ties there, within
+    float32 rounding, send a scale's gradient to another neighbour."""
+    from lvv_tpu_torch.models import voxel_rcnn as V
+    plain, calls = V.neighbour_max, [0]
+
+    def nmax(h):
+        out = plain(h)
+        won = (h.detach() == out.detach()[:, None]) & torch.isfinite(
+            h.detach())
+        i, calls[0] = calls[0], calls[0] + 1
+        if replay is None:
+            log.setdefault("max", []).append(won.cpu())
+            return out
+        want = replay["max"][i].to(h.device)
+        own["max"] = own.get("max", 0) + int((won != want).sum())
+        cnt = want.sum(1)
+        mean = torch.where(want, h, 0.0).sum(1) / cnt.clamp_min(1)
+        return torch.where(cnt > 0, mean, -torch.inf)
+    V.neighbour_max = nmax
+    try:
+        yield
+    finally:
+        V.neighbour_max = plain
+
+
+@contextlib.contextmanager
+def focal_picks(torch, log, replay=None, own=None):
+    """two_stage_picks over FOCAL_SITES (the RPN's top-K and NMS, each
+    focal conv's top-K) and the RoI head's neighbour winners."""
+    with two_stage_picks(torch, log, replay, own, FOCAL_SITES), \
+            roi_winners(torch, log, replay, own):
+        yield
+
+
+def focal_config():
+    from lvv_tpu_torch import config as C
+    return C.load(C.VQAConfig, REPO / FOCAL_PRESET)
+
+
+def focal_proj(cfg):
+    """[3, 4] float32: P2 · R0_rect · Tr_velo_to_cam · A, A the affine map
+    from the trunk's centres (c0, c1, c2) = (z, y, x) · voxel size + origin
+    back to metric (x, y, z)."""
+    import numpy as np
+    fx, fy, cx, cy = KITTI_P2
+    p2 = np.array([[fx, 0, cx, KITTI_P2_T[0]], [0, fy, cy, KITTI_P2_T[1]],
+                   [0, 0, 1, KITTI_P2_T[2]]])
+    r0 = np.eye(4)
+    r0[:3, :3] = KITTI_R0_RECT
+    tr = np.eye(4)
+    tr[:3] = KITTI_VELO_TO_CAM
+    vs = cfg.voxelize.voxel_size
+    lo = cfg.voxelize.point_range[:3]
+    a = np.zeros((4, 4))
+    a[0, 2], a[0, 3] = vs[0] / vs[2], lo[0] - lo[2] * vs[0] / vs[2]
+    a[1, 1] = 1.0
+    a[2, 0], a[2, 3] = vs[2] / vs[0], lo[2] - lo[0] * vs[2] / vs[0]
+    a[3, 3] = 1.0
+    return (p2 @ r0 @ tr @ a).astype(np.float32)
+
+
+def focal_detector(torch, cfg, device):
+    """Voxel R-CNN at the focal preset with seeded weights, the RPN's
+    biases as TWO_STAGE_PRESETS' note sets them and each focal conv's
+    importance bias FOCAL_IMPORTANCE_BIAS."""
+    from lvv_tpu_torch.models.focal_conv import FocalSparseConv
+    det = two_stage_detector(torch, "VoxelRCNN", cfg, device)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, FocalSparseConv):
+                m.importance.bias.fill_(FOCAL_IMPORTANCE_BIAS)
+    return det
+
+
+def focal_staged(torch, det, pts, n, trace=None, image=None, proj=None,
+                 spawned=None) -> tuple:
+    """zoo_staged with the image and proj passed to the stages."""
+    sync = torch.cuda.synchronize if pts.is_cuda else (lambda: None)
+    secs, x = {}, None
+    with torch.no_grad():
+        for i, (name, fn) in enumerate(det.stages(trace, image, proj,
+                                                  spawned)):
+            t0 = time.perf_counter()
+            x = fn(pts, n) if i == 0 else fn(x)
+            sync()
+            secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dets = det.decode(x)
+        sync()
+        secs["decode"] = time.perf_counter() - t0
+    return secs, x, dets
+
+
+def spawned_counts(spawned) -> list:
+    from lvv_tpu_torch.ops.sparse import SENTINEL
+    return [int((s != SENTINEL).sum()) for s in spawned]
+
+
+def focal_inputs(torch, cfg) -> tuple:
+    """(points, n, image [375, 1242, 3] in [0, 1), proj) on the host."""
+    import numpy as np
+    pts, n = kitti_cloud(cfg)
+    image = np.random.default_rng(0).uniform(
+        size=(*KITTI_HW, 3)).astype(np.float32)
+    return (torch.from_numpy(pts), n, torch.from_numpy(image),
+            torch.from_numpy(focal_proj(cfg)))
+
+
+def in_image_share(torch, det, pts, n, image, proj) -> float:
+    """The share of conv_input's voxels that the multimodal focal conv
+    sees inside the image (layer1's stride)."""
+    from lvv_tpu_torch.models import semseg as SS
+    from lvv_tpu_torch.ops.sparse import build_subm_rulebook, delinearize
+    with torch.no_grad():
+        s = det.stages()[0][1](pts, n)
+        st = det.backbone3d.conv_input(s["st0"],
+                                       build_subm_rulebook(s["st0"]))
+        uv, front = SS.project_voxels_to_image(
+            delinearize(st.ids, st.grid), det.vox_cfg.voxel_size,
+            det.vox_cfg.point_range, SS.scale_pixels(proj, 0.25))
+        h, w = image.shape[0] // 4, image.shape[1] // 4
+        ok = (front & st.valid & (uv[:, 0] >= 0) & (uv[:, 0] < w)
+              & (uv[:, 1] >= 0) & (uv[:, 1] < h))
+    return float(ok.sum()) / max(int(st.valid.sum()), 1)
+
+
+def focal_detect(torch) -> dict:
+    """The direct call with image and proj on the card, timed and
+    profiled; the detect without the image against the CPU with the picks
+    replayed."""
+    cfg = focal_config()
+    pts_h, n, image_h, proj_h = focal_inputs(torch, cfg)
+    det = focal_detector(torch, cfg, "cuda")
+    pts, image, proj = (t.cuda() for t in (pts_h, image_h, proj_h))
+    staged = functools.partial(focal_staged, image=image, proj=proj)
+    report, _, dets, _ = timed_detect(
+        torch, "detector-focal[image]", det, pts, n, zoo_staged=staged)
+    spawned = []
+    focal_staged(torch, det, pts, n, image=image, proj=proj,
+                 spawned=spawned)
+    counts = spawned_counts(spawned)
+    share = in_image_share(torch, det, pts, n, image, proj)
+    # the detect without the image, card and CPU, picks replayed
+    picks, trace, sp_card = {}, [], []
+    with two_stage_picks(torch, picks, sites=FOCAL_SITES):
+        _, out_l, dets_l = focal_staged(torch, det, pts, n, trace,
+                                        spawned=sp_card)
+    cpu = focal_detector(torch, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    trace_cpu, own, sp_cpu = [], {}, []
+    t0 = time.perf_counter()
+    with two_stage_picks(torch, {}, picks, own, FOCAL_SITES):
+        _, out_c, dets_c = focal_staged(torch, cpu, pts_h, n, trace_cpu,
+                                        spawned=sp_cpu)
+    cpu_s = time.perf_counter() - t0
+    ids_equal = {name: torch.equal(a.ids.cpu(), b.ids)
+                 for (name, a), (_, b) in zip(trace, trace_cpu)}
+    spawn_equal = len(sp_card) == len(sp_cpu) == 3 and all(
+        torch.equal(a.cpu(), b) for a, b in zip(sp_card, sp_cpu))
+    rels = {k: rel_l2(v.float().cpu(), two_stage_outputs(out_c)[k].float())
+            for k, v in two_stage_outputs(out_l).items()}
+    boxes, boxes_cpu = by_position(dets_l), by_position(dets_c)
+    box_err = (float(abs(boxes - boxes_cpu).max())
+               if boxes.shape == boxes_cpu.shape and len(boxes) else None)
+    report.update(points=n, image_hw=list(KITTI_HW),
+                  voxels_in_image_share=share,
+                  spawned_by_conv=counts, focal_spawn=cfg.model.voxelnext.
+                  focal_spawn, lidar_only=dict(
+                      detections=int(dets_l.count), cpu_call_s=cpu_s,
+                      stage_ids_equal_cpu=ids_equal,
+                      spawned_by_conv=spawned_counts(sp_card),
+                      cpu_own_picks_differing=own, rel_l2_vs_cpu=rels,
+                      box_max_abs_vs_cpu=box_err))
+    checks = {"image stage ran": "image" in report["stage_p50_s"],
+              "some voxels in the image": share > 0,
+              "a focal conv spawned 0 < n < focal_spawn": any(
+                  0 < c < cfg.model.voxelnext.focal_spawn for c in counts),
+              "four focal convs with the image, three without":
+              len(counts) == 4,
+              "LiDAR-only: stage ids equal": bool(trace)
+              and all(ids_equal.values()),
+              "LiDAR-only: spawned ids equal": spawn_equal,
+              "LiDAR-only: outputs within FOCAL_REL_TOL": max(rels.values())
+              <= FOCAL_REL_TOL,
+              "LiDAR-only: detection count": int(dets_l.count)
+              == int(dets_c.count) > 0,
+              "LiDAR-only: boxes within BOX_ABS_TOL": box_err is not None
+              and box_err <= BOX_ABS_TOL,
+              "finite detections": bool(torch.isfinite(dets.boxes).all()),
+              "no hand-written kernel on the path":
+              report["launches"] == {}}
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-focal: {checks}; {report}")
+    return report
+
+
+def focal_image_grads(torch, cfg, det, start, one) -> dict:
+    """The multimodal call's loss and gradients on the card and on the
+    CPU (gates and picks replayed), at `start`, on batch `one`'s gts: the
+    direct call's outputs card vs CPU, the loss and each group's gradient,
+    the image branch's gradients non-zero on both; the trap: the card's
+    call on a zero image against the CPU's outputs."""
+    pts, n, image, proj = focal_inputs(torch, cfg)
+    gt = [torch.from_numpy(one[k][0]) for k in ("gt_boxes", "gt_labels",
+                                                "gt_mask")]
+
+    def loss_grads(model, device, gates, picks, replay=None):
+        own_g, own_p = [0], {}
+        model.zero_grad(set_to_none=True)
+        model.train()
+        with zoo_gates(torch, None if replay else gates,
+                       replay and replay[0], own_g), \
+                focal_picks(torch, picks, replay and replay[1], own_p):
+            out = model(pts.to(device), n, image=image.to(device),
+                        proj=proj.to(device))
+        loss, _ = model.loss(out, *(t.to(device) for t in gt))
+        loss.backward()
+        model.eval()
+        grads = {k: None if p.grad is None else p.grad.cpu()
+                 for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out, float(loss.detach()), grads, own_g[0], own_p
+    det.load_state_dict(start)
+    gates, picks = [], {}
+    out_g, loss_g, grads_g, _, _ = loss_grads(det, "cuda", gates, picks)
+    cpu = focal_detector(torch, cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    t0 = time.perf_counter()
+    out_c, loss_c, grads_c, gates_differ, picks_differ = loss_grads(
+        cpu, "cpu", None, {}, (gates, picks))
+    cpu_s = time.perf_counter() - t0
+    groups = collections.defaultdict(list)
+    for name in grads_c:
+        part = name.split(".")
+        groups[".".join(part[:2] if part[0] == "backbone3d" else
+                        part[:1])].append(name)
+    rel = group_rel_l2(torch, dict(groups), grads_g, grads_c)
+    rels = {k: rel_l2(v.detach().float().cpu(),
+                      two_stage_outputs(out_c)[k].detach().float())
+            for k, v in two_stage_outputs(out_g).items()}
+    with torch.no_grad():
+        _, trap, _ = focal_staged(torch, det, pts.cuda(), n,
+                                  image=torch.zeros_like(image).cuda(),
+                                  proj=proj.cuda())
+    trap_rel = rel_l2(trap["bev_dense"].float().cpu(),
+                      out_c["bev_dense"].detach().float())
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    checks = {"image call's outputs card vs CPU within FOCAL_REL_TOL":
+              max(rels.values()) <= FOCAL_REL_TOL,
+              "image loss card vs CPU within DET_LOSS_TOL": loss_rel
+              <= DET_LOSS_TOL,
+              "image gradients within DET_GRAD_TOL": all(
+                  v is not None and v <= DET_GRAD_TOL for v in rel.values()),
+              "semseg gradients non-zero on both devices": all(
+                  d[k] is not None and float(d[k].abs().sum()) > 0
+                  for d in (grads_g, grads_c) for k in groups["semseg"]),
+              "trap (zero image) misses FOCAL_REL_TOL": trap_rel
+              > FOCAL_REL_TOL}
+    report = dict(loss_card=loss_g, loss_cpu=loss_c, loss_rel=loss_rel,
+                  group_grad_rel_l2=rel, rel_l2_vs_cpu=rels,
+                  trap_zero_image_bev_rel_l2=trap_rel,
+                  cpu_own_gates_differing=gates_differ,
+                  cpu_own_picks_differing=picks_differ, cpu_call_s=cpu_s,
+                  checks=checks)
+    print(f"detector-focal image call: card vs CPU on the card's gates and "
+          f"picks: outputs {max(rels.values()):.2e}, loss {loss_rel:.2e}, "
+          f"semseg {rel.get('semseg')}; zero-image trap {trap_rel:.3e}",
+          flush=True)
+    return report
+
+
+def focal_train(torch) -> dict:
+    """The train step at batch ZOO_BATCH (LiDAR-only, as JAX's), batch 1
+    card vs CPU with gates and picks replayed (the image branch without a
+    gradient on both), then the multimodal call's loss and gradients."""
+    cfg = focal_config()
+    batch = detector_batch(cfg, range(ZOO_BATCH), kitti_cloud)
+    det = focal_detector(torch, cfg, "cuda")
+    start = {k: v.clone() for k, v in det.state_dict().items()}
+    report = timed_train(torch, "detector-focal", det, batch)
+    checks = report.pop("checks")
+    checks["no hand-written kernel on the path"] = (
+        report["launches_per_step"] == {})
+    det.load_state_dict(start)
+    one = {k: v[:1] for k, v in batch.items()}
+    report.update(two_stage_against_cpu(
+        torch, "VoxelRCNN", cfg, det, start, one,
+        lambda log, replayed, own: focal_picks(torch, log, replayed, own),
+        "detector-focal"))
+    checks.update(report.pop("checks"))
+    checks["the step leaves the image modules without a gradient"] = all(
+        name.startswith(("semseg.", "backbone3d.focal_multimodal."))
+        for name in report["no_gradient"]) and bool(report["no_gradient"])
+    image = focal_image_grads(torch, cfg, det, start, one)
+    checks.update(image.pop("checks"))
+    report["image_call"] = image
+    report["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"detector-focal train: {checks}; {report}")
+    return report
+
+
+def run_detector_focal(torch) -> dict:
+    """The focal multimodal Voxel R-CNN on the card: the direct call with
+    image and proj, the LiDAR-only detect against the CPU, training and
+    the multimodal gradients against the CPU. `launches`: none."""
+    report = {"detect": focal_detect(torch)}
+    torch.cuda.empty_cache()
+    report["train"] = focal_train(torch)
     report["launches"] = {}
     return report
 
@@ -5576,8 +6304,11 @@ NO_SPILL = re.compile(r"win_sm90ILi64E|kh_stream_sm90ILi\d+ELi64E|mlp_|"
 
 PHASES = ("kernels", "main-path", "lidar-bev", "detector-train",
           "detector-zoo", "detector-camera", "detector-two-stage",
-          "detector-waymo", "serving", "sam1280", "serving-runtime",
-          "train-step", "trainer")
+          "detector-waymo", "detector-mppnet", "detector-focal", "serving",
+          "sam1280", "serving-runtime", "train-step", "trainer")
+# the phases that build no kernel: their paths launch none
+NO_KERNELS = {"detector-train", "detector-two-stage", "detector-waymo",
+              "detector-mppnet", "detector-focal"}
 # lidar-bev feeds its BEV to the float path's model; the serving phases hold
 # their logits to the float path's
 NEEDS = {"lidar-bev": "main-path", "serving": "main-path"}
@@ -5624,11 +6355,7 @@ def main(argv=None) -> int:
 
     from lvv_tpu_torch import kernels
     t0 = time.perf_counter()
-    # VoxelNeXt's, the two-stage detectors' and the Waymo detectors' paths
-    # run no hand-written kernel
-    reports = (kernels.build_all()
-               if run - {"detector-train", "detector-two-stage",
-                         "detector-waymo"} else {})
+    reports = kernels.build_all() if run - NO_KERNELS else {}
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     spills = []
     for name, log in reports.items():
@@ -5684,9 +6411,13 @@ def main(argv=None) -> int:
     if "detector-two-stage" in run:
         paths["detector-two-stage"] = run_detector_two_stage(torch)
         emit("detector-two-stage", paths["detector-two-stage"])
-    if "detector-waymo" in run:
-        paths["detector-waymo"] = run_detector_waymo(torch)
-        emit("detector-waymo", paths["detector-waymo"])
+    for name, phase in (("detector-waymo", run_detector_waymo),
+                        ("detector-mppnet", run_detector_mppnet),
+                        ("detector-focal", run_detector_focal)):
+        if name in run:
+            paths[name] = phase(torch)
+            emit(name, paths[name])
+            torch.cuda.empty_cache()
     if "serving" in run:
         served = serving_model(torch)
         paths["serving"], mlp_logits = run_serving_path(

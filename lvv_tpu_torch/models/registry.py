@@ -1,17 +1,18 @@
 """Detector registry and `build_detector` (counterpart of
 lvv_tpu/models/registry.py).
 
-The JAX package registers 17 detector families. The port builds 15:
+The port builds every family the JAX package registers, 17:
 VoxelNeXt, PointPillars, CenterPoint, SECOND, TransFusion, PillarNet and
-DSVT (LiDAR, one stage); PVRCNN, PVRCNNPlusPlus, PartA2, VoxelRCNN (its LiDAR trunk; a
-config with `focal` raises), SECONDNetIoU and PointRCNN (LiDAR, two
-stages); and BEVFusion and CaDDN (camera input: their `forward` and
+DSVT (LiDAR, one stage); PVRCNN, PVRCNNPlusPlus, PartA2, VoxelRCNN (with
+its focal / multimodal trunk where the config sets `focal`), SECONDNetIoU
+and PointRCNN (LiDAR, two stages); MPPNet and MPPNetE2E (multi-frame
+refinement of given proposals: their `forward` takes frame stacks and
+proposals, and they train through `train.detector.make_mppnet_train_step`;
+both run 4 frames whatever the preset, as JAX's registry builds them with
+its default); and BEVFusion and CaDDN (camera input: their `forward` and
 `detect` take views and calibration, and they do not train, since the
-JAX package has no train step that takes camera tensors). Every other
-registered name (MPPNet, MPPNetE2E) raises
-NotImplementedError until its family is ported (ROADMAP.md, queue 1,
-item 2: the detector zoo), and an unknown name raises KeyError, as JAX's
-`build_detector` does.
+JAX package has no train step that takes camera tensors). An unknown name
+raises KeyError, as JAX's `build_detector` does.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ PORTED = {"VoxelNeXt": ("voxelnext", "VoxelNeXtDetector"),
           "BEVFusion": ("bevfusion", "BEVFusionDetector"),
           "CaDDN": ("caddn", "CaDDNDetector"),
           "PillarNet": ("pillarnet", "PillarNetDetector"),
-          "DSVT": ("dsvt", "DSVTDetector")}
+          "DSVT": ("dsvt", "DSVTDetector"),
+          "MPPNet": ("mppnet", "MPPNetDetector"),
+          "MPPNetE2E": ("mppnet", "MPPNetE2E")}
 
 
 def build_detector(name: str, det_cfg, vox_cfg, *, device=None,
@@ -44,15 +47,10 @@ def build_detector(name: str, det_cfg, vox_cfg, *, device=None,
     """The detector `name` on `device` (the card unless told otherwise),
     its weights random from `seed`, in eval mode; `options` go to the
     family's class (e.g. BEVFusion's `image_hw`, TransFusion's
-    `num_queries`)."""
+    `num_queries`, MPPNet's `point_features`)."""
     if name not in DETECTORS:
         raise KeyError(f"unknown detector {name!r}; "
                        f"registered: {sorted(DETECTORS)}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"detector {name!r} is not ported yet: it waits for ROADMAP.md "
-            "queue 1, item 2 (the detector zoo); the port builds "
-            f"{', '.join(PORTED)}")
     module, cls = PORTED[name]
     mod = importlib.import_module(f"{__package__}.{module}")
     return getattr(mod, cls)(det_cfg, vox_cfg, device=device, seed=seed,

@@ -10,9 +10,16 @@ voxel diagonal), their offsets and features through Dense + ReLU, max
 over the neighbours; the scales concatenated, Dense + ReLU layers, cls
 and residual box. The proposals keep their gradient, as in JAX.
 
-The focal / multimodal trunk (`focal`, configs/
-kitti_voxel_rcnn_car_focal_multimodal.json) is not ported: building it
-raises, naming ROADMAP.md queue 1, item 2.
+With `focal` (configs/kitti_voxel_rcnn_car_focal_multimodal.json) the
+sparse trunk is `focal_conv.FocalMultiScaleBackbone3D`, and `loss` adds
+its importance losses as "loss_box_of_pts". With `focal_use_img` too the
+detector also builds the image branch (`semseg`: PyramidFeat2D's layer1,
+reduced to channels[0], trunk norm `focal_trunk_norm`) and the multimodal
+focal conv; a call that passes `image` [H, W, 3] and `proj` [3, 4] runs
+them, the projection's pixel rows scaled by 0.25 to layer1's stride.
+Reference trait kept: `detect(points, num_points)` and the train step
+pass no image, as JAX's do, so they run the LiDAR-only focal trunk and
+leave the image modules without a gradient.
 """
 from __future__ import annotations
 
@@ -28,16 +35,15 @@ from ..ops.voxel_query import gather_neighborhood
 from ..ops.voxelize import VoxelGrid
 from .anchor_head import anchor_head_loss, assign_anchor_targets
 from .centerpoint import TRUNK2D, CenterPointBackbone3D, height_compression
+from .focal_conv import FocalMultiScaleBackbone3D, focal_aux_loss
 from .pointpillars import BaseBEVBackbone, Dense
 from .roi_head import (boxes9, canonical_decode, proposal_targets,
                        roi_head_loss)
+from .semseg import PyramidFeat2D, image_feature_map, scale_pixels
 from .two_stage import TwoStageDetector
 from .voxelnext import Detections, SparseBasicBlock, SparseConvLayer
 
-FOCAL_TRUNK = ("Voxel R-CNN's focal / multimodal trunk (det_cfg.focal: "
-               "VoxelBackBone8xFocal, its image branch) is not ported: it "
-               "waits for ROADMAP.md queue 1, item 2 (the focal / semseg "
-               "trunk)")
+IMAGE_STRIDE = 4      # layer1's stride: the image features' pixel scale
 
 
 class MultiScaleBackbone3D(nn.Module):
@@ -92,6 +98,13 @@ def roi_grid_points_3d(rois: torch.Tensor, grid: int) -> torch.Tensor:
     return torch.stack([x, y, z], -1)
 
 
+def neighbour_max(h: torch.Tensor) -> torch.Tensor:
+    """[N, K, C] -> [N, C], the max over the K neighbours (-inf where every
+    one is masked); its gradient goes to the winning entry, split evenly
+    between exact ties, as jnp.max's."""
+    return h.amax(1)
+
+
 class VoxelRCNNHead(nn.Module):
     """Grid-point voxel aggregation (`pool`) and the Dense refinement
     (`head`)."""
@@ -129,7 +142,7 @@ class VoxelRCNNHead(nn.Module):
                 st, flat, qc, vs, origin, ranges=self.ranges, radius=radius)
             h = torch.relu(getattr(self, f"mlp{si}")(
                 torch.cat([rel, feats], -1)))
-            h = torch.where(mask[..., None], h, -torch.inf).amax(1)
+            h = neighbour_max(torch.where(mask[..., None], h, -torch.inf))
             pooled.append(torch.where(torch.isfinite(h), h, 0.0))
         return torch.cat(pooled, -1).reshape(m, -1)
 
@@ -140,20 +153,34 @@ class VoxelRCNNHead(nn.Module):
 
 
 class VoxelRCNNDetector(TwoStageDetector):
-    """`backbone3d`, `backbone2d`, `rpn`, `roi_head` (pooling from strides
-    2, 4 and 8); `loss`: the anchor loss and the RoI head's over
-    `proposal_targets` of the proposals."""
+    """`backbone3d` (focal with `det_cfg.focal`), `semseg` (with
+    `focal_use_img`), `backbone2d`, `rpn`, `roi_head` (pooling from
+    strides 2, 4 and 8); `loss`: the anchor loss, the RoI head's over
+    `proposal_targets` of the proposals, and the focal convs' importance
+    losses where the forward has them."""
 
     STRIDES = (2, 4, 8)
 
     def __init__(self, det_cfg: VoxelNeXtConfig, vox_cfg: VoxelizeConfig, *,
                  device=None, seed: int = 0, roi_grid: int = 4):
-        if getattr(det_cfg, "focal", False):
-            raise NotImplementedError(FOCAL_TRUNK)
         super().__init__(det_cfg, vox_cfg, device)
         kw = dict(device=self._device)
-        self.backbone3d = MultiScaleBackbone3D(
-            det_cfg, vox_cfg.num_point_features, vox_cfg.max_voxels, **kw)
+        self.focal = getattr(det_cfg, "focal", False)
+        if self.focal:
+            use_img = getattr(det_cfg, "focal_use_img", False)
+            if use_img:
+                self.semseg = PyramidFeat2D(
+                    ("layer1",), reduce_out=(det_cfg.channels[0],),
+                    trunk_norm=getattr(det_cfg, "focal_trunk_norm", "gn"),
+                    **kw)
+            self.backbone3d = FocalMultiScaleBackbone3D(
+                det_cfg, vox_cfg.num_point_features, vox_cfg.max_voxels,
+                use_img=use_img, spawn=getattr(det_cfg, "focal_spawn", 128),
+                **kw)
+        else:
+            self.backbone3d = MultiScaleBackbone3D(
+                det_cfg, vox_cfg.num_point_features, vox_cfg.max_voxels,
+                **kw)
         chs = self.backbone3d.channels
         nz = CenterPointBackbone3D.out_depth(self.voxel_grid().grid_size[2],
                                              len(chs) - 1)
@@ -162,11 +189,43 @@ class VoxelRCNNDetector(TwoStageDetector):
         self.roi_head = VoxelRCNNHead(chs[1:], grid=roi_grid, **kw)
         self._finish(seed)
 
-    def stages(self, trace: Optional[List] = None):
+    def forward(self, points: torch.Tensor, num_points, image=None,
+                proj=None, return_dense_bev: bool = True,
+                trace: Optional[List] = None,
+                spawned: Optional[List] = None) -> Dict:
+        """As DenseDetector's; `image` [H, W, 3] and `proj` [3, 4] run the
+        image branch of a focal multimodal config (its multimodal focal
+        conv included); `spawned` receives each focal conv's spawned
+        ids."""
+        (_, first), *rest = self.stages(trace, image, proj, spawned)
+        x = first(points.to(self.device, torch.float32), num_points)
+        for _, fn in rest:
+            x = fn(x)
+        return x
+
+    def stages(self, trace: Optional[List] = None, image=None, proj=None,
+               spawned: Optional[List] = None):
+        """The forward's steps; a focal config with `image` and `proj`
+        adds "image" (the image branch) after "voxelize"."""
         grid = self.voxel_grid()
+        use_img = (self.focal and image is not None
+                   and hasattr(self, "semseg"))
+
+        def image_branch(s):
+            s["image_feat"] = image_feature_map(self.semseg,
+                                                image.to(self.device))
+            s["proj"] = scale_pixels(proj.to(self.device).float(),
+                                     1.0 / IMAGE_STRIDE)
+            return s
 
         def trunk3d(s):
-            s["stages"] = self.backbone3d(s.pop("st0"), trace)
+            if self.focal:
+                s["stages"], s["focal_aux"] = self.backbone3d(
+                    s.pop("st0"), s.pop("image_feat", None),
+                    s.pop("proj", None), self.vox_cfg.voxel_size,
+                    self.vox_cfg.point_range, trace, spawned)
+            else:
+                s["stages"] = self.backbone3d(s.pop("st0"), trace)
             s["bev3d"] = height_compression(s["stages"][-1])
             return s
 
@@ -194,7 +253,9 @@ class VoxelRCNNDetector(TwoStageDetector):
                 scores=torch.sigmoid(rp["cls"].float()) * p.scores,
                 labels=p.labels, count=p.count)
             return s
-        return [self.voxelize_stage(), ("trunk3d", trunk3d),
+        return [self.voxelize_stage(),
+                *([("image", image_branch)] if use_img else []),
+                ("trunk3d", trunk3d),
                 ("trunk2d_rpn", trunk2d_rpn), self.proposals_stage("preds"),
                 ("pool", pool), ("roi_head", roi_head), ("refine", refine)]
 
@@ -207,5 +268,11 @@ class VoxelRCNNDetector(TwoStageDetector):
         tgt = proposal_targets(out["proposals"].boxes[:, :7], gt_boxes,
                                gt_mask)
         rcnn_loss, rstats = roi_head_loss(out["roi_preds"], tgt)
-        return rpn_loss + rcnn_loss, {**stats, **rstats}
+        total = rpn_loss + rcnn_loss
+        if out.get("focal_aux"):
+            fl = focal_aux_loss(out["focal_aux"], gt_boxes, gt_labels,
+                                gt_mask)
+            total = total + fl
+            rstats = {**rstats, "loss_box_of_pts": fl}
+        return total, {**stats, **rstats}
 

@@ -109,7 +109,11 @@ def roipoint_pool3d(points: torch.Tensor, features: torch.Tensor,
     if valid_points is not None:
         inside &= valid_points[:, None]
     m = inside.shape[1]
-    rank = torch.cumsum(inside.to(torch.int32), 0) - 1
+    # each box's running count of points, scanned along the box's own row
+    # of the transposed mask: a scan along dim 0 of [N, M] runs one thread
+    # a box over all N points (PyTorch's outer-dim scan: 17.6 ms a call at
+    # N = 75,000, M = 32 on an H100), the inner-dim scan in parallel
+    rank = torch.cumsum(inside.t().to(torch.int32), 1).t() - 1
     keep = inside & (rank < num_sampled)
     pf = torch.cat([points[:, :3], features], 1)
     # the kept (box, rank) pairs are unique: one write each, every other

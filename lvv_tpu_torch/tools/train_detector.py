@@ -15,18 +15,26 @@ waymo_dsvt_*.json) and the two-stage families (PVRCNN, PVRCNNPlusPlus, PartA2,
 VoxelRCNN, SECONDNetIoU, PointRCNN: configs/kitti_*.json) through their
 own `.loss`. BEVFusion and CaDDN build (`build_detector`) but do not
 train: the JAX package has no train step that takes camera tensors, and
-the CLI exits saying so; so does a focal Voxel R-CNN config, whose trunk
-is not ported. `--synthetic` takes tiny_config() (or --config)
-and one fixed generated batch (uniform points, 8 boxes), as the JAX CLI's
-smoke mode does. Each step prints `[i] loss L` and the family's loss terms
+the CLI exits saying so. A focal Voxel R-CNN config
+(configs/kitti_voxel_rcnn_car_focal_multimodal.json) trains its
+LiDAR-only focal trunk, as JAX's step passes no image. `--synthetic`
+takes tiny_config() (or --config) and one fixed generated batch (uniform
+points, 8 boxes), as the JAX CLI's smoke mode does. MPPNet (--detector
+MPPNet, configs/waymo_mppnet_*.json) trains on JAX's synthetic
+multi-frame batch instead (`synthetic_mppnet_batch`: 4 frames of
+max_points // 4 uniform points, 8 boxes, 32 proposals: the boxes plus
+N(0, 0.3) noise, then random ones), each sample's RoI sampling drawing
+from a torch.Generator seeded 11 (`make_mppnet_train_step`). MPPNetE2E
+exits: the JAX CLI cannot train it (it steps every MPPNet-like family
+with MPPNet's call, which MPPNetE2E's signature refuses with a
+TypeError), and its preset is the reference's inference config. Each step prints `[i] loss L` and the family's loss terms
 (e.g. `hm_loss H reg_loss R`) and `T ms`; checkpoints go to
 OUT/checkpoints/step_N (the detector's parameters and running
 statistics, without the optimizer state) every --save-every steps and at
 the end; the last line is {"steps", "final_loss"}. Runs on the card
 unless `--device` says otherwise, in fp32 with TF32 off. Real datasets
-(--dataset without --synthetic), MPPNet and MPPNetE2E
-wait for the detector zoo and its datasets (ROADMAP.md, queue 1, item
-2): they exit with a message saying so. The JAX CLI's real-data options (--tiny, --dataroot,
+(--dataset without --synthetic) wait for the port's datasets
+(ROADMAP.md, queue 1, item 2): they exit with a message saying so. The JAX CLI's real-data options (--tiny, --dataroot,
 --info-path, --max-gt, --augment, --gt-db, --gt-quota, --cbgs,
 --proposals, --seq-offsets) come with that mode.
 """
@@ -55,6 +63,43 @@ def synthetic_batch(rng, b, n_pts, n_gt, point_range) -> dict:
     return {"points": pts, "num_points": np.full((b,), n_pts, np.int32),
             "gt_boxes": boxes, "gt_labels": labels,
             "gt_mask": np.ones((b, n_gt), bool)}
+
+
+def synthetic_mppnet_batch(rng, b, n_frames, n_pts, n_gt, n_rois,
+                           point_range) -> dict:
+    """The JAX CLI's synthetic MPPNet batch: `synthetic_batch`'s gts, then
+    b stacks of n_frames uniform clouds of n_pts points, and n_rois
+    proposals: the gts plus N(0, 0.3) noise on every column, the rest at
+    random centres with sizes 1-4 m (scores 0.5, labels 0)."""
+    base = synthetic_batch(rng, b, n_pts, n_gt, point_range)
+    fp = rng.uniform(point_range[0], point_range[3],
+                     (b, n_frames, n_pts, 4)).astype(np.float32)
+    fp[..., 2] = rng.uniform(point_range[2], point_range[5],
+                             (b, n_frames, n_pts))
+    pb = np.zeros((b, n_rois, 9), np.float32)
+    pb[:, :n_gt] = base["gt_boxes"] + rng.normal(
+        0, 0.3, (b, n_gt, 9)).astype(np.float32)
+    pb[:, n_gt:, :2] = rng.uniform(point_range[0] * 0.8,
+                                   point_range[3] * 0.8,
+                                   (b, n_rois - n_gt, 2))
+    pb[:, n_gt:, 3:6] = rng.uniform(1.0, 4.0, (b, n_rois - n_gt, 3))
+    return {"frame_points": fp,
+            "frame_counts": np.full((b, n_frames), n_pts, np.int32),
+            "prop_boxes": pb,
+            "prop_scores": np.full((b, n_rois), 0.5, np.float32),
+            "prop_labels": np.zeros((b, n_rois), np.int32),
+            "prop_count": np.full((b,), n_rois, np.int32),
+            "gt_boxes": base["gt_boxes"], "gt_mask": base["gt_mask"]}
+
+
+MPPNET_ROIS = 32
+MPPNET_DRAW_SEED = 11
+E2E_REFUSAL = (
+    "MPPNetE2E does not train: the JAX CLI steps every MPPNet-like family "
+    "with MPPNet's call (frame_points, frame_counts, proposals), which "
+    "MPPNetE2E (bank, points, num_points, proposals) refuses with a "
+    "TypeError, and its preset is the reference's inference-only "
+    "memory-bank config; train MPPNet and load its head")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -89,7 +134,8 @@ def main(argv=None):
     from lvv_tpu_torch import config as C
     from lvv_tpu_torch.models.registry import build_detector
     from lvv_tpu_torch.train.checkpoints import CheckpointManager
-    from lvv_tpu_torch.train.detector import make_detector_train_step
+    from lvv_tpu_torch.train.detector import (make_detector_train_step,
+                                              make_mppnet_train_step)
     from lvv_tpu_torch.train.optim import detector_optimizer
 
     cfg = (C.load(C.VQAConfig, args.config, args.overrides) if args.config
@@ -97,9 +143,8 @@ def main(argv=None):
     detector = args.detector or (
         C.load_file(args.config).get("_detector") if args.config else None
     ) or "VoxelNeXt"
-    if detector in ("MPPNet", "MPPNetE2E"):
-        raise SystemExit(f"{detector}'s multi-frame training waits for "
-                         "MPPNet's port (ROADMAP.md queue 1, item 2)")
+    if detector == "MPPNetE2E":
+        raise SystemExit(E2E_REFUSAL)
     if not args.synthetic:
         raise SystemExit(f"real-data training (--dataset {args.dataset}) "
                          "waits for the port's detection datasets "
@@ -113,14 +158,23 @@ def main(argv=None):
         raise SystemExit(str(e)) from None
 
     rng = np.random.default_rng(0)
-    batch = synthetic_batch(rng, args.batch, cfg.voxelize.max_points // 4,
-                            8, cfg.voxelize.point_range)
     tx = detector_optimizer(args.lr, args.steps)
-    try:
-        step = make_detector_train_step(det, tx, cfg.model.voxelnext,
-                                        cfg.voxelize)
-    except NotImplementedError as e:            # the camera-input families
-        raise SystemExit(str(e)) from None
+    if detector == "MPPNet":
+        batch = synthetic_mppnet_batch(
+            rng, args.batch, det.num_frames,
+            cfg.voxelize.max_points // det.num_frames, 8, MPPNET_ROIS,
+            cfg.voxelize.point_range)
+        step = make_mppnet_train_step(
+            det, tx, torch.Generator().manual_seed(MPPNET_DRAW_SEED))
+    else:
+        batch = synthetic_batch(rng, args.batch,
+                                cfg.voxelize.max_points // 4, 8,
+                                cfg.voxelize.point_range)
+        try:
+            step = make_detector_train_step(det, tx, cfg.model.voxelnext,
+                                            cfg.voxelize)
+        except NotImplementedError as e:        # the camera-input families
+            raise SystemExit(str(e)) from None
     state = (det, tx.init(dict(det.named_parameters())))
     ckpt = CheckpointManager(args.out + "/checkpoints")
     metrics = {}

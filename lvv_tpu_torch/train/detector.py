@@ -11,12 +11,17 @@ lvv_tpu/train/detector.py).
 - `make_bucketed_detector_train_step`: one step per capacity bucket, all
   on one set of parameters, and the host planner's pick of the smallest
   bucket that drops no voxel.
+- `make_mppnet_train_step`: MPPNet's step (JAX's
+  `make_mppnet_train_step`): each sample's trajectories refined, its RoIs
+  sampled with its own pair of uniform draws, the RoI loss; the mean over
+  the batch, one sample's graph at a time.
 - `recall_stats`: recall of gt boxes at 3D IoU thresholds.
 
 The step trains VoxelNeXt, PointPillars, CenterPoint, SECOND,
 TransFusion, PillarNet, DSVT and the two-stage families (PV-RCNN, PV-RCNN++, Part-A²,
-Voxel R-CNN, SECOND-IoU, PointRCNN, each through its own `.loss`);
-MPPNet's train step waits for MPPNet (ROADMAP.md, queue 1, item 2). The camera-input families (BEVFusion, CaDDN) raise: the JAX
+Voxel R-CNN with or without its focal trunk, SECOND-IoU, PointRCNN, each
+through its own `.loss`; MPPNet trains through `make_mppnet_train_step`.
+The camera-input families (BEVFusion, CaDDN) raise: the JAX
 package's step feeds a detector points alone and has none that takes
 camera tensors.
 """
@@ -122,6 +127,61 @@ def make_detector_train_step(det, tx, det_cfg: VoxelNeXtConfig,
         with torch.no_grad():
             for t, m in zip(stats, moved):
                 t.copy_(m / b)
+        norm = tx.update({n: p.grad for n, p in params.items()}, opt_state,
+                         params)
+        metrics = {k: v / b for k, v in sums.items()}
+        metrics["grad_norm"] = norm
+        return state, metrics
+
+    step.det = det
+    return step
+
+
+MPPNET_BATCH_KEYS = ("frame_points", "frame_counts", "prop_boxes",
+                     "prop_scores", "prop_labels", "prop_count", "gt_boxes",
+                     "gt_mask")
+
+
+def make_mppnet_train_step(det, tx, generator: torch.Generator | None = None):
+    """-> step(state, batch) -> (state, metrics) for MPPNetDetector, state =
+    (det, opt_state) updated in place. batch: frame_points [B, T, P, F],
+    frame_counts [B, T], prop_boxes [B, R, 9], prop_scores [B, R],
+    prop_labels [B, R], prop_count [B], gt_boxes [B, G, 9], gt_mask [B, G],
+    and optionally draws [B, 2, R]: each sample's foreground and background
+    priorities for `subsample_rois` (uniform in [0, 1)); without them each
+    sample draws its own from `generator` (on the host, then moved).
+    metrics: the batch means of `loss`, `roi_cls_loss` and
+    `roi_reg_loss`, and `grad_norm` before the clip."""
+    from ..models.mppnet import mppnet_loss
+    from ..models.voxelnext import Detections
+    params = dict(det.named_parameters())
+    gen = generator if generator is not None else torch.Generator()
+
+    def step(state, batch):
+        _, opt_state = state
+        det.train()
+        dev = det.device
+        fp, fc, pb, ps, pl, pc, boxes, mask = (
+            torch.as_tensor(batch[k]).to(dev) for k in MPPNET_BATCH_KEYS)
+        b, r = pb.shape[:2]
+        draws = batch.get("draws")
+        draws = (torch.rand((b, 2, r), generator=gen) if draws is None
+                 else torch.as_tensor(draws)).to(dev, torch.float32)
+        for p in params.values():
+            p.grad = None
+        sums: Dict[str, torch.Tensor] = {}
+        for i in range(b):
+            out = det(fp[i], fc[i], Detections(pb[i], ps[i], pl[i], pc[i]),
+                      return_preds=True)
+            loss, aux = mppnet_loss(out["preds"], out["rois"], boxes[i],
+                                    mask[i], draws=(draws[i, 0],
+                                                    draws[i, 1]),
+                                    trajectory_rois=out["trajectory_rois"])
+            (loss / b).backward()
+            aux = dict(aux)
+            aux.setdefault("loss", loss)
+            for k, v in aux.items():
+                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
         norm = tx.update({n: p.grad for n, p in params.items()}, opt_state,
                          params)
         metrics = {k: v / b for k, v in sums.items()}

@@ -26,8 +26,8 @@ over `jax.eval_shape`, converted by `from_jax_detector_params`).
   jax.value_and_grad.
 - The registry builds both (full width on the meta device: BEVFusion's
   27 LayerNorms that K-a takes on the card), neither trains (the train
-  step says why, and the CLI on CaDDN's preset), the other ten unported
-  names still raise.
+  step says why, and the CLI on CaDDN's preset); no registered name is
+  left unported: every one builds, an unknown one raises KeyError.
 
 Tolerances (torch_zoo_util): fp32 forward 1e-5 relative L2, detections
 equal in count and labels with boxes and scores within 1e-4, the loss 1e-5
@@ -65,6 +65,7 @@ from lvv_tpu_torch.train.detector import make_detector_train_step
 from torch_zoo_util import (FWD_REL_L2, GRAD_REL_L2, LOSS_REL,
                             check_detections, cloud, configs, group_rel_l2,
                             random_tree, rel_l2)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 
@@ -478,10 +479,15 @@ def test_cli_says_camera_families_do_not_train():
 
 
 def test_other_families_still_raise():
+    """No registered family raises any more: every one builds (on the
+    meta device), and an unknown name still raises KeyError."""
     left = [n for n in DETECTORS if n not in PORTED]
-    assert len(left) == 2 and "BEVFusion" in PORTED and "CaDDN" in PORTED
+    assert left == [] and "BEVFusion" in PORTED and "CaDDN" in PORTED
     cfg = tiny_config()
-    for name in left:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_detector(name, cfg.model.voxelnext, cfg.voxelize,
-                           device="meta")
+    for name in DETECTORS:
+        det = build_detector(name, cfg.model.voxelnext, cfg.voxelize,
+                             device="meta")
+        assert type(det).__name__ == PORTED[name][1]
+    with pytest.raises(KeyError, match="unknown detector"):
+        build_detector("MPPNetV2", cfg.model.voxelnext, cfg.voxelize,
+                       device="meta")

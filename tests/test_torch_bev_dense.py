@@ -50,6 +50,7 @@ from lvv_tpu_torch.ops.nms import top_k
 from torch_zoo_util import (FWD_REL_L2, GRAD_REL_L2, LOSS_REL, Run,
                             check_detections, group_rel_l2, random_tree,
                             rel_l2, train_step)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

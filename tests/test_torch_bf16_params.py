@@ -38,6 +38,7 @@ from lvv_tpu_torch.models.layers import LayerNorm, RMSNorm
 from lvv_tpu_torch.models.qwen import init_cache
 from lvv_tpu_torch.train.train_step import TrainState, load_masters
 from torch_parity_util import inputs, jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -32,6 +32,7 @@ from jax.experimental import pallas as pl
 import chip_smoke
 from lvv_tpu_torch import kernels
 from lvv_tpu_torch.ops import attention as A
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

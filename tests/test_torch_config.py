@@ -10,6 +10,7 @@ import pytest
 
 from lvv_tpu import config as J
 from lvv_tpu_torch import config as C
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -19,6 +19,7 @@ from lvv_tpu.convert.qwen_hf import convert_qwen_state as jax_qwen
 from lvv_tpu_torch import convert as PC
 from lvv_tpu_torch import from_jax_params, tiny_config
 from torch_parity_util import jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

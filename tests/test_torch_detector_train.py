@@ -79,6 +79,7 @@ from lvv_tpu_torch.train.optim import (ClipAdamW, clip_by_global_norm,
                                        detector_optimizer,
                                        warmup_cosine_decay_schedule)
 from torch_voxelnext_util import _tree, cloud, configs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 
@@ -454,14 +455,30 @@ def test_bucketed_step_picks_and_shares(runs):
     assert not torch.equal(d0.head.hm_head_bias.detach(), before)
 
 
+# the widths that BEVFusion's and DSVT's own tests build them at, where
+# tiny_config() leaves them at the reference's (Swin-T over 256 x 704
+# views, 192-channel set attention): their seeded draws on the CPU took
+# ~100 of the file's worker-seconds in a six-worker pytest run
+SMALL_BUILD = {"BEVFusion": ({}, dict(image_hw=(224, 448), swin_embed=8,
+                                      swin_depths=(2, 2, 2, 2),
+                                      swin_heads=(1, 2, 2, 4),
+                                      out_indices=(1, 2, 3), fpn_channels=16,
+                                      cam_bev_channels=8, fuse_channels=16,
+                                      num_queries=16)),
+               "DSVT": (dict(dsvt_channels=16, dsvt_heads=2,
+                             dsvt_set_size=8), {})}
+
+
 @pytest.mark.parametrize("name", sorted(set(DETECTORS) - {"VoxelNeXt"}))
 def test_registry_names_wait_for_the_zoo(name):
     """The families not ported yet raise, naming the zoo's item; the
-    ported ones build, in eval mode."""
+    ported ones (every registered name now) build, in eval mode."""
     cfg = tiny_config()
     if name in PORTED:
-        det = build_detector(name, cfg.model.voxelnext, cfg.voxelize,
-                             device="cpu")
+        det_over, opts = SMALL_BUILD.get(name, ({}, {}))
+        det = build_detector(name, dataclasses.replace(
+            cfg.model.voxelnext, **det_over), cfg.voxelize, device="cpu",
+            **opts)
         assert type(det).__name__ == PORTED[name][1] and not det.training
         return
     with pytest.raises(NotImplementedError, match="queue 1, item 2"):
@@ -532,10 +549,52 @@ def test_cli_trains_and_checkpoints(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["--steps", "1"],
     ["--synthetic", "--detector", "MPPNetE2E"],
-    ["--synthetic", "--detector", "MPPNet"]])
-def test_cli_names_what_it_waits_for(argv, tmp_path):
-    with pytest.raises(SystemExit, match="queue 1, item 2"):
-        cli.main(argv + ["--out", str(tmp_path), "--device", "cpu"])
+    ["--synthetic", "--detector", "MPPNet", "--steps", "2"]])
+def test_cli_names_what_it_waits_for(argv, tmp_path, capsys):
+    """Real data waits for the port's datasets; MPPNetE2E exits naming
+    the JAX CLI's fault; MPPNet trains two steps on JAX's synthetic
+    multi-frame batch and checkpoints."""
+    args = argv + ["--out", str(tmp_path), "--device", "cpu"]
+    if "--synthetic" not in argv:
+        with pytest.raises(SystemExit, match="queue 1, item 2"):
+            cli.main(args)
+    elif "MPPNetE2E" in argv:
+        with pytest.raises(SystemExit, match="TypeError"):
+            cli.main(args)
+    else:
+        det, metrics = cli.main(args)
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert type(det).__name__ == "MPPNetDetector"
+        assert [ln.split()[0] for ln in lines[:2]] == ["[0]", "[1]"]
+        assert "roi_cls_loss" in lines[0]
+        assert json.loads(lines[-1])["steps"] == 2
+        assert np.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0
+        assert (tmp_path / "checkpoints" / "step_2").is_dir()
+
+
+def test_jax_cli_cannot_train_mppnet_e2e():
+    """Reference trait, pinned (ROADMAP.md queue 3): the JAX CLI's
+    `run_mppnet` inits every MPPNet-like family with MPPNet's call, which
+    MPPNetE2E refuses (its call takes the bank first), so JAX cannot train
+    it; the port's CLI exits on it instead. Its synthetic batch is the
+    port's bit for bit."""
+    import argparse
+    from lvv_tpu.config import tiny_config as jax_tiny_config
+    from lvv_tpu.models.registry import build_detector as jax_build
+    mod = _jax_cli()
+    jcfg = jax_tiny_config()
+    args = argparse.Namespace(synthetic=True, batch=1, lr=1e-3, steps=1,
+                              log_every=1, save_every=0, out="unused")
+    det = jax_build("MPPNetE2E", jcfg.model.voxelnext, jcfg.voxelize)
+    with pytest.raises(TypeError, match="proposals"):
+        mod.run_mppnet(args, jcfg, det, np.random.default_rng(0))
+    want = mod.synthetic_mppnet_batch(np.random.default_rng(0), 2, 4, 64, 8,
+                                      32, jcfg.voxelize.point_range)
+    got = cli.synthetic_mppnet_batch(np.random.default_rng(0), 2, 4, 64, 8,
+                                     32, jcfg.voxelize.point_range)
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
 
 
 @pytest.mark.parametrize("option", [

@@ -40,6 +40,7 @@ from lvv_tpu_torch.train.detector import detector_loss
 from torch_zoo_util import (FWD_REL_L2, GRAD_REL_L2, LOSS_REL, Run, batch,
                             check_detections, group_rel_l2, rel_l2,
                             tiny_overrides, train_step)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

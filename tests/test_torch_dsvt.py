@@ -39,6 +39,7 @@ from lvv_tpu_torch.tools import train_detector as cli
 from torch_waymo_util import (FWD_REL_L2, N_POINTS, REPO, Run,
                               check_detections, check_train, jax_module,
                               port_module, rel_l2)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -19,6 +19,7 @@ import torch
 
 from lvv_tpu_torch.ops import attention as tattn
 from torch_parity_util import close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -39,6 +39,7 @@ from lvv_tpu_torch import (VQAModel, encode_prefix_fn, from_jax_params,
 from lvv_tpu_torch.models import vqa as tvqa
 from lvv_tpu_torch.ops import image as timage
 from torch_parity_util import close, inputs, jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -36,6 +36,7 @@ from lvv_tpu.ops import fused_mlp as jmlp
 from lvv_tpu_torch.ops import fused_mlp as M
 from lvv_tpu_torch.ops import quant as Q
 from torch_parity_util import close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

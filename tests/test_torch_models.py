@@ -15,6 +15,7 @@ import torch
 
 from lvv_tpu_torch import VQAModel, from_jax_params, tiny_config
 from torch_parity_util import close, inputs, jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -18,6 +18,7 @@ import pytest
 from lvv_tpu import native as jax_native
 from lvv_tpu_torch import data, native
 from lvv_tpu_torch.tools import precompute_bev
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

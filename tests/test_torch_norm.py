@@ -33,6 +33,7 @@ from lvv_tpu_torch.models.decode_fused import (fused_decode_step,
 from lvv_tpu_torch.models.qwen import init_cache
 from lvv_tpu_torch.ops import fused_mlp as tmlp
 from torch_parity_util import close, jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

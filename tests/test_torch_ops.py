@@ -20,6 +20,7 @@ from lvv_tpu_torch import kernels
 from lvv_tpu_torch.ops import attention as tattn
 from lvv_tpu_torch.ops import fused_mlp as tmlp
 from torch_parity_util import close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

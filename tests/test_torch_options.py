@@ -27,6 +27,7 @@ from lvv_tpu_torch.convert import tensors
 from lvv_tpu_torch.models.clip import CLIPVisionTower
 from lvv_tpu_torch.models.projector import KINDS, MlpProjector
 from torch_parity_util import _leaf, close, inputs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

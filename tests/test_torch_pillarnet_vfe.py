@@ -17,9 +17,10 @@ AnchorHeadMulti against the JAX package's, on the CPU.
 - PillarNet (`torch_waymo_util`: 0.25 m pillars, an 8 x 8 stride-8 map):
   forward, its PillarResBackbone's ids and features, detections, three
   train steps against JAX's with its ReLU gates replayed.
-- The four PillarNet and DSVT presets build on the meta device with
-  exactly the parameter count of JAX's `jax.eval_shape(init)` at full
-  width.
+- The four PillarNet and DSVT presets, the three MPPNet presets and the
+  focal multimodal Voxel R-CNN preset (JAX's init called with an image
+  and proj) build on the meta device with exactly the parameter count of
+  JAX's `jax.eval_shape(init)` at full width.
 """
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,7 @@ from lvv_tpu_torch.ops.voxelize import VoxelGrid as PGrid
 from torch_waymo_util import (FWD_REL_L2, GRAD_REL_L2, REPO, Run,
                               check_detections, check_train, jax_module,
                               port_module, rel_l2)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 
@@ -291,17 +293,47 @@ def test_pillarnet_train_steps_match_jax(run):
     check_train(run.train())
 
 
+def _jax_init_args(name, jc):
+    """ShapeDtypeStructs of the JAX family's init call at the preset's
+    sizes: the focal multimodal Voxel R-CNN with an image and proj (so
+    that its tree holds the image modules), MPPNet's T-frame stack and
+    proposals, MPPNetE2E's bank, frame and proposals."""
+    from lvv_tpu.models.mppnet import MemoryBank
+    from lvv_tpu.models.voxelnext import Detections
+
+    def f32(*shape):
+        return jax.ShapeDtypeStruct(shape, jnp.float32)
+    i32 = jax.ShapeDtypeStruct((), jnp.int32)
+    pts = f32(jc.voxelize.max_points, 4)
+    if not name.startswith("MPPNet"):
+        if getattr(jc.model.voxelnext, "focal_use_img", False):
+            return (pts, i32, f32(375, 1242, 3), f32(3, 4))
+        return (pts, i32)
+    t, per, r = 4, jc.voxelize.max_points // 4, 32
+    props = Detections(boxes=f32(r, 9), scores=f32(r),
+                       labels=jax.ShapeDtypeStruct((r,), jnp.int32),
+                       count=i32)
+    if name == "MPPNet":
+        return (f32(t, per, 4), jax.ShapeDtypeStruct((t,), jnp.int32),
+                props)
+    bank = MemoryBank(points=f32(t - 1, per, 4),
+                      counts=jax.ShapeDtypeStruct((t - 1,), jnp.int32))
+    return (bank, f32(per, 4), i32, props)
+
+
 @pytest.mark.parametrize("preset", ["kitti_pillarnet", "waymo_pillarnet",
-                                    "waymo_dsvt_pillar", "waymo_dsvt_voxel"])
+                                    "waymo_dsvt_pillar", "waymo_dsvt_voxel",
+                                    "waymo_mppnet_4frames",
+                                    "waymo_mppnet_16frames",
+                                    "waymo_mppnet_e2e",
+                                    "kitti_voxel_rcnn_car_focal_multimodal"])
 def test_presets_build_with_jax_parameter_counts(preset):
     path = REPO / "configs" / f"{preset}.json"
     name = C.load_file(path)["_detector"]
     jc, pc = JC.load(JC.VQAConfig, path), C.load(C.VQAConfig, path)
     jm = jax_build(name, jc.model.voxelnext, jc.voxelize)
-    shapes = jax.eval_shape(
-        jm.init, jax.random.PRNGKey(0),
-        jax.ShapeDtypeStruct((jc.voxelize.max_points, 4), jnp.float32),
-        jax.ShapeDtypeStruct((), jnp.int32))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            *_jax_init_args(name, jc))
     want = sum(int(np.prod(x.shape))
                for x in jax.tree_util.tree_leaves(shapes))
     det = build_detector(name, pc.model.voxelnext, pc.voxelize,

@@ -38,6 +38,7 @@ import torch
 
 from chip_smoke import REL_L2_TOL, agreement, kh_whole_row_trap
 from lvv_tpu_torch.ops import attention as A
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -37,6 +37,7 @@ import torch
 from chip_smoke import agreement
 from lvv_tpu_torch.ops import attention as A
 from torch_parity_util import close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

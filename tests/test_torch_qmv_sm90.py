@@ -26,6 +26,7 @@ from chip_smoke import agreement
 from lvv_tpu.ops import quant as jq
 from lvv_tpu_torch.ops import quant as Q
 from torch_parity_util import close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

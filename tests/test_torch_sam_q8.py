@@ -29,6 +29,7 @@ from lvv_tpu_torch.ops import attention as tattn
 from lvv_tpu_torch.ops import fused_mlp as tmlp
 from lvv_tpu_torch.ops import quant as tq
 from torch_parity_util import _leaf, close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -43,6 +43,7 @@ from lvv_tpu_torch.inference import (ContinuousServingEngine,
 from lvv_tpu_torch.inference.server import _buckets_up_to
 from lvv_tpu_torch.tools.serve_vqa import make_handler
 from torch_parity_util import jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

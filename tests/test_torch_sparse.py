@@ -19,6 +19,7 @@ from lvv_tpu_torch.ops import nms as pn
 from lvv_tpu_torch.ops import segment as pseg
 from lvv_tpu_torch.ops import sparse as ps
 from lvv_tpu_torch.ops import voxelize as pv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # by module path: lvv_tpu.ops exports functions under some of these names
 jb, jn, jseg, js, jv = (importlib.import_module(f"lvv_tpu.ops.{m}") for m in

@@ -32,6 +32,7 @@ from lvv_tpu_torch.convert import convert_swin_state
 from lvv_tpu_torch.convert.params import _convert, _flatten
 from lvv_tpu_torch.models import swin as PS
 from torch_zoo_util import FWD_REL_L2, random_tree, rel_l2
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -48,6 +48,7 @@ from lvv_tpu_torch.train import (count_by_group, create_state, group_labels,
                                  make_optimizer, make_schedule,
                                  make_train_step)
 from torch_parity_util import close, jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

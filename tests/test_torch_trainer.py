@@ -30,6 +30,7 @@ from lvv_tpu_torch.data import (DeterministicSampler, MixedNuDataset,
 from lvv_tpu_torch.train import (CheckpointManager, Trainer, create_state,
                                  make_optimizer, metrics)
 from lvv_tpu_torch.utils import SummaryWriter
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

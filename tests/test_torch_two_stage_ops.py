@@ -26,6 +26,7 @@ from lvv_tpu_torch.ops import pool as pp
 from lvv_tpu_torch.ops import sampling as psamp
 from lvv_tpu_torch.ops import sparse as ps
 from lvv_tpu_torch.ops import voxel_query as pvq
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jp, jsamp, js, jvq = (importlib.import_module(f"lvv_tpu.ops.{m}") for m in
                       ("pool", "sampling", "sparse", "voxel_query"))

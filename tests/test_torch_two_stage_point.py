@@ -13,13 +13,13 @@ converter and train CLI.
   gradient within GRAD_REL_L2).
 - A reference trait, kept and pinned (ROADMAP.md queue 3): SECOND-IoU's
   IoU loss is the mean over every proposal slot, the empty ones too.
-- The registry builds the 13 ported names and raises for the rest
+- The registry builds all 17 registered names, none left to port
   (`from_jax_detector_params` fills every key of each family: every Run
   of the two-stage files converts a whole tree, and the converter raises
   on a key it leaves unfilled); each KITTI preset's `_detector` names its
   family; the train CLI trains PV-RCNN's and PointRCNN's presets at
-  tiny_config()'s sizes and reloads the checkpoint bit-equal, and exits
-  on the focal Voxel R-CNN preset naming its ROADMAP item.
+  tiny_config()'s sizes and reloads the checkpoint bit-equal, and trains
+  the focal Voxel R-CNN preset's LiDAR-only focal trunk.
 """
 import pathlib
 
@@ -37,6 +37,7 @@ from torch_two_stage_util import (FAMILIES, Run, compare_outputs, losses,
                                   torch_tree)
 from torch_zoo_util import (GRAD_REL_L2, LOSS_REL, group_rel_l2,
                             tiny_overrides, train_step)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 
@@ -123,20 +124,15 @@ def test_second_iou_loss_averages_every_slot(runs):
 
 
 def test_registry_builds_the_ported_families():
-    assert len(PORTED) == 15
+    assert len(PORTED) == len(DETECTORS) == 17
     assert set(FAMILIES) <= set(PORTED)
-    left = sorted(set(DETECTORS) - set(PORTED))
-    assert left == ["MPPNet", "MPPNetE2E"]
+    assert sorted(set(DETECTORS) - set(PORTED)) == []
     cfg = tiny_config()
-    for name in FAMILIES:
+    for name in (*FAMILIES, "MPPNet", "MPPNetE2E"):
         det = build_detector(name, cfg.model.voxelnext, cfg.voxelize,
                              device="cpu")
         assert type(det).__name__ == PORTED[name][1] and not det.training
         assert all(p.requires_grad for p in det.parameters())
-    for name in left:
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            build_detector(name, cfg.model.voxelnext, cfg.voxelize,
-                           device="meta")
 
 
 KITTI_PRESETS = {"kitti_pv_rcnn": "PVRCNN",
@@ -178,10 +174,16 @@ def test_cli_trains_the_kitti_presets_family(preset, family, tmp_path):
     assert (tmp_path / "checkpoints" / "step_1").is_dir()
 
 
-def test_cli_exits_on_the_focal_voxel_rcnn_preset(tmp_path):
-    with pytest.raises(SystemExit, match="focal / semseg"):
-        cli.main(["--config", str(REPO / "configs" /
-                                  "kitti_voxel_rcnn_car_focal_multimodal."
-                                  "json"), "--synthetic", "--steps", "1",
-                  "--out", str(tmp_path), "--device", "cpu",
-                  *tiny_overrides()])
+def test_cli_exits_on_the_focal_voxel_rcnn_preset(tmp_path, capsys):
+    """The CLI no longer exits on the focal preset: it trains the
+    LiDAR-only focal trunk (the step passes no image, as JAX's does), its
+    importance loss in the log, the image branch without a gradient."""
+    det, metrics = cli.main(
+        ["--config", str(REPO / "configs" /
+                         "kitti_voxel_rcnn_car_focal_multimodal.json"),
+         "--synthetic", "--steps", "2", "--out", str(tmp_path), "--device",
+         "cpu", *tiny_overrides()])
+    assert det.focal and hasattr(det, "semseg")
+    assert "loss_box_of_pts" in capsys.readouterr().out
+    assert np.isfinite(metrics["loss_box_of_pts"])
+    assert all(p.grad is None for p in det.semseg.parameters())

@@ -22,6 +22,7 @@ import torch
 from lvv_tpu_torch.models import pv_rcnn_pp as P
 from torch_two_stage_util import Run, compare_outputs, losses
 from torch_zoo_util import GRAD_REL_L2, LOSS_REL, group_rel_l2, train_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

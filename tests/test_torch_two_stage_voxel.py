@@ -11,7 +11,9 @@ on a 72 x 72 x 16 grid).
   is the RPN's and the point-part head's only, so its RoI head gets no
   gradient; Voxel R-CNN's RoI loss reaches the RPN's box branch through
   the proposals, which JAX does not stop (PV-RCNN does).
-- A focal Voxel R-CNN config raises, naming its ROADMAP item.
+- A focal Voxel R-CNN config builds the focal trunk (its image branch
+  only with `focal_use_img`) and detects (tests/test_torch_focal.py holds
+  it against JAX).
 """
 import dataclasses
 
@@ -22,6 +24,7 @@ import torch
 from lvv_tpu_torch.models.registry import build_detector
 from torch_two_stage_util import Run, compare_outputs, losses
 from torch_zoo_util import LOSS_REL
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 
@@ -115,8 +118,17 @@ def test_voxel_rcnn_roi_loss_reaches_the_rpn_box_branch(runs):
 
 
 def test_focal_voxel_rcnn_raises():
+    """A focal config no longer raises: it builds the focal trunk (no
+    image branch without `focal_use_img`; tests/test_torch_focal.py holds
+    it against JAX)."""
     from lvv_tpu_torch import tiny_config
+    from lvv_tpu_torch.models.focal_conv import (FocalMultiScaleBackbone3D,
+                                                 FocalSparseConv)
     cfg = tiny_config()
-    det = dataclasses.replace(cfg.model.voxelnext, focal=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        build_detector("VoxelRCNN", det, cfg.voxelize, device="cpu")
+    det = build_detector("VoxelRCNN", dataclasses.replace(
+        cfg.model.voxelnext, focal=True), cfg.voxelize, device="cpu")
+    assert isinstance(det.backbone3d, FocalMultiScaleBackbone3D)
+    assert not hasattr(det, "semseg")
+    assert not hasattr(det.backbone3d, "focal_multimodal")
+    assert sum(isinstance(m, FocalSparseConv) for m in det.modules()) == 3
+    assert not det.training

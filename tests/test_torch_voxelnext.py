@@ -18,6 +18,7 @@ from lvv_tpu_torch import tiny_config
 from lvv_tpu_torch.config import save
 from lvv_tpu_torch.data import load_points
 from torch_voxelnext_util import check_detector, cloud, make_runs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

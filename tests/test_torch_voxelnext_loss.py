@@ -27,6 +27,7 @@ from lvv_tpu.ops.sparse import SparseTensor as JaxSparse
 from lvv_tpu_torch import tiny_config
 from lvv_tpu_torch.models.voxelnext_loss import _scatter_last
 from lvv_tpu_torch.ops.sparse import SENTINEL, SparseTensor
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

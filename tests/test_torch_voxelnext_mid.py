@@ -6,6 +6,7 @@ import torch
 
 from lvv_tpu_torch.ops import sparse as S
 from torch_voxelnext_util import check_detector, make_runs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

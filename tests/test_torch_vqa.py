@@ -27,6 +27,7 @@ from lvv_tpu_torch import (VQAModel, default_config, from_jax_params,
                            prepare_serving_params_fused, tiny_config)
 from lvv_tpu_torch.models.qwen import init_cache
 from torch_parity_util import close, inputs, jax_model_and_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

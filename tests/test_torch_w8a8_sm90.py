@@ -27,6 +27,7 @@ import torch
 from chip_smoke import Q8_REL_L2_TOL, agreement
 from lvv_tpu.ops import quant as jq
 from lvv_tpu_torch.ops import quant as Q
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

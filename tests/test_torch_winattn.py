@@ -26,6 +26,7 @@ import torch
 
 from lvv_tpu_torch import kernels
 from lvv_tpu_torch.ops import attention as tattn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

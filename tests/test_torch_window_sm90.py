@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from lvv_tpu_torch.ops import attention as A
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fast
 

@@ -304,14 +304,14 @@ def check_detections(got, want) -> int:
     return count
 
 
-def check_train(r: dict) -> None:
-    """The three steps' metrics, step 1's gradients and the final
-    parameters at the tolerances above."""
+def check_train(r: dict, terms=("hm_loss", "reg_loss")) -> None:
+    """The three steps' metrics (the loss, the family's `terms` and
+    grad_norm), step 1's gradients and the final parameters at the
+    tolerances above."""
     j_metrics, j_first, j_least, j_final = r["jax"]
     p_metrics, p_first, p_final = r["port"]
     for jm, pm in zip(j_metrics, p_metrics):
-        assert set(pm) == set(jm) == {"loss", "hm_loss", "reg_loss",
-                                      "grad_norm"}
+        assert set(pm) == set(jm) == {"loss", "grad_norm", *terms}
         for key, want in jm.items():
             np.testing.assert_allclose(
                 pm[key], want, err_msg=key,
